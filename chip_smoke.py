@@ -1,30 +1,55 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's co-design sweep (``repro_torch``: trace -> augmented
-task graph -> FrozenGraph -> candidate-axis lockstep replay -> ranked
-ExplorationResult) with ``Explorer(engine="torch")`` on the card, through
-the hand-written step-commit kernel, and holds every result against the
-port's exact host engine (``engine="batch"``).  Phases, one line each:
+Drives the port's two paths on the card and holds every kernel on them
+against its plain PyTorch version:
+
+* the co-design sweep (``repro_torch``: trace -> augmented task graph ->
+  FrozenGraph -> candidate-axis lockstep replay -> ranked
+  ExplorationResult) with ``Explorer(engine="torch")``, through the
+  hand-written step-commit kernel, each result held against the port's
+  exact host engine (``engine="batch"``);
+* the paper's tile accelerators (``csrc/tiles.cu``): Fig. 6's traditional
+  build-and-run flow through a fresh build of the ``mxmBlock`` GEMM tile
+  per candidate, and the Fig. 4 Cholesky through the dsyrk, dgemm and
+  dtrsm tiles.
+
+Phases, one line each or more:
 
 1. the card (``nvidia-smi`` name and power limit, torch's name, count);
-2. the kernel build (seconds, ``-Xptxas -v`` registers and spills);
-3. kernel == plain PyTorch version, bit for bit, on seeded states at the
-   main path's shapes, with all-``inf`` pools and ties;
-4. three sweeps: ``trace_matmul(512, 64)`` with a 200-candidate slot ×
+   TF32 is switched off for f32 products (the plain versions run in full
+   f32);
+2. the kernel builds, all started together (seconds, ``-Xptxas -v``
+   registers and spills): ``lockstep_step.cu`` and ``tiles.cu`` at
+   ``TILE`` 64 and 128;
+3. step_commit == plain PyTorch version, bit for bit, on seeded states at
+   the main path's shapes, with all-``inf`` pools and ties;
+4. the tile kernels == plain versions within tolerance at every path
+   shape: ``block_matmul`` at (64,64,64) and (128,128,128) in f32 and
+   bf16, ``syrk_tile`` and ``gemm_update`` at (64, 64), ``trsm_tile`` at
+   (64, 64) with panel 16;
+5. four sweeps: ``trace_matmul(512, 64)`` with a 200-candidate slot ×
    ±SMP ramp (cold, then warm from the recorded orders), the same sweep
    with ``top_k=5, prune=True``, and ``trace_cholesky(512, 64)`` with the
    six Fig. 9 designs each at 1..8 accelerator slots — each ranking must
    agree with the batch engine's at ``TORCH_RTOL`` with the same best
    candidate, no engine demotion, kernel launches > 0 and lanes that went
    through the lockstep path;
-5. the kernel at every ``(P, S, B)`` the sweeps launched it at: kernel ==
+6. step_commit at every ``(P, S, B)`` the sweeps launched it at: kernel ==
    plain version, times by CUDA events and bound at each;
-6. a warm Cholesky sweep plain and under ``torch.profiler`` (device busy
+7. a warm Cholesky sweep plain and under ``torch.profiler`` (device busy
    share, kernels per step, the costliest host operations);
-7. a ``kernels`` JSON line (launches on the sweeps, error against the
-   plain version, times and bound at the commonest path shape) and
-   candidates/s lines.
+8. Fig. 6 at n = 512: the estimator (traces plus ``Explorer(engine=
+   "torch")``) over the six traditional-flow candidates, then each
+   candidate built afresh and run; every product held to ``AA @ BB``;
+9. ``cholesky_via_tiles(512, 64, panel=16)``: exactly 28 syrk, 56
+   gemm_update and 28 trsm launches, ``UᵀU`` held to ``A``;
+10. each tile kernel's time per wrapper call and per bare launch at each
+    path shape by CUDA events, beside its plain version's, the one
+    PyTorch call that computes the same function, and its bound;
+11. a ``kernels`` JSON line (launches on the paths, error against the
+    plain version, times and bound at the commonest path shape) and
+    candidates/s lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
 or without the port's sources beside this file, it prints no result and
@@ -33,10 +58,12 @@ exits non-zero.  Run: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,6 +75,19 @@ HBM_BYTES_PER_S = 3.35e12
 #: sweeps: a wide and deep state, a four-pool one and a ragged one.  After
 #: the sweeps it is held again at every shape they launched it at.
 KERNEL_SHAPES = ((2, 64, 256), (4, 16, 256), (3, 5, 128))
+
+#: Peak rates of an H100 SXM (NVIDIA's data sheet, dense): f32 on the CUDA
+#: cores (a full-precision f32 product cannot use the TF32 tensor cores),
+#: bf16 on the tensor cores.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+#: Fig. 6's and Fig. 4's width: the port's sweeps trace ``(512, 64)``.
+TILE_N = 512
+
+#: Tolerances of ``tests/test_kernels.py`` (kernel vs plain version).
+MATMUL_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SYRK_TOL = (1e-5, 1e-4)     # rtol, atol; gemm_update too
+TRSM_TOL = 2e-4
 
 
 def phase(name: str, text: str) -> None:
@@ -238,6 +278,300 @@ def matmul_ramp(mm, zynq_system, Eligibility, bs, count):
     return out
 
 
+def tile_inputs(torch, np, seed: int, *shapes, dtype="float32"):
+    """Standard-normal f32 matrices from ``seed``, cast to ``dtype``, on
+    the card."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(getattr(torch, dtype)).cuda() for s in shapes]
+
+
+def upper_tile(torch, np, seed: int, bs: int):
+    """A well-conditioned upper-triangular tile, ``chol(m mᵀ + bs I)ᵀ``."""
+    m = np.random.default_rng(seed).standard_normal((bs, bs))
+    spd = (m @ m.T + bs * np.eye(bs)).astype(np.float32)
+    return torch.from_numpy(np.linalg.cholesky(spd).T.copy()).cuda()
+
+
+def ptxas_summary(report: str) -> str:
+    """Kernel count, most registers and spill bytes of a ptxas report."""
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", report))
+    return (f"{len(regs)} kernels, at most {max(regs, default=0)} "
+            f"registers, {spills} bytes of spills")
+
+
+def bound(flops: float, nbytes: float, dtype: str):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over the type's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tile_cases(torch, np, ref, bm, ct, lib128):
+    """Every tile-kernel call of the paths, at its path shape, with its
+    plain version, the PyTorch call that computes the same function, its
+    bare launch, tolerance and bound.  ``block_matmul`` at (128,128,128)
+    runs the ``TILE=128`` build, as the traditional flow's bs-128
+    candidates do; the rest the cached ``TILE=64`` build."""
+    cases = []
+    stream = torch.cuda.current_stream().cuda_stream
+    lib64 = bm.tiles_library()
+    for m, dtype in ((64, "float32"), (128, "float32"), (64, "bfloat16"),
+                     (128, "bfloat16")):
+        a, b = tile_inputs(torch, np, m, (m, m), (m, m), dtype=dtype)
+        lib = lib128 if m == 128 else lib64
+        out = torch.empty_like(a)
+        code = bm.DTYPE_CODES[a.dtype]
+        el = a.element_size()
+        cases.append({
+            "kernel": "block_matmul", "entry": "block_matmul",
+            "shape": [m, m, m], "dtype": dtype,
+            "tile": lib.tiles_tile_edge(),
+            "run": (lambda a=a, b=b, lib=lib, m=m: bm.block_matmul(
+                a, b, block_m=m, block_n=m, block_k=m, library=lib)),
+            "bare": (lambda a=a, b=b, lib=lib, out=out, m=m, code=code:
+                     lib.tiles_gemm_launch(a.data_ptr(), b.data_ptr(), None,
+                                           out.data_ptr(), m, m, m, code,
+                                           code, 0, 0, stream)),
+            "plain": lambda a=a, b=b: ref.matmul(a, b),
+            "library": lambda a=a, b=b: torch.matmul(a, b),
+            "library_call": "torch.matmul(a, b)",
+            "rtol": MATMUL_RTOL[dtype], "atol": MATMUL_RTOL[dtype] * m,
+            "bound": bound(2 * m ** 3, 3 * m * m * el, dtype)})
+    bs = 64
+    a, b, c = tile_inputs(torch, np, 3, (bs, bs), (bs, bs), (bs, bs))
+    out = torch.empty_like(c)
+    cases.append({
+        "kernel": "block_matmul", "entry": "gemm_update",
+        "shape": [bs, bs, bs], "dtype": "float32", "tile": 64,
+        "run": lambda: bm.gemm_update_tile(a, b, c),
+        "bare": lambda: lib64.tiles_gemm_launch(
+            b.data_ptr(), a.data_ptr(), c.data_ptr(), out.data_ptr(), bs, bs,
+            bs, 0, 0, 1, 1, stream),
+        "plain": lambda: ref.gemm_update(a, b, c),
+        "library": lambda: torch.addmm(c, b.T, a, alpha=-1),
+        "library_call": "torch.addmm(c, b.T, a, alpha=-1)",
+        "rtol": SYRK_TOL[0], "atol": SYRK_TOL[1],
+        "bound": bound(2 * bs ** 3 + bs * bs, 4 * bs * bs * 4, "float32")})
+    cases.append({
+        "kernel": "syrk_tile", "entry": "syrk_tile",
+        "shape": [bs, bs], "dtype": "float32", "tile": 64,
+        "run": lambda: ct.syrk_tile(a, c),
+        "bare": lambda: lib64.tiles_gemm_launch(
+            a.data_ptr(), a.data_ptr(), c.data_ptr(), out.data_ptr(), bs, bs,
+            bs, 0, 0, 1, 1, stream),
+        "plain": lambda: ref.syrk(a, c),
+        "library": lambda: torch.addmm(c, a.T, a, alpha=-1),
+        "library_call": "torch.addmm(c, a.T, a, alpha=-1)",
+        "rtol": SYRK_TOL[0], "atol": SYRK_TOL[1],
+        "bound": bound(2 * bs ** 3 + bs * bs, 3 * bs * bs * 4, "float32")})
+    up = upper_tile(torch, np, 4, bs)
+    (rhs,) = tile_inputs(torch, np, 5, (bs, bs))
+    x = torch.empty_like(rhs)
+    cases.append({
+        "kernel": "trsm_tile", "entry": "trsm_tile",
+        "shape": [bs, bs], "dtype": "float32", "panel": 16, "tile": None,
+        "run": lambda: ct.trsm_tile(up, rhs, panel=16),
+        "bare": lambda: lib64.tiles_trsm_launch(
+            up.data_ptr(), rhs.data_ptr(), x.data_ptr(), bs, bs, 0, stream),
+        "plain": lambda: ref.trsm(up, rhs),
+        "library": lambda: torch.linalg.solve_triangular(up.mT, rhs,
+                                                         upper=False),
+        "library_call": "torch.linalg.solve_triangular(a.mT, b, upper=False)",
+        "rtol": TRSM_TOL, "atol": TRSM_TOL,
+        # forward substitution: bs² flops per column; the upper triangle
+        # of A, B and X each moved once
+        "bound": bound(bs * bs * bs, (bs * (bs + 1) // 2 + 2 * bs * bs) * 4,
+                       "float32")})
+    return cases
+
+
+def check_tiles(torch, cases):
+    """Each case's kernel against its plain version; exits on any
+    disagreement.  Returns ``{case index: max abs error}``."""
+    errs = {}
+    for i, case in enumerate(cases):
+        got = case["run"]()
+        want = case["plain"]()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), want.float(),
+                                 rtol=case["rtol"], atol=case["atol"]))
+        errs[i] = err
+        phase("tiles==plain", f"{case['entry']} {case['shape']} "
+              f"{case['dtype']} (TILE={case['tile']}): max_abs_err={err} "
+              f"within rtol={case['rtol']} atol={case['atol']}: {ok}")
+        if not ok:
+            raise SystemExit(f"{case['entry']} disagrees with its plain "
+                             f"version at {case['shape']} {case['dtype']}")
+    return errs
+
+
+def time_tiles(torch, cases, errs):
+    """Per-launch times of each case by CUDA events; bare launches are
+    checked for a zero return code."""
+    rows = []
+    for i, case in enumerate(cases):
+        rc = case["bare"]()
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise SystemExit(f"bare {case['entry']} launch returned {rc}")
+        row = {k: case[k] for k in ("kernel", "entry", "shape", "dtype",
+                                    "tile", "library_call")}
+        row.update(ms=time_ms(case["run"], 2000),
+                   kernel_only_ms=time_ms(case["bare"], 2000),
+                   plain_ms=time_ms(case["plain"], 500),
+                   library_ms=time_ms(case["library"], 500),
+                   bound_ms=case["bound"][0], bound_by=case["bound"][1],
+                   max_abs_err=errs[i])
+        rows.append(row)
+        phase("tile kernel", f"{row['entry']} {row['shape']} {row['dtype']}"
+              f" (TILE={row['tile']}): {row['ms'] * 1e3:.2f} us per wrapper "
+              f"call, {row['kernel_only_ms'] * 1e3:.2f} us per bare launch, "
+              f"plain version {row['plain_ms'] * 1e3:.2f} us, "
+              f"{row['library_call']} {row['library_ms'] * 1e3:.2f} us, "
+              f"bound {row['bound_ms'] * 1e3:.4f} us ({row['bound_by']})")
+    return rows
+
+
+def fig6_flow(torch, np, mm, Explorer, a9_smp_seconds, tr, bm, ls):
+    """Fig. 6 at ``TILE_N``: the estimator's time for the six
+    traditional-flow candidates, then each built afresh and run.  Returns
+    a summary; exits if a product is wrong or a build was not fresh."""
+    t0 = time.perf_counter()
+    traces = {bs: mm.trace_matmul(n=TILE_N, bs=bs, verify=False)
+              for bs in (64, 128)}
+    trace_s = time.perf_counter() - t0
+    reports = mm.report_map()
+    a9 = a9_smp_seconds("float32")
+    names = {tr.candidate_name(*c) for c in tr.FIG6_CANDIDATES}
+    ls.LAUNCHES = 0
+    t0 = time.perf_counter()
+    best = {}
+    for bs, clist in mm.candidates().items():
+        cands = [c for c in clist if c.name in names]
+        res = Explorer(traces[bs], reports, engine="torch",
+                       smp_seconds_fn=a9).explore(cands)
+        torch.cuda.synchronize()
+        if res.best_name is None:
+            raise SystemExit(f"the estimator ranked no bs={bs} candidate")
+        best[bs] = res.best_name
+    explore_s = time.perf_counter() - t0
+    est_s = trace_s + explore_s
+    est_steps = ls.LAUNCHES
+
+    bm.LAUNCHES.clear()
+    bm.SHAPES.clear()
+    runs = []
+    for bs, het, n_acc in tr.FIG6_CANDIDATES:
+        run = tr.traditional_candidate(TILE_N, bs, het)
+        aa, bb = tr.matmul_blocks(TILE_N, bs)
+        want = np.block(aa) @ np.block(bb)
+        err = float(np.abs(run.product - want).max())
+        ok = bool(np.allclose(run.product, want, rtol=2e-3, atol=2e-3))
+        name = tr.candidate_name(bs, het, n_acc)
+        phase("traditional", f"{name}: fresh TILE={run.tile} build "
+              f"{run.build_s:.3f} s, run {run.run_s:.3f} s, "
+              f"{run.fpga_tasks} FPGA tasks on the card, {run.smp_tasks} "
+              f"SMP tasks on the host, max_abs_err vs AA@BB {err}: {ok}; "
+              f"ptxas: {ptxas_summary(run.ptxas)}")
+        if not ok or run.build_s <= 0:
+            raise SystemExit(f"traditional candidate {name} failed")
+        runs.append({"name": name, "build_s": run.build_s,
+                     "run_s": run.run_s, "fpga_tasks": run.fpga_tasks,
+                     "smp_tasks": run.smp_tasks, "max_abs_err": err})
+    launches = bm.LAUNCHES["block_matmul"]
+    shapes = dict(bm.SHAPES)
+    if launches != sum(r["fpga_tasks"] for r in runs) or launches == 0:
+        raise SystemExit(f"traditional flow: {launches} block_matmul "
+                         f"launches for {sum(r['fpga_tasks'] for r in runs)}"
+                         f" FPGA tasks")
+    trad_s = sum(r["build_s"] + r["run_s"] for r in runs)
+    summary = {"n": TILE_N, "candidates": len(runs),
+               "estimator_s": est_s, "estimator_trace_s": trace_s,
+               "estimator_explore_s": explore_s, "estimator_best": best,
+               "estimator_step_commit_launches": est_steps,
+               "traditional_s": trad_s,
+               "traditional_build_s": sum(r["build_s"] for r in runs),
+               "traditional_run_s": sum(r["run_s"] for r in runs),
+               "ratio": trad_s / est_s, "block_matmul_launches": launches,
+               "launch_shapes": {str(k): v for k, v in shapes.items()},
+               "runs": runs}
+    phase("fig6", f"estimator {est_s:.3f} s (traces {trace_s:.3f} s + "
+          f"torch sweep {explore_s:.3f} s, {est_steps} step_commit "
+          f"launches) vs traditional build-and-run "
+          f"{trad_s:.3f} s over {len(runs)} candidates: ratio "
+          f"{trad_s / est_s:.2f}x (printed, not gated)")
+    return summary
+
+
+def cholesky_flow(torch, np, tr, bm, ct):
+    """``cholesky_via_tiles(TILE_N, 64, panel=16)`` on the card: the launch
+    counts of Fig. 4's loop at nb = 8 and ``UᵀU == A``; exits otherwise."""
+    bm.LAUNCHES.clear()
+    ct.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    u = tr.cholesky_via_tiles(TILE_N, 64, 16, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"syrk_tile": ct.LAUNCHES["syrk_tile"],
+              "gemm_update": bm.LAUNCHES["gemm_update"],
+              "trsm_tile": ct.LAUNCHES["trsm_tile"],
+              "block_matmul": bm.LAUNCHES["block_matmul"]}
+    a = tr.spd_matrix(TILE_N, 0)
+    un = u.cpu().numpy()
+    err = float(np.abs(un.T @ un - a).max())
+    ok = bool(np.allclose(un.T @ un, a, rtol=2e-3, atol=2e-1))
+    upper = bool(np.array_equal(un, np.triu(un)))
+    u_cpu = tr.cholesky_via_tiles(TILE_N, 64, 16, seed=0,
+                                  device="cpu").numpy()
+    vs_cpu = float(np.abs(un - u_cpu).max())
+    want = {"syrk_tile": 28, "gemm_update": 56, "trsm_tile": 28,
+            "block_matmul": 0}
+    phase("cholesky", f"cholesky_via_tiles({TILE_N}, 64, panel=16) in "
+          f"{wall:.3f} s: launches {counts} (Fig. 4 at nb=8: {want}); "
+          f"max |UᵀU - A| = {err}, within rtol 2e-3 atol 2e-1: {ok}; "
+          f"upper: {upper}; max |U - U on the CPU's plain path| = {vs_cpu}")
+    if counts != want or not ok or not upper:
+        raise SystemExit("cholesky_via_tiles failed on the card")
+    return {"wall_s": wall, "launches": counts, "max_abs_err_UtU": err,
+            "max_abs_diff_vs_cpu": vs_cpu}
+
+
+def tile_kernel_rows(rows, fig6, chol):
+    """The ``kernels`` line's entries of the tile kernels: each at its
+    commonest path shape (f32, 64), with all its rows beside."""
+    src = "src/repro_torch/kernels/csrc/tiles.cu"
+    meta = {
+        "block_matmul": ("src/repro/kernels/block_matmul.py:34",
+                         {"traditional_flow": fig6["block_matmul_launches"],
+                          "cholesky_gemm_update":
+                              chol["launches"]["gemm_update"]}),
+        "syrk_tile": ("src/repro/kernels/cholesky_tiles.py:34",
+                      {"cholesky": chol["launches"]["syrk_tile"]}),
+        "trsm_tile": ("src/repro/kernels/cholesky_tiles.py:86",
+                      {"cholesky": chol["launches"]["trsm_tile"]}),
+    }
+    out = []
+    for name, (replaces, by_path) in meta.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        top = mine[0]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in mine
+                               if r["dtype"] == "float32"),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "kernel_only_ms": top["kernel_only_ms"],
+            "timed_shape": top["shape"], "launches_by_path": by_path,
+            "by_shape": mine})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -253,33 +587,53 @@ def main() -> int:
     import numpy as np
     from repro_torch.apps import cholesky as ch
     from repro_torch.apps import matmul as mm
+    from repro_torch.apps import traditional as tr
     from repro_torch.core import Explorer, a9_smp_seconds, zynq_system
     from repro_torch.core.augment import Eligibility
     from repro_torch.core.explore import Candidate
     from repro_torch.core.replay import TORCH_RTOL, rankings_equivalent
+    from repro_torch.kernels import block_matmul as bm
     from repro_torch.kernels import build
+    from repro_torch.kernels import cholesky_tiles as ct
     from repro_torch.kernels import lockstep_step as ls
+    from repro_torch.kernels import ref
 
-    # 1. the card
+    # 1. the card; the plain versions' f32 products in full f32, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     power_line = card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     phase("card", f"{power_line} | torch: {kind} x{count} | torch "
-          f"{torch.__version__} CUDA {torch.version.cuda}")
+          f"{torch.__version__} CUDA {torch.version.cuda} | "
+          f"torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
 
-    # 2. the kernel build
+    # 2. the kernel builds, one nvcc per library, all started together
+    builds = ((ls.SOURCE, None), (bm.SOURCE, None), (bm.SOURCE, {"TILE": 128}))
     t0 = time.perf_counter()
-    ls._lib()
-    info = build.BUILD_INFO[ls.SOURCE]
-    ptxas = "; ".join(info["ptxas"].splitlines()) or "(no ptxas report)"
-    phase("build", f"{ls.SOURCE} for sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s):"
-          f" {ptxas}")
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = [f.result() for f in [pool.submit(build.load, src, defines)
+                                      for src, defines in builds]]
+    wall = time.perf_counter() - t0
+    for src, defines in builds:
+        info = build.BUILD_INFO[build.label(src, defines)]
+        ptxas = "; ".join(info["ptxas"].splitlines()) or "(no ptxas report)"
+        phase("build", f"{build.label(src, defines)} for sm_90a: nvcc "
+              f"{info['seconds']:.2f} s (all builds {wall:.2f} s of wall): "
+              f"{ptxas}")
+    lib128 = bm.tiles_library(built[2])
+    if lib128.tiles_tile_edge() != 128 or \
+            bm.tiles_library().tiles_tile_edge() != 64:
+        raise SystemExit("tiles.cu builds have the wrong TILE")
 
-    # 3. kernel vs plain version on the card
+    # 3. step_commit vs plain version on the card
     worst_err = kernel_check(ls, torch, np, KERNEL_SHAPES, "kernel==plain", 0)
 
-    # 4. the sweeps: torch on the card, then batch on the host
+    # 4. the tile kernels vs plain versions at every path shape
+    cases = tile_cases(torch, np, ref, bm, ct, lib128)
+    tile_errs = check_tiles(torch, cases)
+
+    # 5. the sweeps: torch on the card, then batch on the host
     sweeps = []
     mm_tr = mm.trace_matmul(n=512, bs=64)
     mm_rep = mm.report_map()
@@ -354,7 +708,7 @@ def main() -> int:
     sweep("matmul512_200_top5_prune", mm_tr, mm_rep, mm_a9, mm_cands,
           top_k=5, prune=True)
 
-    # 5. the kernel at the shapes the sweeps launched it at: kernel ==
+    # 6. the kernel at the shapes the sweeps launched it at: kernel ==
     # plain version at each, times at each (and at the first check shape,
     # for comparison), the line's at the commonest
     shapes = [sh for sh, _ in path_shapes.most_common()]
@@ -388,7 +742,7 @@ def main() -> int:
         "by_shape": by_shape,
     }
 
-    # 6. where a warm sweep's time goes on the card
+    # 7. where a warm sweep's time goes on the card
     prof = profile_sweep(torch, Explorer, ch_tr, ch_rep, ch_a9, ch_cands,
                          libs[("cholesky512_48_cold", "torch")], ls)
     phase("profile", json.dumps({"sweep": "cholesky512_48_warm", **prof}))
@@ -396,7 +750,20 @@ def main() -> int:
         f"{s['sweep']}: torch {s['torch_cand_per_s']:.1f} cand/s "
         f"({s['launches_per_s']:.0f} steps/s), batch "
         f"{s['batch_cand_per_s']:.1f} cand/s" for s in sweeps))
-    print(json.dumps({"kernels": [kern]}))
+
+    # 8. Fig. 6: the estimator against build-and-run, fresh builds
+    fig6 = fig6_flow(torch, np, mm, Explorer, a9_smp_seconds, tr, bm, ls)
+    phase("fig6 summary", json.dumps(fig6))
+
+    # 9. the Fig. 4 Cholesky through the tiles
+    chol = cholesky_flow(torch, np, tr, bm, ct)
+
+    # 10. the tile kernels' times at the path shapes
+    rows = time_tiles(torch, cases, tile_errs)
+
+    # 11. the kernels line
+    print(json.dumps({"kernels": [kern] + tile_kernel_rows(rows, fig6,
+                                                           chol)}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

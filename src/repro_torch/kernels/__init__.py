@@ -1,8 +1,16 @@
 # Hand-written Hopper kernels of the port, one per TPU kernel on the path:
 #
-#   lockstep_step — step-commit of the torchsim candidate-axis scan
-#                   (replaces repro/kernels/lockstep_step.py::step_commit)
+#   lockstep_step  — step-commit of the torchsim candidate-axis scan
+#                    (replaces repro/kernels/lockstep_step.py::step_commit)
+#   block_matmul   — the paper's mxmBlock tile, and the Cholesky dgemm tile
+#                    (gemm_update_tile) through the same kernel
+#                    (replaces repro/kernels/block_matmul.py::block_matmul)
+#   cholesky_tiles — the dsyrk and dtrsm tiles of the Fig. 4 Cholesky
+#                    (replace repro/kernels/cholesky_tiles.py::syrk_tile
+#                    and ::trsm_tile)
 #
-# Each wrapper launches its CUDA kernel for a CUDA tensor and runs its
-# plain PyTorch version, in the same module, for a CPU tensor.  Sources
-# live in csrc/ and are built by build.py at first use, never on import.
+# ops holds the public wrappers with the JAX package's padding and shape
+# contracts, ref the plain PyTorch versions.  Each wrapper launches its
+# CUDA kernel for a CUDA tensor and runs its plain version for a CPU
+# tensor.  Sources live in csrc/ (lockstep_step.cu, tiles.cu) and are built
+# by build.py at first use, never on import.

@@ -48,7 +48,8 @@ def imported_modules(path):
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"torchsim.py", "lockstep_step.py", "explore.py",
-            "chip_smoke.py", "carry.py"} <= names
+            "chip_smoke.py", "carry.py", "block_matmul.py",
+            "cholesky_tiles.py", "ops.py", "ref.py", "traditional.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
