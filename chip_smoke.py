@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's two paths on the card and holds every kernel on them
+Drives the port's three paths on the card and holds every kernel on them
 against its plain PyTorch version:
 
 * the co-design sweep (``repro_torch``: trace -> augmented task graph ->
@@ -12,7 +12,11 @@ against its plain PyTorch version:
 * the paper's tile accelerators (``csrc/tiles.cu``): Fig. 6's traditional
   build-and-run flow through a fresh build of the ``mxmBlock`` GEMM tile
   per candidate, and the Fig. 4 Cholesky through the dsyrk, dgemm and
-  dtrsm tiles.
+  dtrsm tiles;
+* the LM serve path (``repro_torch.serve.engine.Engine``) on qwen3-0.6b
+  at its published full width, in bf16 with weights drawn from a seeded
+  ``torch.Generator``, through the hand-written flash-attention kernel
+  (``csrc/flash_attention.cu``) on every prefill.
 
 Phases, one line each or more:
 
@@ -20,14 +24,17 @@ Phases, one line each or more:
    TF32 is switched off for f32 products (the plain versions run in full
    f32);
 2. the kernel builds, all started together (seconds, ``-Xptxas -v``
-   registers and spills): ``lockstep_step.cu`` and ``tiles.cu`` at
-   ``TILE`` 64 and 128;
+   registers and spills): ``lockstep_step.cu``, ``tiles.cu`` at ``TILE``
+   64 and 128, and ``flash_attention.cu``;
 3. step_commit == plain PyTorch version, bit for bit, on seeded states at
    the main path's shapes, with all-``inf`` pools and ties;
 4. the tile kernels == plain versions within tolerance at every path
    shape: ``block_matmul`` at (64,64,64) and (128,128,128) in f32 and
    bf16, ``syrk_tile`` and ``gemm_update`` at (64, 64), ``trsm_tile`` at
-   (64, 64) with panel 16;
+   (64, 64) with panel 16; ``flash_attention`` == plain version at the
+   serve path's shape (16, 8, 512, 512, 128) bf16 causal (GQA 2:1), a
+   padded length through ``ops.attention`` (T = S = 300), gemma2's local
+   layer (8 heads over 4, D 256, window 256, softcap 50) and in f32;
 5. four sweeps: ``trace_matmul(512, 64)`` with a 200-candidate slot ×
    ±SMP ramp (cold, then warm from the recorded orders), the same sweep
    with ``top_k=5, prune=True``, and ``trace_cholesky(512, 64)`` with the
@@ -47,7 +54,22 @@ Phases, one line each or more:
 10. each tile kernel's time per wrapper call and per bare launch at each
     path shape by CUDA events, beside its plain version's, the one
     PyTorch call that computes the same function, and its bound;
-11. a ``kernels`` JSON line (launches on the paths, error against the
+11. serve qwen3-0.6b (full width, bf16, seed 0) through ``Engine(slots=
+    4)``: 8 requests of 512-token prompts, 32 new tokens each, with the
+    flash counts set to 0 just before and read just after (224 launches,
+    all at the path shape); prefill tokens/s and decode ms per step; the
+    kernel route's last-position prefill logits against the plain route's
+    (``attn_impl="naive"``, same weights); and ``examples/serve_e2e.py``'s
+    self-check: one teacher-forced ``forward`` per request over its
+    served sequence (T = 543, padded to 640 by ``ops.attention``), where
+    every served token's logit must be within ``SELFCHECK_TOL`` of its
+    position's maximum; then one prefill and one decode step under
+    ``torch.profiler`` (device busy share, kernels, costliest operations);
+12. ``flash_attention`` at the path shape by CUDA events, per wrapper
+    call and per bare launch, beside its plain version,
+    ``F.scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)`` and its bound;
+13. a ``kernels`` JSON line (launches on the paths, error against the
     plain version, times and bound at the commonest path shape) and
     candidates/s lines.
 
@@ -88,6 +110,22 @@ TILE_N = 512
 MATMUL_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SYRK_TOL = (1e-5, 1e-4)     # rtol, atol; gemm_update too
 TRSM_TOL = 2e-4
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}     # rtol = atol
+
+#: The serve path's flash launch: qwen3-0.6b's prefill of one 512-token
+#: prompt, ``(BH, BKV, T, S, D)`` in bf16, causal.
+FLASH_PATH = (16, 8, 512, 512, 128)
+
+#: The serve phase: arch, requests, prompt length, new tokens, slots.
+SERVE = {"arch": "qwen3-0.6b", "requests": 8, "prompt_len": 512,
+         "max_new": 32, "slots": 4}
+
+#: bf16 tolerances of the serve phase, on logits (f32 after a bf16
+#: unembedding): the kernel route's last-position prefill logits against
+#: the plain route's (max abs difference), and a served token's logit
+#: below its position's maximum in the teacher-forced forward.
+ROUTE_ATOL = 0.1
+SELFCHECK_TOL = 0.1
 
 
 def phase(name: str, text: str) -> None:
@@ -540,6 +578,277 @@ def cholesky_flow(torch, np, tr, bm, ct):
             "max_abs_diff_vs_cpu": vs_cpu}
 
 
+def flash_pairs(t: int, s: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks keep: the products the work needs
+    (a kernel that skips masked tiles does no more than this plus its
+    tiles' ragged diagonal)."""
+    import numpy as np
+    q = np.arange(t)[:, None]
+    k = np.arange(s)[None, :]
+    m = np.ones((t, s), bool)
+    if causal:
+        m &= k <= q
+    if window > 0:
+        m &= k > q - window
+    return int(m.sum())
+
+
+def flash_cases(torch, np, fa, ops):
+    """The flash kernel's check cases: each runs the wrapper (or
+    ``ops.attention``, which pads) on seeded inputs on the card."""
+    specs = [  # label, (BH, BKV, T, S, D), dtype, window, softcap, padded
+        ("path", FLASH_PATH, "bfloat16", 0, 0.0, False),
+        ("padded", (16, 8, 300, 300, 128), "bfloat16", 0, 0.0, True),
+        ("gemma2_local", (8, 4, 512, 512, 256), "bfloat16", 256, 50.0, False),
+        ("f32", FLASH_PATH, "float32", 0, 0.0, False),
+    ]
+    cases = []
+    for i, (label, (bh, bkv, t, s, d), dtype, window, cap, padded) \
+            in enumerate(specs):
+        q, k, v = tile_inputs(torch, np, 10 + i, (bh, t, d), (bkv, s, d),
+                              (bkv, s, d), dtype=dtype)
+        kw = dict(causal=True, window=window, softcap=cap)
+        run = ((lambda q=q, k=k, v=v, kw=kw: ops.attention(q, k, v, **kw))
+               if padded else
+               (lambda q=q, k=k, v=v, kw=kw: fa.flash_attention(q, k, v,
+                                                                **kw)))
+        cases.append({"label": label, "shape": [bh, bkv, t, s, d],
+                      "dtype": dtype, "window": window, "softcap": cap,
+                      "q": q, "k": k, "v": v, "kw": kw, "run": run,
+                      "padded": padded})
+    return cases
+
+
+def check_flash(torch, ref, cases):
+    """Each case's kernel against the plain version; exits on any
+    disagreement.  Returns ``{label: max abs error}``."""
+    errs = {}
+    for case in cases:
+        got = case["run"]()
+        want = ref.attention(case["q"], case["k"], case["v"], **case["kw"])
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[case["dtype"]]
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol)) and got.dtype == want.dtype
+        errs[case["label"]] = err
+        phase("flash==plain", f"{case['label']} (BH,BKV,T,S,D)="
+              f"{case['shape']} {case['dtype']} window={case['window']} "
+              f"softcap={case['softcap']} via "
+              f"{'ops.attention' if case['padded'] else 'flash_attention'}: "
+              f"max_abs_err={err} within rtol=atol={tol}: {ok}")
+        if not ok:
+            raise SystemExit(f"flash_attention disagrees with its plain "
+                             f"version at {case['label']}")
+    return errs
+
+
+def time_flash(torch, F, fa, ref, case):
+    """The flash kernel's times at ``case`` by CUDA events: per wrapper
+    call, per bare launch, the plain version, the one PyTorch call that
+    computes the same function, and the bound."""
+    q, k, v = case["q"], case["k"], case["v"]
+    bh, bkv, t, s, d = case["shape"]
+    lib = fa.library()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    code = fa.DTYPE_CODES[q.dtype]
+    scale = d ** -0.5
+
+    def bare():
+        return lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+            bkv, t, s, d, code, 1, 0, 0.0, scale, stream)
+
+    if bare() != 0:
+        raise SystemExit("bare flash_attention launch failed")
+    q4, k4, v4 = q[None], k[None], v[None]
+    row = {"shape": case["shape"], "dtype": case["dtype"],
+           "ms": time_ms(case["run"], 200),
+           "kernel_only_ms": time_ms(bare, 200),
+           "plain_ms": time_ms(lambda: ref.attention(q, k, v, **case["kw"]),
+                               50),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q4, k4, v4, is_causal=True, enable_gqa=True), 200),
+           "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                           "is_causal=True, enable_gqa=True)"}
+    pairs = flash_pairs(t, s, True, case["window"])
+    el = q.element_size()
+    nbytes = (2 * bh * t * d + 2 * bkv * s * d) * el
+    flops = 4 * d * pairs * bh
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, case["dtype"])
+    row.update(bytes=nbytes, flops=flops, pairs=pairs)
+    phase("flash kernel", f"(BH,BKV,T,S,D)={case['shape']} {case['dtype']} "
+          f"causal: {row['ms'] * 1e3:.1f} us per wrapper call, "
+          f"{row['kernel_only_ms'] * 1e3:.1f} us per bare launch, plain "
+          f"version {row['plain_ms'] * 1e3:.1f} us, SDPA "
+          f"{row['library_ms'] * 1e3:.1f} us, bound "
+          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes} B, "
+          f"{flops} flops over {pairs} causal pairs per head)")
+    return row
+
+
+def serve_flow(torch, np, configs, T, engine, fa):
+    """Serve ``SERVE`` on the card at full width; returns a summary and the
+    flash launch counts of the served run.  Exits if a request is short,
+    the flash counts are off, the routes disagree or the self-check
+    fails."""
+    import dataclasses
+    cfg = configs.get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    model = T.Transformer(cfg, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=(SERVE["prompt_len"],),
+                            dtype=np.int32) for _ in range(SERVE["requests"])]
+    max_len = SERVE["prompt_len"] + SERVE["max_new"] + 1
+    warm = engine.Engine(model, slots=1, max_len=max_len)    # lazy inits
+    warm.submit(engine.Request(rid=-1, prompt=prompts[0], max_new=2))
+    warm.run()
+    eng = engine.Engine(model, slots=SERVE["slots"], max_len=max_len)
+    for rid, pr in enumerate(prompts):
+        eng.submit(engine.Request(rid=rid, prompt=pr,
+                                  max_new=SERVE["max_new"]))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa.LAUNCHES.clear()
+    fa.SHAPES.clear()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.LAUNCHES["flash_attention"]
+    shapes = dict(fa.SHAPES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    path_key = (*FLASH_PATH, "torch.bfloat16")
+    want_launches = SERVE["requests"] * cfg.n_layers
+    served = sum(len(r.out) for r in done)
+    summary = {
+        "arch": cfg.name, "params": model.param_count(),
+        "dtype": str(cfg.dtype), "attn_impl": cfg.attn_impl,
+        "init_s": init_s, "requests": len(done), "served_tokens": served,
+        "wall_s": wall, "prefill_tokens": st.prefill_tokens,
+        "prefill_s": st.prefill_s,
+        "prefill_tok_per_s": st.prefill_tokens / st.prefill_s,
+        "decode_steps": st.decode_steps, "decode_s": st.decode_s,
+        "decode_ms_per_step": st.decode_s / st.decode_steps * 1e3,
+        "decode_tok_per_s": st.decode_steps * SERVE["slots"] / st.decode_s,
+        "flash_launches": launches,
+        "flash_shapes": {str(k): n for k, n in shapes.items()},
+        "peak_mem_gb": peak_gb}
+    phase("serve", json.dumps(summary))
+    if len(done) != SERVE["requests"] or any(
+            len(r.out) != SERVE["max_new"] for r in done):
+        raise SystemExit("serve: a request was not served in full")
+    if launches != want_launches or shapes.get(path_key) != want_launches:
+        raise SystemExit(f"serve: {launches} flash launches ({shapes}), "
+                         f"expected {want_launches} at {path_key}")
+
+    # the plain route on the same weights (shared, not copied)
+    plain = T.Transformer(dataclasses.replace(cfg, attn_impl="naive"),
+                          device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    route_err = 0.0
+    for pr in prompts:
+        batch = {"tokens": torch.as_tensor(pr, device="cuda")[None]}
+        got, _ = T.prefill(model, batch, max_len)
+        want, _ = T.prefill(plain, batch, max_len)
+        route_err = max(route_err, float((got - want).abs().max()))
+    scale = float(want.abs().max())
+    phase("serve routes", f"kernel vs plain (naive) route, last-position "
+          f"prefill logits of the {len(prompts)} prompts: max_abs_diff="
+          f"{route_err} (logits up to {scale:.3f}) within {ROUTE_ATOL}: "
+          f"{route_err <= ROUTE_ATOL}")
+    if not route_err <= ROUTE_ATOL:
+        raise SystemExit("serve: the kernel route disagrees with the plain "
+                         "route")
+
+    # examples/serve_e2e.py's self-check, one teacher-forced forward each
+    fa.LAUNCHES.clear()
+    fa.SHAPES.clear()
+    worst_gap, exact = 0.0, 0
+    for r in done:
+        seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+        logits, _ = T.forward(model, {"tokens": torch.as_tensor(
+            seq, device="cuda")[None]})
+        pos = logits[0, len(r.prompt) - 1:]
+        picked = pos.gather(1, torch.as_tensor(r.out, device="cuda")[:, None])
+        gaps = pos.amax(1) - picked[:, 0]
+        worst_gap = max(worst_gap, float(gaps.max()))
+        exact += int((gaps == 0).sum())
+    check_launches = dict(fa.SHAPES)
+    t_fwd = SERVE["prompt_len"] + SERVE["max_new"] - 1
+    phase("serve self-check", f"teacher-forced forward (T={t_fwd}, padded "
+          f"by ops.attention; flash launches {check_launches}): "
+          f"{exact}/{served} served tokens are the forward's argmax, the "
+          f"worst is {worst_gap} below its position's maximum, within "
+          f"{SELFCHECK_TOL}: {worst_gap <= SELFCHECK_TOL}")
+    if not worst_gap <= SELFCHECK_TOL or not check_launches:
+        raise SystemExit("serve: self-check against the full forward "
+                         "failed")
+    summary.update(route_max_abs_diff=route_err, selfcheck_worst_gap=worst_gap,
+                   selfcheck_argmax_equal=exact,
+                   selfcheck_launches={str(k): n
+                                       for k, n in check_launches.items()},
+                   profile=profile_serve(torch, engine, model, prompts,
+                                         max_len))
+    return summary
+
+
+def profile_serve(torch, engine, model, prompts, max_len):
+    """Where one 512-token prefill and one batch-4 decode step spend their
+    time on the card: each run once unprofiled (host wall, ending in a
+    synchronise) and once under ``torch.profiler`` (device time, kernel
+    count, the costliest host operations and device kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    prefill = engine.make_prefill_step(model, max_len)
+    step = engine.make_serve_step(model)
+    caches, toks = [], []
+    for pr in prompts[:SERVE["slots"]]:
+        tok, cache = prefill({"tokens": torch.as_tensor(
+            pr, device="cuda")[None]})
+        caches.append(cache)
+        toks.append(tok)
+    cache = [{name: torch.cat([c[layer][name] for c in caches])
+              for name in ("k", "v")} for layer in range(len(caches[0]))]
+    toks = torch.cat(toks)
+    batch = {"tokens": torch.as_tensor(prompts[0], device="cuda")[None]}
+    runs = {"prefill_512": lambda: prefill(batch),
+            "decode_step_b4": lambda: step(toks, cache,
+                                           SERVE["prompt_len"] + 1)}
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        dev = [e for e in events if "cuda" in str(e.device_type).lower()]
+        device_s = sum(e.self_device_time_total for e in dev) * 1e-6
+        top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]
+        top_dev = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+        out[name] = {
+            "wall_s": wall, "device_s": device_s,
+            "device_busy_share": device_s / wall,
+            "kernels": sum(e.count for e in dev),
+            "top_host_ops": [[e.key, e.count, e.self_cpu_time_total * 1e-6]
+                             for e in top_host],
+            "top_device_kernels": [[e.key[:80], e.count,
+                                    e.self_device_time_total * 1e-6]
+                                   for e in top_dev]}
+        phase("serve profile", json.dumps({name: out[name]}))
+    return out
+
+
 def tile_kernel_rows(rows, fig6, chol):
     """The ``kernels`` line's entries of the tile kernels: each at its
     commonest path shape (f32, 64), with all its rows beside."""
@@ -592,11 +901,16 @@ def main() -> int:
     from repro_torch.core.augment import Eligibility
     from repro_torch.core.explore import Candidate
     from repro_torch.core.replay import TORCH_RTOL, rankings_equivalent
+    import torch.nn.functional as F
+    from repro_torch import configs
     from repro_torch.kernels import block_matmul as bm
     from repro_torch.kernels import build
     from repro_torch.kernels import cholesky_tiles as ct
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lockstep_step as ls
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine
 
     # 1. the card; the plain versions' f32 products in full f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -609,7 +923,8 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
     # 2. the kernel builds, one nvcc per library, all started together
-    builds = ((ls.SOURCE, None), (bm.SOURCE, None), (bm.SOURCE, {"TILE": 128}))
+    builds = ((ls.SOURCE, None), (bm.SOURCE, None), (bm.SOURCE, {"TILE": 128}),
+              (fa.SOURCE, None))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         built = [f.result() for f in [pool.submit(build.load, src, defines)
@@ -632,6 +947,8 @@ def main() -> int:
     # 4. the tile kernels vs plain versions at every path shape
     cases = tile_cases(torch, np, ref, bm, ct, lib128)
     tile_errs = check_tiles(torch, cases)
+    fcases = flash_cases(torch, np, fa, ops)
+    flash_errs = check_flash(torch, ref, fcases)
 
     # 5. the sweeps: torch on the card, then batch on the host
     sweeps = []
@@ -761,9 +1078,30 @@ def main() -> int:
     # 10. the tile kernels' times at the path shapes
     rows = time_tiles(torch, cases, tile_errs)
 
-    # 11. the kernels line
-    print(json.dumps({"kernels": [kern] + tile_kernel_rows(rows, fig6,
-                                                           chol)}))
+    # 11. the LM serve path at full width; flash counts of the served run
+    serve = serve_flow(torch, np, configs, T, engine, fa)
+
+    # 12. the flash kernel's times at the path shape
+    frow = time_flash(torch, F, fa, ref, fcases[0])
+    flash = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:77",
+        "launches": serve["flash_launches"],
+        "max_abs_err": flash_errs["path"],
+        "ms": frow["ms"], "plain_ms": frow["plain_ms"],
+        "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
+        "library_ms": frow["library_ms"],
+        "kernel_only_ms": frow["kernel_only_ms"],
+        "timed_shape": frow["shape"], "timed_dtype": frow["dtype"],
+        "library_call": frow["library_call"],
+        "launches_by_shape": serve["flash_shapes"],
+        "max_abs_err_by_case": flash_errs,
+    }
+
+    # 13. the kernels line
+    print(json.dumps({"kernels": [kern] + tile_kernel_rows(rows, fig6, chol)
+                      + [flash]}))
     print(power_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -1,4 +1,5 @@
-"""State carried across from the JAX package: traces, reports, orders.
+"""State carried across from the JAX package: traces, reports, orders,
+and LM weights.
 
 The estimator has no weights.  What a user of the JAX package has built up
 is a saved trace (``Trace.save``), a map of kernel cost reports, and the
@@ -11,15 +12,24 @@ is copied field by field, and each order payload is staged on a fresh
 content hash.  ``FrozenGraph.content_hash()`` is computed identically in
 both packages, so an Explorer that builds the same graph finds its orders
 and validates them against the graph before replaying any.
+
+The LM substrate does have weights: :func:`import_lm_params` turns the JAX
+package's parameter tree (``repro.models.transformer.init``), as numpy
+arrays, into the state dict of the port's
+:class:`~repro_torch.models.transformer.Transformer`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
 
 from .core.hlsreport import KernelReport, ReportMap
 from .core.replay import ReplayLibrary
 from .core.trace import Trace
+from .models.transformer import ModelConfig
 
 _REPORT_FIELDS = tuple(f.name for f in dataclasses.fields(KernelReport))
 
@@ -49,3 +59,48 @@ def import_reference(trace_path: str, reports: Mapping[Tuple[str, str], Any],
     for (graph_hash, policy), payload in orders.items():
         library.stage(graph_hash, policy, payload)
     return trace, port_reports, library
+
+
+def _tensor(a: Any) -> torch.Tensor:
+    """A torch tensor with ``a``'s values and type; bf16 arrays (which
+    numpy holds as ``ml_dtypes.bfloat16``) go through f32, exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = val
+    return out
+
+
+def import_lm_params(cfg: ModelConfig,
+                     params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's state dict for the JAX package's parameter tree.
+
+    ``params`` is ``repro.models.transformer.init(cfg, key)`` with its
+    leaves as numpy arrays: ``embed``, ``final_norm``, optional
+    ``lm_head``, and ``blocks{i}``, whose leaves are stacked over the
+    periods.  Period ``p`` of ``blocks{i}`` becomes layer
+    ``p * len(cfg.pattern) + i``.  Load the result with
+    ``Transformer(cfg).load_state_dict``."""
+    n_pat = len(cfg.pattern)
+    state: Dict[str, torch.Tensor] = {}
+    for key, sub in params.items():
+        if not key.startswith("blocks"):
+            state.update({name: _tensor(a)
+                          for name, a in _flatten({key: sub}, "").items()})
+            continue
+        i = int(key[len("blocks"):])
+        for name, stacked in _flatten(sub, "").items():
+            stacked = np.asarray(stacked)
+            for p in range(stacked.shape[0]):
+                state[f"layers.{p * n_pat + i}.{name}"] = _tensor(stacked[p])
+    return state

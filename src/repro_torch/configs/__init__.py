@@ -1,0 +1,21 @@
+# Architecture configs of the port (one module per arch, copied from the
+# JAX package's configs): `get_config("<id>")` returns the published
+# full-size ModelConfig, `get_smoke("<id>")` a reduced one of the same
+# family for CPU tests.  This slice carries the four dense attention
+# archs; the others wait for their blocks (ROADMAP).
+from .registry import (SHAPES, Arch, Shape, arch_ids, get_arch, get_config,
+                       get_smoke, runnable, smoke_batch)
+
+_LOADED = False
+
+
+def _load_all() -> None:
+    global _LOADED
+    if _LOADED:
+        return
+    _LOADED = True
+    from . import gemma2_2b, qwen3_0_6b, qwen3_4b, qwen15_4b  # noqa: F401
+
+
+__all__ = ["SHAPES", "Arch", "Shape", "arch_ids", "get_arch", "get_config",
+           "get_smoke", "runnable", "smoke_batch"]

@@ -8,9 +8,14 @@
 #   cholesky_tiles — the dsyrk and dtrsm tiles of the Fig. 4 Cholesky
 #                    (replace repro/kernels/cholesky_tiles.py::syrk_tile
 #                    and ::trsm_tile)
+#   flash_attention — online-softmax GQA attention with causal, window and
+#                    softcap, the LM serve path's prefill
+#                    (replaces repro/kernels/flash_attention.py::
+#                    flash_attention)
 #
 # ops holds the public wrappers with the JAX package's padding and shape
 # contracts, ref the plain PyTorch versions.  Each wrapper launches its
 # CUDA kernel for a CUDA tensor and runs its plain version for a CPU
-# tensor.  Sources live in csrc/ (lockstep_step.cu, tiles.cu) and are built
-# by build.py at first use, never on import.
+# tensor.  Sources live in csrc/ (lockstep_step.cu, tiles.cu,
+# flash_attention.cu) and are built by build.py at first use, never on
+# import.

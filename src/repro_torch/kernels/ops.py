@@ -1,9 +1,10 @@
-"""Public wrappers around the tile kernels, with the JAX package's contracts.
+"""Public wrappers around the kernels, with the JAX package's contracts.
 
 The tensor's device picks the route, as in :mod:`repro_torch.core.torchsim`:
 CUDA tensors launch the Hopper kernels, CPU tensors run their plain
-versions.  :func:`matmul` pads its operands to the kernel's block contract
-and slices the result back (``repro/kernels/ops.py:26-56``).
+versions.  :func:`matmul` and :func:`attention` pad their operands to the
+kernels' block contracts and slice the result back
+(``repro/kernels/ops.py:26-81``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 
 from .block_matmul import block_matmul, gemm_update_tile
 from .cholesky_tiles import syrk_tile, trsm_tile
+from .flash_attention import flash_attention
 
 
 def _pad_to(x: torch.Tensor, axis: int,
@@ -44,6 +46,32 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
     out = block_matmul(a, b, block_m=block_m, block_n=block_n,
                        block_k=block_k)
     return out[:m0, :n0]
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, softcap: float = 0.0,
+              block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Flash attention with padding.  ``q (BH, T, D)``; ``k``/``v``
+    ``(BKV, S, D)``.
+
+    Scales by the true head dim before padding.  Padded keys sit at
+    positions ``>= S``, which the causal mask hides from every real query
+    when ``T <= S``; without the mask they would take part in the
+    softmax, so non-causal inputs whose keys need padding raise
+    ``NotImplementedError``, as in the JAX package."""
+    t = q.shape[1]
+    scale = q.shape[2] ** -0.5
+    block_q = min(block_q, max(8, t))
+    block_k = min(block_k, max(8, k.shape[1]))
+    q, t0 = _pad_to(q, 1, block_q)
+    k, s0 = _pad_to(k, 1, block_k)
+    v, _ = _pad_to(v, 1, block_k)
+    if not causal and k.shape[1] != s0:
+        raise NotImplementedError("non-causal padded attention unsupported")
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          softcap=softcap, scale=scale, block_q=block_q,
+                          block_k=block_k)
+    return out[:, :t0, :]
 
 
 def syrk(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

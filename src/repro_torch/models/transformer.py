@@ -1,0 +1,305 @@
+"""Model assembly for the dense attention LMs, and their serving paths.
+
+:class:`ModelConfig` and :class:`BlockSpec` are the JAX package's
+(``repro/models/transformer.py``), field for field, so its config modules
+copy verbatim; two defaults differ: ``param_dtype`` is
+``torch.bfloat16``, and ``attn_impl`` is ``"kernel"``, the flash kernel
+(the JAX package's own accelerator hot path) — on a CPU tensor that route
+runs the kernel's plain version.
+
+:class:`Transformer` holds the layers in a ``ModuleList`` in layer order:
+layer ``period * len(pattern) + i`` is the JAX package's stacked
+``blocks{i}[period]``.  :func:`forward`, :func:`prefill`,
+:func:`decode_step` and :func:`init_cache` are the train and serving
+paths of ``transformer.py:513-586``, taking the model where the JAX
+functions take ``(cfg, params)``.  A cache is a list with one ``{k, v}``
+dict per layer, ``(B, max_len, Hkv, hd)`` each; decode writes into it in
+place.
+
+This slice carries the dense attention blocks (``kind="attn"``); MoE,
+RWKV6, Mamba2, zamba2's shared block, encoder-decoder and patch-token
+configs raise ``NotImplementedError`` when a model is built.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .attention import Attention, Cache
+from .layers import (MLP, Dense, Embedding, RMSNorm, resolve_device,
+                     resolve_dtype, softcap)
+
+# --------------------------------------------------------------------------
+# Configuration
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    """Static settings of one sub-block of the layer pattern."""
+
+    kind: str = "attn"                # attn | moe_attn | rwkv6 | mamba2
+    window: int = 0                   # sliding-window size; 0 = full attention
+    causal: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                 # 0 → d_model // n_heads
+    # ---- attention features ----
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+    attn_softcap: float = 0.0         # gemma2 attention-logit soft-capping
+    final_softcap: float = 0.0        # gemma2 final-logit soft-capping
+    post_norms: bool = False          # gemma2 sandwich norms
+    zero_centered_norm: bool = False  # gemma-style (1 + scale) RMSNorm
+    embed_scale: bool = False         # gemma multiplies embeddings by sqrt(d)
+    mlp: str = "swiglu"               # swiglu | geglu | gelu
+    tie_embeddings: bool = True
+    # ---- layer pattern (cycled) ----
+    pattern: Tuple[BlockSpec, ...] = (BlockSpec(),)
+    # ---- MoE ----
+    n_experts: int = 0
+    top_k: int = 0
+    shared_expert: bool = False       # llama4: shared expert beside routed
+    capacity_factor: float = 1.25
+    moe_group_size: int = 512
+    moe_dispatch: str = "einsum"      # einsum | scatter
+    # ---- SSM / RWKV ----
+    ssm_state: int = 64
+    ssm_expand: int = 2
+    rwkv_head_dim: int = 64
+    scan_chunk: int = 64              # linear-attention chunk length
+    # ---- hybrid (zamba2): weight-shared attn block every k layers ----
+    shared_every: int = 0
+    # ---- encoder-decoder (whisper) ----
+    encoder_layers: int = 0
+    encoder_seq: int = 1500           # frontend stub: #frames after conv
+    # ---- multimodal frontend stub (pixtral) ----
+    patch_tokens: int = 0
+    # ---- numerics ----
+    param_dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-6
+    attn_impl: str = "kernel"         # naive | chunked | kernel
+    # ---- training-time activation checkpointing over the layer scan ----
+    remat: str = "none"               # none | full | dots
+    unroll_scan: bool = False
+
+    # ------------------------------------------------------------- derived --
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_periods(self) -> int:
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: n_layers {self.n_layers} not a "
+                             f"multiple of pattern length "
+                             f"{len(self.pattern)}")
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return resolve_dtype(self.param_dtype)
+
+    def param_count(self) -> int:
+        """Exact parameter count, from a model built on the ``meta``
+        device (nothing is allocated)."""
+        return Transformer(self, device="meta").param_count()
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice leaves out."""
+    left_out = [f"{s.kind} blocks" for s in cfg.pattern if s.kind != "attn"]
+    if cfg.shared_every:
+        left_out.append("zamba2's shared block (shared_every)")
+    if cfg.encoder_layers:
+        left_out.append("the encoder-decoder stack (encoder_layers)")
+    if cfg.patch_tokens:
+        left_out.append("patch-token frontends (patch_tokens)")
+    if left_out:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense attention models only; "
+            f"{', '.join(sorted(set(left_out)))} are still to port "
+            f"(ROADMAP 'Open items', item 1.10)")
+
+
+# --------------------------------------------------------------------------
+# Modules
+# --------------------------------------------------------------------------
+
+
+class Block(nn.Module):
+    """One dense attention block (``_block_apply`` for ``kind="attn"``):
+    pre-norm attention and MLP, each with an optional post-norm (gemma2's
+    sandwich), each added to the residual."""
+
+    def __init__(self, cfg: ModelConfig, spec: BlockSpec, *, device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.cfg, self.spec = cfg, spec
+        dtype = cfg.dtype
+        norm = dict(d=cfg.d_model, dtype=dtype, device=device,
+                    eps=cfg.norm_eps, zero_centered=cfg.zero_centered_norm)
+        self.ln1 = RMSNorm(**norm)
+        self.ln2 = RMSNorm(**norm)
+        self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+                              dtype=dtype, device=device, generator=generator,
+                              qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias)
+        if cfg.post_norms:
+            self.post_ln1 = RMSNorm(**norm)
+            self.post_ln2 = RMSNorm(**norm)
+        else:
+            self.post_ln1 = self.post_ln2 = None
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, dtype=dtype,
+                       device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache: Optional[Cache] = None,
+                cache_length: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+        cfg, spec = self.cfg, self.spec
+        h, new_cache = self.attn(
+            self.ln1(x), positions, rope_theta=cfg.rope_theta,
+            causal=spec.causal, window=spec.window, cap=cfg.attn_softcap,
+            impl=cfg.attn_impl, kv_cache=cache, cache_length=cache_length)
+        if self.post_ln1 is not None:
+            h = self.post_ln1(h)
+        x = x + h
+        h = self.mlp(self.ln2(x))
+        if self.post_ln2 is not None:
+            h = self.post_ln2(h)
+        return x + h, new_cache
+
+
+class Transformer(nn.Module):
+    """Embedding, the layers in layer order, the final norm and the head
+    (tied to the embedding unless ``tie_embeddings`` is false).
+
+    Weights are drawn from ``generator`` (a ``torch.Generator`` on
+    ``device``; seed 0 when none is given) in construction order; on the
+    ``meta`` device nothing is allocated or drawn."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        if generator is None and device.type != "meta":
+            generator = torch.Generator(device).manual_seed(0)
+        self.cfg = cfg
+        kw = dict(device=device, generator=generator)
+        self.embed = Embedding(cfg.vocab, cfg.d_model, dtype=cfg.dtype, **kw)
+        self.final_norm = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=device,
+                                  eps=cfg.norm_eps,
+                                  zero_centered=cfg.zero_centered_norm)
+        self.layers = nn.ModuleList(
+            Block(cfg, cfg.pattern[n % len(cfg.pattern)], **kw)
+            for n in range(cfg.n_periods * len(cfg.pattern)))
+        self.lm_head = (None if cfg.tie_embeddings else
+                        Dense(cfg.d_model, cfg.vocab, dtype=cfg.dtype, **kw))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return forward(self, batch)
+
+
+# --------------------------------------------------------------------------
+# Public entry points
+# --------------------------------------------------------------------------
+
+
+def _scale_embeddings(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.embed_scale:     # the factor rounded to the weights' type first
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype,
+                             device=x.device)
+    return x
+
+
+def _embed_inputs(model: Transformer,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    x = model.embed(batch["tokens"]).to(model.cfg.dtype)
+    return _scale_embeddings(model.cfg, x)
+
+
+def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    x = model.final_norm(x)
+    out = (model.embed.unembed(x) if model.lm_head is None
+           else model.lm_head(x))
+    return softcap(out.float(), model.cfg.final_softcap)
+
+
+def _positions(b: int, t: int, device) -> torch.Tensor:
+    return torch.arange(t, device=device)[None, :].expand(b, t)
+
+
+def forward(model: Transformer, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns ``(logits (B, T, V) f32, aux)``;
+    ``aux`` (the MoE loss in the JAX package) is 0 for dense models."""
+    x = _embed_inputs(model, batch)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for layer in model.layers:
+        x, _ = layer(x, positions)
+    return _logits(model, x), torch.zeros((), device=x.device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> List[Cache]:
+    """Zeroed decode cache: one ``{k, v}`` per layer, each
+    ``(batch, max_len, n_kv, hd)`` in the weights' type."""
+    device = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv, cfg.hd)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+            for _ in range(cfg.n_layers)]
+
+
+def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
+            max_len: int) -> Tuple[torch.Tensor, List[Cache]]:
+    """Run the full prompt; return ``(last-position logits (B, 1, V),
+    cache)`` with each layer's k/v zero-padded to ``max_len``."""
+    x = _embed_inputs(model, batch)
+    b, t, _ = x.shape
+    positions = _positions(b, t, x.device)
+    cache = []
+    for layer in model.layers:
+        x, kv = layer(x, positions)
+        cache.append({
+            name: torch.nn.functional.pad(kv[name],
+                                          (0, 0, 0, 0, 0, max_len - t))
+            for name in ("k", "v")})
+    return _logits(model, x[:, -1:]), cache
+
+
+def decode_step(model: Transformer, tokens: torch.Tensor, cache: List[Cache],
+                length: int) -> Tuple[torch.Tensor, List[Cache]]:
+    """One serving step: ``tokens (B, 1)`` against a cache whose first
+    ``length`` positions are valid (the new token is written, in place,
+    at ``length - 1``).  Returns ``(logits (B, 1, V), cache)``."""
+    x = _scale_embeddings(model.cfg, model.embed(tokens).to(model.cfg.dtype))
+    b, t, _ = x.shape
+    positions = torch.full((b, t), int(length) - 1, device=x.device)
+    for layer, c in zip(model.layers, cache):
+        x, _ = layer(x, positions, c, length)
+    return _logits(model, x), cache

@@ -3,8 +3,9 @@
 * Nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, imports
   ``jax``, ``jaxlib`` or any ``repro`` module (an AST scan of every
   import, lazy ones inside functions included).
-* A CPU sweep through the port leaves ``jax`` and ``repro`` out of
-  ``sys.modules`` (a fresh interpreter).
+* A CPU sweep, and a CPU run of the serving launcher, through the port
+  leave ``jax`` and ``repro`` out of ``sys.modules`` (a fresh
+  interpreter each).
 * ``repro_torch.carry.import_reference``: a trace saved by ``repro`` loads
   unchanged, the graph's content hash is the same in both packages, and a
   ``repro`` batch sweep's exported orders make a warm port sweep run with
@@ -49,7 +50,12 @@ def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"torchsim.py", "lockstep_step.py", "explore.py",
             "chip_smoke.py", "carry.py", "block_matmul.py",
-            "cholesky_tiles.py", "ops.py", "ref.py", "traditional.py"} <= names
+            "cholesky_tiles.py", "ops.py", "ref.py", "traditional.py",
+            "flash_attention.py", "layers.py", "attention.py",
+            "transformer.py", "registry.py", "qwen3_0_6b.py", "qwen3_4b.py",
+            "qwen15_4b.py", "gemma2_2b.py", "engine.py", "serve.py"} <= names
+    csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
+    assert (csrc / "flash_attention.cu").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -78,6 +84,23 @@ def test_cpu_sweep_leaves_jax_and_repro_unimported():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env, cwd=str(REPO))
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_cpu_serve_launcher_leaves_jax_and_repro_unimported():
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import serve\n"
+        "assert serve.main(['--device', 'cpu', '--requests', '2',\n"
+        "                   '--prompt-len', '6', '--max-new', '3']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "             in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "served 2 requests, 6 tokens" in out.stdout
 
 
 def test_import_reference_round_trip(tmp_path):

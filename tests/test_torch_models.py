@@ -1,0 +1,368 @@
+"""The port's dense LM substrate against the JAX package's.
+
+Weights come from the JAX package's ``init`` and are carried over with
+``repro_torch.carry.import_lm_params``; token ids are drawn with numpy.
+Both packages then compute the same function on the CPU:
+
+* layers and attention implementations, in f32, at rtol/atol 1e-5 (the
+  same arithmetic in another order);
+* ``forward`` logits, and ``prefill`` followed by three ``decode_step``s,
+  for the four dense smoke configs in f32 at rtol/atol 1e-4 (measured
+  errors are below 3e-6 on logits up to 4; 28 layers of the full model
+  are never run here), against the JAX ``"chunked"`` route and, in one
+  case, against the JAX ``"kernel"`` route (the Pallas kernel in
+  interpret mode);
+* one bf16 case at rtol/atol 2e-2 (bf16 keeps 8 bits of mantissa and the
+  two packages round at different places).
+
+The full-width configs are checked for structure only, on the ``meta``
+device: the port's parameter count equals the JAX package's.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.carry import import_lm_params
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+DENSE = ("qwen3-0.6b", "qwen3-4b", "qwen1.5-4b", "gemma2-2b")
+FULL_PARAMS = {"qwen3-0.6b": 596_049_920}
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """``jax``, ``jax.numpy`` and the JAX package's configs, layers,
+    attention and transformer."""
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as jconfigs
+    from repro.models import attention as JA
+    from repro.models import layers as JL
+    from repro.models import transformer as JT
+    return jax, jnp, jconfigs, JL, JA, JT
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(arch, dtype, jax_impl, seed):
+    """The JAX config and weights (numpy leaves) and the port's model with
+    the same weights, for ``arch``'s smoke config."""
+    import jax
+    from repro import configs as jconfigs
+    from repro.models import transformer as JT
+    jcfg = dataclasses.replace(jconfigs.get_smoke(arch), param_dtype=dtype,
+                               attn_impl=jax_impl)
+    params = jax.tree.map(np.asarray, JT.init(jcfg, jax.random.PRNGKey(seed)))
+    cfg = dataclasses.replace(configs.get_smoke(arch), param_dtype=dtype)
+    model = T.Transformer(cfg, device="cpu")
+    model.load_state_dict(import_lm_params(cfg, params), strict=True)
+    return jcfg, params, model
+
+
+def pair(arch, dtype="float32", jax_impl="chunked", seed=0):
+    return _pair(arch, dtype, jax_impl, seed)
+
+
+def tokens(cfg, seed, b, t):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, t),
+                                                dtype=np.int32)
+
+
+# --------------------------------------------------------------- layers ---
+
+@pytest.mark.parametrize("zero_centered", [False, True])
+def test_rmsnorm_matches_jax(zero_centered, jx):
+    _, jnp, _, JL, _, _ = jx
+    x, scale = normal(1, 3, 5, 32), normal(2, 32)
+    got = L.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale),
+                    zero_centered=zero_centered)
+    want = JL.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x),
+                      zero_centered=zero_centered)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 7, 4, 16), (2, 7, 16)])
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_rotary_matches_jax(shape, theta, jx):
+    _, jnp, _, JL, _, _ = jx
+    x = normal(3, *shape)
+    pos = np.arange(100, 107, dtype=np.int32)[None].repeat(2, 0)
+    got = L.rotary(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    want = JL.rotary(jnp.asarray(x), jnp.asarray(pos), theta)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])
+def test_mlps_match_jax(kind, jx):
+    jax, jnp, _, JL, _, _ = jx
+    init = JL.gelu_mlp_init if kind == "gelu" else JL.swiglu_init
+    p = jax.tree.map(np.asarray, init(jax.random.PRNGKey(4), 24, 40))
+    mlp = L.MLP(24, 40, kind, dtype=torch.float32, device="cpu",
+                generator=None)
+    mlp.load_state_dict({f"{k}.w": torch.from_numpy(np.array(v["w"]))
+                         for k, v in p.items()})
+    x = normal(5, 3, 24)
+    apply = {"swiglu": JL.swiglu, "geglu": JL.geglu,
+             "gelu": JL.gelu_mlp}[kind]
+    want = apply(jax.tree.map(jnp.asarray, p), jnp.asarray(x))
+    np.testing.assert_allclose(f32(mlp(torch.from_numpy(x))), f32(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_softcap_and_embeddings_match_jax(jx):
+    _, jnp, _, JL, _, _ = jx
+    x, table = normal(6, 4, 9) * 40, normal(7, 11, 9)
+    toks = np.array([[3, 0, 10]], dtype=np.int32)
+    for cap in (0.0, 30.0):
+        np.testing.assert_allclose(
+            f32(L.softcap(torch.from_numpy(x), cap)),
+            f32(JL.softcap(jnp.asarray(x), cap)), rtol=1e-5, atol=1e-5)
+    emb = L.embed(torch.from_numpy(table), torch.from_numpy(toks))
+    np.testing.assert_array_equal(
+        f32(emb), f32(JL.embed({"table": jnp.asarray(table)},
+                               jnp.asarray(toks))))
+    np.testing.assert_allclose(
+        f32(L.unembed(torch.from_numpy(table), emb)),
+        f32(JL.unembed({"table": jnp.asarray(table)}, jnp.asarray(f32(emb)))),
+        rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ attention ---
+
+ATTN_CASES = [  # b, t, h, hkv, dh, causal, window, cap
+    (2, 24, 4, 2, 16, True, 0, 0.0),
+    (1, 40, 4, 1, 8, True, 8, 0.0),
+    (2, 33, 2, 2, 16, True, 0, 50.0),
+    (1, 16, 4, 2, 16, False, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+@pytest.mark.parametrize("impl", ["naive", "chunked", "kernel"])
+def test_attention_impls_match_jax_naive(case, impl, jx):
+    _, jnp, _, _, JA, _ = jx
+    b, t, h, hkv, dh, causal, window, cap = case
+    q, k, v = normal(8, b, t, h, dh), normal(9, b, t, hkv, dh), \
+        normal(10, b, t, hkv, dh)
+    kw = dict(causal=causal, window=window, cap=cap)
+    if impl == "chunked":
+        kw["chunk"] = 16                     # several chunks, a ragged one
+    got = A.IMPLS[impl](*(torch.from_numpy(a) for a in (q, k, v)), **kw)
+    want = JA.attention_naive(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=causal, window=window, cap=cap)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (6, 0.0), (0, 50.0)])
+def test_attention_decode_matches_jax(window, cap, jx):
+    _, jnp, _, _, JA, _ = jx
+    q, kc, vc = normal(11, 2, 1, 4, 16), normal(12, 2, 20, 2, 16), \
+        normal(13, 2, 20, 2, 16)
+    got = A.attention_decode(*(torch.from_numpy(a) for a in (q, kc, vc)),
+                             length=13, window=window, cap=cap)
+    want = JA.attention_decode(*(jnp.asarray(a) for a in (q, kc, vc)),
+                               length=jnp.int32(13), window=window, cap=cap)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_impl_refuses_an_offset():
+    q = torch.zeros(1, 4, 2, 8)
+    with pytest.raises(ValueError):
+        A.attention_kernel(q, q, q, offset=3)
+
+
+# ---------------------------------------------------------------- models ---
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_matches_jax(arch, jx):
+    jax, jnp, _, _, _, JT = jx
+    jcfg, params, model = pair(arch)
+    toks = tokens(jcfg, 1, 2, 24)
+    fa.LAUNCHES.clear()
+    got, aux = T.forward(model, {"tokens": torch.from_numpy(toks)})
+    want, _ = JT.forward(jcfg, jax.tree.map(jnp.asarray, params),
+                         {"tokens": jnp.asarray(toks)})
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert not fa.LAUNCHES                  # CPU: the plain version
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_and_decode_match_jax(arch, jx):
+    jax, jnp, _, _, _, JT = jx
+    jcfg, params, model = pair(arch)
+    jparams = jax.tree.map(jnp.asarray, params)
+    toks = tokens(jcfg, 2, 2, 20)
+    max_len = 24
+    got, cache = T.prefill(model, {"tokens": torch.from_numpy(toks[:, :17])},
+                           max_len)
+    want, jcache = JT.prefill(jcfg, jparams,
+                              {"tokens": jnp.asarray(toks[:, :17])}, max_len)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4)
+    n_pat = len(jcfg.pattern)
+    for n, c in enumerate(cache):           # layer n = blocks{i}[period]
+        jc = jcache[f"blocks{n % n_pat}"]
+        for name in ("k", "v"):
+            assert tuple(c[name].shape) == (2, max_len, jcfg.n_kv, jcfg.hd)
+            np.testing.assert_allclose(f32(c[name]),
+                                       f32(jc[name][n // n_pat]),
+                                       rtol=1e-4, atol=1e-4)
+    for i in range(17, 20):
+        tok = toks[:, i:i + 1]
+        got, cache = T.decode_step(model, torch.from_numpy(tok), cache, i + 1)
+        want, jcache = JT.decode_step(jcfg, jparams, jnp.asarray(tok), jcache,
+                                      jnp.int32(i + 1))
+        np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{arch}: decode at {i}")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b"])
+def test_forward_matches_jax_pallas_kernel_route(arch, jx):
+    """The JAX package's ``attn_impl="kernel"``: the Pallas flash kernel in
+    interpret mode, against the port's kernel route (its plain version
+    here), on a length the wrappers pad (130 -> 256 with 128-row
+    blocks)."""
+    jax, jnp, _, _, _, JT = jx
+    jcfg, params, model = pair(arch, jax_impl="kernel")
+    assert model.cfg.attn_impl == "kernel"
+    toks = tokens(jcfg, 3, 1, 130)
+    got, _ = T.forward(model, {"tokens": torch.from_numpy(toks)})
+    want, _ = JT.forward(jcfg, jax.tree.map(jnp.asarray, params),
+                         {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "gemma2-2b"])
+def test_decoding_from_an_empty_cache_matches_forward(arch):
+    """Token by token from ``init_cache`` (window, softcap and sandwich
+    norms on gemma2), the logits are the full forward's."""
+    _, _, model = pair(arch)
+    batch = configs.smoke_batch(model.cfg, batch=2, seq=12, train=False,
+                                seed=6, device="cpu")
+    assert batch["tokens"].dtype == torch.int32 and "labels" not in batch
+    full, _ = T.forward(model, batch)
+    cache = T.init_cache(model.cfg, 2, 12, device="cpu")
+    assert len(cache) == model.cfg.n_layers
+    for i in range(12):
+        got, cache = T.decode_step(model, batch["tokens"][:, i:i + 1], cache,
+                                   i + 1)
+        torch.testing.assert_close(got[:, 0], full[:, i], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_smoke_batch_is_seeded_and_on_the_asked_device():
+    cfg = configs.get_smoke("qwen3-0.6b")
+    a = configs.smoke_batch(cfg, batch=3, seq=5, seed=2, device="cpu")
+    b = configs.smoke_batch(cfg, batch=3, seq=5, seed=2, device="cpu")
+    assert sorted(a) == ["labels", "tokens"]
+    assert tuple(a["tokens"].shape) == (3, 5)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert int(a["tokens"].max()) < cfg.vocab
+
+
+def test_bf16_forward_and_decode_match_jax(jx):
+    jax, jnp, _, _, _, JT = jx
+    jcfg, params, model = pair("gemma2-2b", dtype="bfloat16")
+    assert model.embed.table.dtype == torch.bfloat16
+    jparams = jax.tree.map(jnp.asarray, params)
+    toks = tokens(jcfg, 4, 2, 16)
+    got, _ = T.forward(model, {"tokens": torch.from_numpy(toks)})
+    want, _ = JT.forward(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2e-2, atol=2e-2)
+    _, cache = T.prefill(model, {"tokens": torch.from_numpy(toks[:, :15])},
+                         16)
+    _, jcache = JT.prefill(jcfg, jparams,
+                           {"tokens": jnp.asarray(toks[:, :15])}, 16)
+    got, _ = T.decode_step(model, torch.from_numpy(toks[:, 15:]), cache, 16)
+    want, _ = JT.decode_step(jcfg, jparams, jnp.asarray(toks[:, 15:]), jcache,
+                             jnp.int32(16))
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2e-2, atol=2e-2)
+
+
+def test_naive_chunked_and_kernel_routes_agree():
+    _, _, model = pair("gemma2-2b")
+    toks = torch.from_numpy(tokens(model.cfg, 5, 2, 20))
+    outs = {}
+    for impl in ("naive", "chunked", "kernel"):
+        m = T.Transformer(dataclasses.replace(model.cfg, attn_impl=impl),
+                          device="cpu")
+        m.load_state_dict(model.state_dict())
+        outs[impl], _ = T.forward(m, {"tokens": toks})
+    for impl in ("chunked", "kernel"):
+        torch.testing.assert_close(outs[impl], outs["naive"], rtol=1e-5,
+                                   atol=1e-5)
+
+
+# ------------------------------------------------- full-width structure ---
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_full_param_count_on_meta_matches_jax(arch, jx):
+    _, _, jconfigs, _, _, _ = jx
+    cfg = configs.get_config(arch)
+    model = T.Transformer(cfg, device="meta")
+    assert all(p.is_meta for p in model.parameters())
+    assert len(model.layers) == cfg.n_layers
+    n = cfg.param_count()
+    assert n == model.param_count() == jconfigs.get_config(arch).param_count()
+    assert n == FULL_PARAMS.get(arch, n)
+
+
+def test_default_route_is_the_kernel_and_default_device_the_card():
+    cfg = configs.get_config("qwen3-0.6b")
+    assert cfg.attn_impl == "kernel" and cfg.dtype == torch.bfloat16
+    assert configs.get_smoke("qwen3-0.6b").dtype == torch.float32
+    assert T.Transformer(cfg, device="meta").device.type == "meta"
+
+
+@pytest.mark.parametrize("change", [
+    {"pattern": (T.BlockSpec(kind="moe_attn"),), "n_experts": 4, "top_k": 2},
+    {"pattern": (T.BlockSpec(kind="rwkv6"),)},
+    {"pattern": (T.BlockSpec(kind="mamba2"),)},
+    {"shared_every": 2},
+    {"encoder_layers": 2},
+    {"patch_tokens": 4},
+])
+def test_left_out_families_raise_not_implemented(change):
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-0.6b"), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.Transformer(cfg, device="meta")
+
+
+def test_unported_arch_is_a_key_error():
+    assert set(configs.arch_ids()) == set(DENSE)
+    with pytest.raises(KeyError, match="not ported"):
+        configs.get_config("rwkv6-1.6b")
+
+
+def test_weights_come_from_the_generator():
+    cfg = configs.get_smoke("qwen1.5-4b")
+    a = T.Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    b = T.Transformer(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+    c = T.Transformer(cfg, device="cpu")
+    for (name, pa), pb, pc in zip(a.state_dict().items(),
+                                  b.state_dict().values(),
+                                  c.state_dict().values()):
+        assert torch.equal(pa, pb), name
+    assert not torch.equal(a.layers[0].attn.wq.w, c.layers[0].attn.wq.w)
+    w = a.layers[0].mlp.down.w
+    assert float(w.abs().max()) <= 2.0 / cfg.d_ff ** 0.5 + 1e-6
+    assert torch.count_nonzero(a.layers[0].attn.wq.b) == 0

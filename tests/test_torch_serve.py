@@ -1,0 +1,236 @@
+"""The port's serving engine against the JAX package's.
+
+The same weights (``repro_torch.carry.import_lm_params``) and the same
+numpy prompts go through ``repro.serve.engine.Engine`` and the port's
+``Engine`` on the CPU, with prompts of equal and of unequal length.  The
+served tokens must be equal, except that a token may differ where the JAX
+step's two largest logits are closer than ``TIE_TOL`` (the port's and the
+JAX package's logits agree to 1e-4, ``tests/test_torch_models.py``); such
+a token is reported as a warning, and the request's later tokens, which
+follow from it, are not compared.  The JAX step's logits come from a copy
+of the JAX engine's loop that keeps them, checked to serve the JAX
+``Engine``'s own tokens.
+"""
+import dataclasses
+import io
+import warnings
+from contextlib import redirect_stdout
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.carry import import_lm_params
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import transformer as T
+from repro_torch.serve import engine
+
+TIE_TOL = 1e-4
+
+PROMPT_LENGTHS = {"equal": (12, 12, 12, 12, 12), "unequal": (9, 14, 6, 11, 3)}
+
+
+@pytest.fixture(scope="module")
+def jx():
+    import jax
+    import jax.numpy as jnp
+    from repro import configs as jconfigs
+    from repro.models import transformer as JT
+    from repro.serve import engine as jengine
+    return jax, jnp, jconfigs, JT, jengine
+
+
+def prompts(vocab, lengths, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=(n,), dtype=np.int32)
+            for n in lengths]
+
+
+def jax_engine_logits(jx, jcfg, params, prompt_list, max_new, slots,
+                      max_len):
+    """``repro.serve.engine.Engine.run``'s loop with the JAX package's own
+    steps, keeping the logits each served token was taken from:
+    ``{rid: [(token, logits)]}``."""
+    jax, jnp, _, JT, _ = jx
+    prefill = jax.jit(lambda p, b: JT.prefill(jcfg, p, b, max_len=max_len))
+    step = jax.jit(lambda p, t, c, n: JT.decode_step(jcfg, p, t, c, n))
+    queue = list(enumerate(prompt_list))
+    out = {}
+    while queue:
+        active, queue = queue[:slots], queue[slots:]
+        caches, toks = [], []
+        for rid, pr in active:
+            logits, cache = prefill(params, {"tokens": jnp.asarray(pr)[None]})
+            tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+            out[rid] = [(int(tok[0, 0]), np.asarray(logits[0, -1]))]
+            caches.append(cache)
+            toks.append(tok)
+        cache = jax.tree.map(lambda *ls: jnp.concatenate(ls, axis=1),
+                             *caches) if len(caches) > 1 else caches[0]
+        toks = jnp.concatenate(toks, axis=0)
+        length = max(len(pr) for _, pr in active) + 1
+        for _ in range(max_new - 1):
+            logits, cache = step(params, toks, cache, jnp.int32(length))
+            toks = jnp.argmax(logits[:, -1], axis=-1).astype(
+                jnp.int32)[:, None]
+            length += 1
+            for i, (rid, _) in enumerate(active):
+                out[rid].append((int(toks[i, 0]), np.asarray(logits[i, -1])))
+    return out
+
+
+def top_two_gap(logits):
+    a, b = np.sort(logits)[-2:]
+    return float(b - a)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b"])
+@pytest.mark.parametrize("lengths", sorted(PROMPT_LENGTHS))
+def test_engine_serves_the_jax_engines_tokens(arch, lengths, jx):
+    jax, jnp, jconfigs, JT, jengine = jx
+    jcfg = jconfigs.get_smoke(arch)
+    params = JT.init(jcfg, jax.random.PRNGKey(1))
+    cfg = configs.get_smoke(arch)
+    model = T.Transformer(cfg, device="cpu")
+    model.load_state_dict(import_lm_params(
+        cfg, jax.tree.map(np.asarray, params)))
+    prompt_list = prompts(cfg.vocab, PROMPT_LENGTHS[lengths])
+    max_new, slots = 6, 2
+    max_len = max(PROMPT_LENGTHS[lengths]) + max_new + 1
+
+    jeng = jengine.Engine(jcfg, params, slots=slots, max_len=max_len)
+    eng = engine.Engine(model, slots=slots, max_len=max_len)
+    for rid, pr in enumerate(prompt_list):
+        jeng.submit(jengine.Request(rid=rid, prompt=pr, max_new=max_new))
+        eng.submit(engine.Request(rid=rid, prompt=pr, max_new=max_new))
+    want = {r.rid: r.out for r in jeng.run()}
+    fa.LAUNCHES.clear()
+    done = eng.run()
+    assert not fa.LAUNCHES                   # CPU: the plain version
+    got = {r.rid: r.out for r in done}
+    assert sorted(got) == sorted(want) == list(range(len(prompt_list)))
+    assert all(r.done and len(r.out) == max_new for r in done)
+
+    traced = jax_engine_logits(jx, jcfg, params, prompt_list, max_new, slots,
+                               max_len)
+    assert {rid: [t for t, _ in v] for rid, v in traced.items()} == want
+    for rid, served in got.items():
+        for i, (tok, (jtok, logits)) in enumerate(zip(served, traced[rid])):
+            if tok == jtok:
+                continue
+            gap = top_two_gap(logits)
+            assert gap < TIE_TOL, (
+                f"{arch} request {rid} token {i}: port {tok}, JAX {jtok}, "
+                f"JAX top-two gap {gap}")
+            warnings.warn(f"{arch} request {rid} token {i}: port {tok}, JAX "
+                          f"{jtok} at a near-tie (top-two gap {gap})")
+            break
+
+    stats = eng.stats
+    assert stats.prefill_tokens == sum(PROMPT_LENGTHS[lengths])
+    assert stats.decode_steps == 3 * (max_new - 1)     # 3 rounds of 2 slots
+    assert stats.prefill_s > 0 and stats.decode_s > 0
+
+
+def test_serve_step_writes_the_cache_in_place():
+    cfg = configs.get_smoke("qwen3-4b")
+    model = T.Transformer(cfg, device="cpu")
+    prefill = engine.make_prefill_step(model, 12)
+    step = engine.make_serve_step(model)
+    toks = torch.from_numpy(prompts(cfg.vocab, (8,))[0])[None]
+    tok, cache = prefill({"tokens": toks})
+    assert tok.dtype == torch.int32 and tuple(tok.shape) == (1, 1)
+    assert torch.count_nonzero(cache[0]["k"][:, 8:]) == 0
+    nxt, cache2 = step(tok, cache, 9)
+    assert cache2 is cache
+    assert torch.count_nonzero(cache[0]["k"][:, 8]) > 0
+    assert torch.count_nonzero(cache[0]["k"][:, 9:]) == 0
+    full, _ = T.forward(model, {"tokens": torch.cat([toks, tok], 1)})
+    assert int(nxt) == int(torch.argmax(full[0, -1]))
+
+
+def test_engine_matches_teacher_forced_forward_on_the_kernel_route():
+    """``examples/serve_e2e.py``'s self-check on the port: the served
+    tokens are the greedy tokens of a full forward (equal prompt lengths,
+    so no shifted positions)."""
+    cfg = configs.get_smoke("gemma2-2b")
+    assert cfg.attn_impl == "kernel"
+    model = T.Transformer(cfg, device="cpu")
+    eng = engine.Engine(model, slots=2, max_len=32)
+    for rid, pr in enumerate(prompts(cfg.vocab, (12,) * 3, seed=5)):
+        eng.submit(engine.Request(rid=rid, prompt=pr, max_new=6))
+    for r in eng.run():
+        seq = torch.from_numpy(np.concatenate([r.prompt, r.out[:-1]]))[None]
+        logits, _ = T.forward(model, {"tokens": seq.int()})
+        served = torch.tensor(r.out)
+        pos = logits[0, len(r.prompt) - 1:]
+        picked = pos.gather(1, served[:, None])[:, 0]
+        assert torch.all(pos.amax(1) - picked <= 1e-5), r.rid
+
+
+def test_launcher_serves_on_the_cpu():
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = launch_serve.main(["--device", "cpu", "--requests", "3",
+                                "--prompt-len", "5", "--max-new", "3",
+                                "--slots", "2", "--arch", "qwen1.5-4b"])
+    text = buf.getvalue()
+    assert rc == 0
+    assert "served 3 requests, 9 tokens" in text
+    assert "device=cpu attn_impl=kernel" in text
+
+
+def test_engine_on_the_card_needs_a_card(monkeypatch):
+    from repro_torch import DeviceError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceError):
+        launch_serve.main(["--device", "cuda", "--requests", "1"])
+
+
+def test_bf16_engine_serves_whole_requests():
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-0.6b"),
+                              param_dtype="bfloat16")
+    eng = engine.Engine(T.Transformer(cfg, device="cpu"), slots=3,
+                        max_len=20)
+    for rid, pr in enumerate(prompts(cfg.vocab, (7, 10, 4, 9))):
+        eng.submit(engine.Request(rid=rid, prompt=pr, max_new=5))
+    done = eng.run()
+    assert [r.rid for r in done] == [0, 1, 2, 3]
+    assert all(len(r.out) == 5 and all(0 <= t < cfg.vocab for t in r.out)
+               for r in done)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b"])
+def test_engine_on_the_card(arch):
+    """The smoke config on the card: the forward's logits are the CPU's
+    (f32, TF32 off, rtol/atol 1e-4), every prefill goes through the flash
+    kernel, and each served token is its position's greedy token in a
+    teacher-forced forward on the card (within 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke(arch)
+    cpu = T.Transformer(cfg, device="cpu")
+    card = T.Transformer(cfg, device="meta")
+    card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
+                         assign=True)
+    toks = torch.from_numpy(np.stack(prompts(cfg.vocab, (20, 20))))
+    want, _ = T.forward(cpu, {"tokens": toks})
+    got, _ = T.forward(card, {"tokens": toks.cuda()})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    eng = engine.Engine(card, slots=2, max_len=32)
+    for rid, pr in enumerate(prompts(cfg.vocab, (12,) * 3, seed=5)):
+        eng.submit(engine.Request(rid=rid, prompt=pr, max_new=6))
+    fa.LAUNCHES.clear()
+    done = eng.run()
+    assert fa.LAUNCHES["flash_attention"] == 3 * cfg.n_layers
+    for r in done:
+        seq = np.concatenate([r.prompt, r.out[:-1]]).astype(np.int32)
+        logits, _ = T.forward(card, {"tokens": torch.from_numpy(seq)[None]
+                                     .cuda()})
+        pos = logits[0, len(r.prompt) - 1:]
+        picked = pos.gather(1, torch.tensor(r.out, device="cuda")[:, None])
+        assert torch.all(pos.amax(1) - picked[:, 0] <= 1e-4), r.rid
