@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's three paths on the card and holds every kernel on them
+Drives the port's four paths on the card and holds every kernel on them
 against its plain PyTorch version:
 
 * the co-design sweep (``repro_torch``: trace -> augmented task graph ->
@@ -16,7 +16,11 @@ against its plain PyTorch version:
 * the LM serve path (``repro_torch.serve.engine.Engine``) on qwen3-0.6b
   at its published full width, in bf16 with weights drawn from a seeded
   ``torch.Generator``, through the hand-written flash-attention kernel
-  (``csrc/flash_attention.cu``) on every prefill.
+  (``csrc/flash_attention.cu``) on every prefill;
+* RWKV6 serving (the same ``Engine``) on rwkv6-1.6b at its published full
+  width, in bf16 from a seeded ``torch.Generator``, through the
+  hand-written linear-attention kernel (``csrc/linear_attn.cu``) on every
+  prefill, and the plain per-token recurrence on every decode step.
 
 Phases, one line each or more:
 
@@ -25,7 +29,7 @@ Phases, one line each or more:
    f32);
 2. the kernel builds, all started together (seconds, ``-Xptxas -v``
    registers and spills): ``lockstep_step.cu``, ``tiles.cu`` at ``TILE``
-   64 and 128, and ``flash_attention.cu``;
+   64 and 128, ``flash_attention.cu`` and ``linear_attn.cu``;
 3. step_commit == plain PyTorch version, bit for bit, on seeded states at
    the main path's shapes, with all-``inf`` pools and ties;
 4. the tile kernels == plain versions within tolerance at every path
@@ -35,6 +39,10 @@ Phases, one line each or more:
    serve path's shape (16, 8, 512, 512, 128) bf16 causal (GQA 2:1), a
    padded length through ``ops.attention`` (T = S = 300), gemma2's local
    layer (8 heads over 4, D 256, window 256, softcap 50) and in f32;
+   ``linear_attn`` == plain version (output and final state) at the
+   RWKV6 path's shape (32, 512, 64, 64) chunk 64 with bf16 r/k/v/u and
+   f32 w, a padded length through ``ops.linear_attn`` (T = 300), strong
+   decay (w <= 1e-6), Mamba2's scalar decay with u = 0, and in f32;
 5. four sweeps: ``trace_matmul(512, 64)`` with a 200-candidate slot ×
    ±SMP ramp (cold, then warm from the recorded orders), the same sweep
    with ``top_k=5, prune=True``, and ``trace_cholesky(512, 64)`` with the
@@ -65,10 +73,19 @@ Phases, one line each or more:
     every served token's logit must be within ``SELFCHECK_TOL`` of its
     position's maximum; then one prefill and one decode step under
     ``torch.profiler`` (device busy share, kernels, costliest operations);
+    then the same for rwkv6-1.6b (the qwen model freed first), with the
+    ``linear_attn`` counts set to 0 just before the served run and read
+    just after (192 launches, all at the path shape), the kernel route
+    against ``attn_impl="chunked"`` (printed on the served bf16 weights,
+    gated on the arch's f32 weights from the same seed: see
+    ``ROUTE_ATOL``) and the self-check's forward padded to 576 by
+    ``ops.linear_attn``;
 12. ``flash_attention`` at the path shape by CUDA events, per wrapper
     call and per bare launch, beside its plain version,
     ``F.scaled_dot_product_attention(..., is_causal=True,
-    enable_gqa=True)`` and its bound;
+    enable_gqa=True)`` and its bound; ``linear_attn`` at its path shape
+    the same way, beside its plain version and its bound (no single
+    PyTorch call computes it);
 13. a ``kernels`` JSON line (launches on the paths, error against the
     plain version, times and bound at the commonest path shape) and
     candidates/s lines.
@@ -79,6 +96,7 @@ exits non-zero.  Run: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -116,15 +134,46 @@ FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}     # rtol = atol
 #: prompt, ``(BH, BKV, T, S, D)`` in bf16, causal.
 FLASH_PATH = (16, 8, 512, 512, 128)
 
-#: The serve phase: arch, requests, prompt length, new tokens, slots.
-SERVE = {"arch": "qwen3-0.6b", "requests": 8, "prompt_len": 512,
-         "max_new": 32, "slots": 4}
+#: The linear-attention kernel's path launch: rwkv6-1.6b's prefill of one
+#: 512-token prompt, ``(BH, T, dk, dv)`` with chunk 64, bf16 r/k/v/u and
+#: f32 w.
+LINEAR_PATH = (32, 512, 64, 64)
+LINEAR_CHUNK = 64
 
-#: bf16 tolerances of the serve phase, on logits (f32 after a bf16
-#: unembedding): the kernel route's last-position prefill logits against
-#: the plain route's (max abs difference), and a served token's logit
-#: below its position's maximum in the teacher-forced forward.
-ROUTE_ATOL = 0.1
+#: Tolerances (rtol = atol) of ``linear_attn`` against its plain version:
+#: ``tests/test_kernels.py``'s 2e-4 in f32 and 1e-3 under strong decay;
+#: bf16 outputs at 1e-2, above 2**-7 (one bf16 ulp relative: two
+#: roundings of f32 values that agree to f32 precision differ by at most
+#: that).  The final state is f32 in every case.
+LINEAR_TOL = {"float32": 2e-4, "strong": 1e-3, "bfloat16": 1e-2}
+
+#: The serve phases' traffic: requests, prompt length, new tokens, slots.
+SERVE = {"requests": 8, "prompt_len": 512, "max_new": 32, "slots": 4}
+
+#: The archs served at full width with that traffic: the kernel every
+#: prefill must go through (its wrapper's launch key and path shape key),
+#: the plain route the kernel route is held to, and the weights' type of
+#: the model that route check is gated on.
+SERVE_MODELS = (
+    {"arch": "qwen3-0.6b", "kernel": "flash_attention",
+     "path_key": (*FLASH_PATH, "torch.bfloat16"), "plain_impl": "naive",
+     "route_dtype": "bfloat16"},
+    {"arch": "rwkv6-1.6b", "kernel": "linear_attn",
+     "path_key": (*LINEAR_PATH, LINEAR_CHUNK, "torch.bfloat16"),
+     "plain_impl": "chunked", "route_dtype": "float32"},
+)
+
+#: Limits of the serve phase, on logits (f32 after the unembedding): the
+#: kernel route's last-position prefill logits against the plain route's
+#: (max abs difference), by the weights' type of the gated model, and a
+#: served token's logit below its position's maximum in the teacher-forced
+#: forward (bf16).  The bf16 limit is gated for qwen3-0.6b.  rwkv6-1.6b's
+#: bf16 routes differ by the model's own rounding noise (its plain route
+#: against itself at half the chunk moves the logits by 0.19), so its
+#: route is gated on the same arch with f32 weights, where every pair of
+#: routes agrees within 4.1e-5 (``tools/rwkv6_route_noise.py``); its bf16
+#: difference is printed, not gated.
+ROUTE_ATOL = {"bfloat16": 0.1, "float32": 1e-3}
 SELFCHECK_TOL = 0.1
 
 
@@ -688,13 +737,181 @@ def time_flash(torch, F, fa, ref, case):
     return row
 
 
-def serve_flow(torch, np, configs, T, engine, fa):
-    """Serve ``SERVE`` on the card at full width; returns a summary and the
-    flash launch counts of the served run.  Exits if a request is short,
-    the flash counts are off, the routes disagree or the self-check
-    fails."""
+def linear_inputs(torch, np, seed, shape, dtype, *, decay="rwkv",
+                  bonus=True):
+    """Seeded ``(r, k, v, w, u)`` on the card at ``(BH, T, dk, dv)``, as
+    ``tests/test_kernels.py`` draws them: r standard normal, k and v at
+    0.5, u at 0.3 (zeros when ``bonus`` is false), one head per row.
+    ``decay``: ``"rwkv"`` is ``exp(-exp(z))``, ``"strong"`` the same with
+    ``z`` at 3 and capped at 1e-6, ``"scalar"`` one ``sigmoid(z)`` per
+    step broadcast over dk (Mamba2's form).  r, k, v, u in ``dtype``, w
+    in f32."""
+    bh, t, dk, dv = shape
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((bh, t, dk))
+    k = rng.standard_normal((bh, t, dk)) * 0.5
+    v = rng.standard_normal((bh, t, dv)) * 0.5
+    if decay == "scalar":
+        w = np.broadcast_to(1 / (1 + np.exp(-rng.standard_normal(
+            (bh, t, 1)))), (bh, t, dk)).copy()
+    else:
+        z = rng.standard_normal((bh, t, dk))
+        w = np.exp(-np.exp(z * (3.0 if decay == "strong" else 1.0)))
+        if decay == "strong":
+            w = np.minimum(w, 1e-6)
+    u = (rng.standard_normal((bh, dk)) * 0.3 if bonus
+         else np.zeros((bh, dk)))
+    cast = getattr(torch, dtype)
+    out = [torch.from_numpy(a.astype(np.float32)).to(cast).cuda()
+           for a in (r, k, v)]
+    out.append(torch.from_numpy(w.astype(np.float32)).cuda())
+    out.append(torch.from_numpy(u.astype(np.float32)).to(cast).cuda())
+    return out
+
+
+def linear_cases(torch, np, la, ops):
+    """The linear-attention kernel's check cases, each through the wrapper
+    (or ``ops.linear_attn``, which pads T) on seeded inputs on the card."""
+    specs = [  # label, (BH, T, dk, dv), dtype, decay, bonus, padded
+        ("path", LINEAR_PATH, "bfloat16", "rwkv", True, False),
+        ("padded", (32, 300, 64, 64), "bfloat16", "rwkv", True, True),
+        ("strong_decay", LINEAR_PATH, "float32", "strong", True, False),
+        ("scalar_decay_u0", LINEAR_PATH, "float32", "scalar", False, False),
+        ("f32", LINEAR_PATH, "float32", "rwkv", True, False),
+    ]
+    cases = []
+    for i, (label, shape, dtype, decay, bonus, padded) in enumerate(specs):
+        r, k, v, w, u = linear_inputs(torch, np, 20 + i, shape, dtype,
+                                      decay=decay, bonus=bonus)
+        run = ((lambda r=r, k=k, v=v, w=w, u=u: ops.linear_attn_state(
+            r, k, v, w, u, chunk=LINEAR_CHUNK)) if padded
+               else (lambda r=r, k=k, v=v, w=w, u=u: la.linear_attention_state(
+                   r, k, v, w, u, chunk=LINEAR_CHUNK)))
+        tol = LINEAR_TOL["strong" if decay == "strong" else dtype]
+        cases.append({"label": label, "shape": list(shape), "dtype": dtype,
+                      "decay": decay, "padded": padded,
+                      "inputs": (r, k, v, w, u), "run": run, "tol": tol,
+                      "state_tol": LINEAR_TOL["strong" if decay == "strong"
+                                              else "float32"]})
+    return cases
+
+
+def check_linear(torch, ref, cases):
+    """Each case's kernel (output and final state) against the plain
+    version; exits on any disagreement.  Returns ``{label: max abs error
+    of the output}``."""
+    errs = {}
+    for case in cases:
+        got, got_state = case["run"]()
+        want, want_state = ref.linear_attention_state(*case["inputs"])
+        torch.cuda.synchronize()
+        tol, stol = case["tol"], case["state_tol"]
+        err = float((got.float() - want.float()).abs().max())
+        serr = float((got_state - want_state).abs().max())
+        ok = (bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol)) and got.dtype == want.dtype
+              and bool(torch.allclose(got_state, want_state, rtol=stol,
+                                      atol=stol))
+              and bool(torch.isfinite(got.float()).all()))
+        errs[case["label"]] = err
+        via = ("ops.linear_attn" if case["padded"]
+               else "linear_attention_state")
+        phase("linear==plain", f"{case['label']} (BH,T,dk,dv)="
+              f"{case['shape']} {case['dtype']} r/k/v/u, f32 w, decay "
+              f"{case['decay']}, chunk {LINEAR_CHUNK} via {via}: "
+              f"max_abs_err={err} (outputs up to "
+              f"{float(want.float().abs().max()):.3f}) within rtol=atol="
+              f"{tol}, final state max_abs_err={serr} within {stol}: {ok}")
+        if not ok:
+            raise SystemExit(f"linear_attn disagrees with its plain version "
+                             f"at {case['label']}")
+    return errs
+
+
+def linear_work(bh: int, t: int, dk: int, dv: int) -> int:
+    """The f32 operations the function needs: the per-step recurrence's
+    (``ref.linear_attention_state``), per step and row ``dk·dv`` for the
+    state's decay, ``2·dk·dv`` for its ``kᵀv`` update and ``2·dk·dv`` for
+    ``r S``, ``3·dk`` for the bonus's ``(r ⊙ u)·k`` and ``2·dv`` for
+    adding it times ``v``.  The chunked form's pairwise decays are work of
+    that form, not of the function, and are not counted."""
+    return bh * t * (5 * dk * dv + 3 * dk + 2 * dv)
+
+
+def time_linear(torch, la, ref, case):
+    """The linear-attention kernel's times at ``case`` by CUDA events: per
+    wrapper call, per bare launch, the plain version, and the bound (no
+    single PyTorch call computes the function: no library time)."""
+    r, k, v, w, u = case["inputs"]
+    bh, t, dk, dv = case["shape"]
+    lib = la.library()
+    out = torch.empty_like(v)
+    state = torch.empty((bh, dk, dv), dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    codes = [la.DTYPE_CODES[x.dtype] for x in (r, w, u)]
+
+    def bare():
+        return lib.linear_attn_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), out.data_ptr(), state.data_ptr(), bh, t, dk, dv,
+            u.shape[0], LINEAR_CHUNK, *codes, stream)
+
+    if bare() != 0:
+        raise SystemExit("bare linear_attn launch failed")
+    row = {"shape": case["shape"], "dtype": case["dtype"],
+           "chunk": LINEAR_CHUNK,
+           "ms": time_ms(lambda: la.linear_attention_state(
+               r, k, v, w, u, chunk=LINEAR_CHUNK), 200),
+           "kernel_only_ms": time_ms(bare, 200),
+           "plain_ms": time_ms(lambda: ref.linear_attention_state(
+               r, k, v, w, u), 3),
+           "library_ms": None, "library_call": None}
+    nbytes = sum(x.numel() * x.element_size() for x in (r, k, v, w, u)) \
+        + out.numel() * out.element_size() + state.numel() * 4
+    flops = linear_work(bh, t, dk, dv)
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "float32")
+    row.update(bytes=nbytes, flops=flops)
+    phase("linear kernel", f"(BH,T,dk,dv)={case['shape']} chunk "
+          f"{LINEAR_CHUNK} {case['dtype']} r/k/v/u, f32 w: "
+          f"{row['ms'] * 1e3:.1f} us per wrapper call, "
+          f"{row['kernel_only_ms'] * 1e3:.1f} us per bare launch, plain "
+          f"version {row['plain_ms'] * 1e3:.1f} us, no library call, bound "
+          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes} B, "
+          f"{flops} f32 operations)")
+    return row
+
+
+def route_diff(torch, T, model, plain_impl, prompts, max_len):
+    """The max abs difference of the last-position prefill logits of
+    ``model`` (the kernel route) and of ``plain_impl``'s route on the same
+    weights (shared, not copied), over ``prompts``; and the logits' max."""
     import dataclasses
-    cfg = configs.get_config(SERVE["arch"])
+    plain = T.Transformer(dataclasses.replace(model.cfg,
+                                              attn_impl=plain_impl),
+                          device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    err = 0.0
+    for pr in prompts:
+        batch = {"tokens": torch.as_tensor(pr, device="cuda")[None]}
+        got, _ = T.prefill(model, batch, max_len)
+        want, _ = T.prefill(plain, batch, max_len)
+        err = max(err, float((got - want).abs().max()))
+    return err, float(want.abs().max())
+
+
+def serve_flow(torch, np, configs, T, engine, counters, model_spec,
+               failures):
+    """Serve ``SERVE``'s traffic with ``model_spec``'s arch on the card at
+    full width; returns a summary with the launch counts of its kernel in
+    the served run (``counters``: the wrapper module, whose ``LAUNCHES``
+    and ``SHAPES`` are set to 0 just before the run and read just after).
+    Exits if a request is short or the launch counts are off; a kernel
+    route that disagrees with the plain route, or a failed self-check, is
+    appended to ``failures`` (the script fails at its end) and the phase
+    goes on, so that one run measures everything."""
+    import dataclasses
+    kernel = model_spec["kernel"]
+    cfg = configs.get_config(model_spec["arch"])
     t0 = time.perf_counter()
     model = T.Transformer(cfg, device="cuda",
                           generator=torch.Generator("cuda").manual_seed(0))
@@ -713,17 +930,17 @@ def serve_flow(torch, np, configs, T, engine, fa):
                                   max_new=SERVE["max_new"]))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    fa.LAUNCHES.clear()
-    fa.SHAPES.clear()
+    counters.LAUNCHES.clear()
+    counters.SHAPES.clear()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.LAUNCHES["flash_attention"]
-    shapes = dict(fa.SHAPES)
+    launches = counters.LAUNCHES[kernel]
+    shapes = dict(counters.SHAPES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = eng.stats
-    path_key = (*FLASH_PATH, "torch.bfloat16")
+    path_key = model_spec["path_key"]
     want_launches = SERVE["requests"] * cfg.n_layers
     served = sum(len(r.out) for r in done)
     summary = {
@@ -736,39 +953,53 @@ def serve_flow(torch, np, configs, T, engine, fa):
         "decode_steps": st.decode_steps, "decode_s": st.decode_s,
         "decode_ms_per_step": st.decode_s / st.decode_steps * 1e3,
         "decode_tok_per_s": st.decode_steps * SERVE["slots"] / st.decode_s,
-        "flash_launches": launches,
-        "flash_shapes": {str(k): n for k, n in shapes.items()},
+        "kernel": kernel, "launches": launches,
+        "shapes": {str(k): n for k, n in shapes.items()},
         "peak_mem_gb": peak_gb}
     phase("serve", json.dumps(summary))
     if len(done) != SERVE["requests"] or any(
             len(r.out) != SERVE["max_new"] for r in done):
-        raise SystemExit("serve: a request was not served in full")
+        raise SystemExit(f"serve {cfg.name}: a request was not served in "
+                         f"full")
     if launches != want_launches or shapes.get(path_key) != want_launches:
-        raise SystemExit(f"serve: {launches} flash launches ({shapes}), "
-                         f"expected {want_launches} at {path_key}")
+        raise SystemExit(f"serve {cfg.name}: {launches} {kernel} launches "
+                         f"({shapes}), expected {want_launches} at "
+                         f"{path_key}")
 
-    # the plain route on the same weights (shared, not copied)
-    plain = T.Transformer(dataclasses.replace(cfg, attn_impl="naive"),
-                          device="meta")
-    plain.load_state_dict(model.state_dict(), assign=True)
-    route_err = 0.0
-    for pr in prompts:
-        batch = {"tokens": torch.as_tensor(pr, device="cuda")[None]}
-        got, _ = T.prefill(model, batch, max_len)
-        want, _ = T.prefill(plain, batch, max_len)
-        route_err = max(route_err, float((got - want).abs().max()))
-    scale = float(want.abs().max())
-    phase("serve routes", f"kernel vs plain (naive) route, last-position "
-          f"prefill logits of the {len(prompts)} prompts: max_abs_diff="
-          f"{route_err} (logits up to {scale:.3f}) within {ROUTE_ATOL}: "
-          f"{route_err <= ROUTE_ATOL}")
-    if not route_err <= ROUTE_ATOL:
-        raise SystemExit("serve: the kernel route disagrees with the plain "
-                         "route")
+    # the kernel route against the plain route, on the served weights and,
+    # where the route is gated in f32, on the arch's f32 weights
+    route_err, scale = route_diff(torch, T, model, model_spec["plain_impl"],
+                                  prompts, max_len)
+    route_dtype = model_spec["route_dtype"]
+    gated_err, limit = route_err, ROUTE_ATOL[route_dtype]
+    text = (f"{cfg.name}: kernel vs plain ({model_spec['plain_impl']}) "
+            f"route, last-position prefill logits of the {len(prompts)} "
+            f"prompts, bf16 weights: max_abs_diff={route_err} (logits up to "
+            f"{scale:.3f})")
+    if route_dtype == "bfloat16":
+        text += f" within {limit}: {route_err <= limit}"
+        route_f32 = None
+    else:
+        f32 = T.Transformer(
+            dataclasses.replace(cfg, param_dtype=route_dtype), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(0))
+        route_f32, scale_f32 = route_diff(
+            torch, T, f32, model_spec["plain_impl"], prompts, max_len)
+        del f32
+        torch.cuda.empty_cache()
+        gated_err = route_f32
+        text += (f" (not gated); f32 weights: max_abs_diff={route_f32} "
+                 f"(logits up to {scale_f32:.3f}) within {limit}: "
+                 f"{route_f32 <= limit}")
+    phase("serve routes", text)
+    if not gated_err <= limit:
+        failures.append(f"serve {cfg.name}: the kernel route differs from "
+                        f"the plain route by {gated_err} > {limit} "
+                        f"({route_dtype} weights)")
 
     # examples/serve_e2e.py's self-check, one teacher-forced forward each
-    fa.LAUNCHES.clear()
-    fa.SHAPES.clear()
+    counters.LAUNCHES.clear()
+    counters.SHAPES.clear()
     worst_gap, exact = 0.0, 0
     for r in done:
         seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
@@ -779,17 +1010,23 @@ def serve_flow(torch, np, configs, T, engine, fa):
         gaps = pos.amax(1) - picked[:, 0]
         worst_gap = max(worst_gap, float(gaps.max()))
         exact += int((gaps == 0).sum())
-    check_launches = dict(fa.SHAPES)
+    check_launches = dict(counters.SHAPES)
     t_fwd = SERVE["prompt_len"] + SERVE["max_new"] - 1
-    phase("serve self-check", f"teacher-forced forward (T={t_fwd}, padded "
-          f"by ops.attention; flash launches {check_launches}): "
-          f"{exact}/{served} served tokens are the forward's argmax, the "
-          f"worst is {worst_gap} below its position's maximum, within "
-          f"{SELFCHECK_TOL}: {worst_gap <= SELFCHECK_TOL}")
-    if not worst_gap <= SELFCHECK_TOL or not check_launches:
-        raise SystemExit("serve: self-check against the full forward "
-                         "failed")
-    summary.update(route_max_abs_diff=route_err, selfcheck_worst_gap=worst_gap,
+    phase("serve self-check", f"{cfg.name}: teacher-forced forward "
+          f"(T={t_fwd}, padded by kernels.ops; {kernel} launches "
+          f"{check_launches}): {exact}/{served} served tokens are the "
+          f"forward's argmax, the worst is {worst_gap} below its "
+          f"position's maximum, within {SELFCHECK_TOL}: "
+          f"{worst_gap <= SELFCHECK_TOL}")
+    if not check_launches:
+        raise SystemExit(f"serve {cfg.name}: the self-check's forward "
+                         f"launched no {kernel}")
+    if not worst_gap <= SELFCHECK_TOL:
+        failures.append(f"serve {cfg.name}: a served token is {worst_gap} "
+                        f"below its position's maximum > {SELFCHECK_TOL}")
+    summary.update(route_max_abs_diff=route_err,
+                   route_f32_max_abs_diff=route_f32,
+                   selfcheck_worst_gap=worst_gap,
                    selfcheck_argmax_equal=exact,
                    selfcheck_launches={str(k): n
                                        for k, n in check_launches.items()},
@@ -813,7 +1050,8 @@ def profile_serve(torch, engine, model, prompts, max_len):
         caches.append(cache)
         toks.append(tok)
     cache = [{name: torch.cat([c[layer][name] for c in caches])
-              for name in ("k", "v")} for layer in range(len(caches[0]))]
+              for name in caches[0][layer]}
+             for layer in range(len(caches[0]))]
     toks = torch.cat(toks)
     batch = {"tokens": torch.as_tensor(prompts[0], device="cuda")[None]}
     runs = {"prefill_512": lambda: prefill(batch),
@@ -845,7 +1083,8 @@ def profile_serve(torch, engine, model, prompts, max_len):
             "top_device_kernels": [[e.key[:80], e.count,
                                     e.self_device_time_total * 1e-6]
                                    for e in top_dev]}
-        phase("serve profile", json.dumps({name: out[name]}))
+        phase("serve profile", json.dumps({"arch": model.cfg.name,
+                                           name: out[name]}))
     return out
 
 
@@ -907,6 +1146,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import cholesky_tiles as ct
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_attn as la
     from repro_torch.kernels import lockstep_step as ls
     from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as T
@@ -924,7 +1164,7 @@ def main() -> int:
 
     # 2. the kernel builds, one nvcc per library, all started together
     builds = ((ls.SOURCE, None), (bm.SOURCE, None), (bm.SOURCE, {"TILE": 128}),
-              (fa.SOURCE, None))
+              (fa.SOURCE, None), (la.SOURCE, None))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         built = [f.result() for f in [pool.submit(build.load, src, defines)
@@ -949,6 +1189,8 @@ def main() -> int:
     tile_errs = check_tiles(torch, cases)
     fcases = flash_cases(torch, np, fa, ops)
     flash_errs = check_flash(torch, ref, fcases)
+    lcases = linear_cases(torch, np, la, ops)
+    linear_errs = check_linear(torch, ref, lcases)
 
     # 5. the sweeps: torch on the card, then batch on the host
     sweeps = []
@@ -1078,16 +1320,26 @@ def main() -> int:
     # 10. the tile kernels' times at the path shapes
     rows = time_tiles(torch, cases, tile_errs)
 
-    # 11. the LM serve path at full width; flash counts of the served run
-    serve = serve_flow(torch, np, configs, T, engine, fa)
+    # 11. the LM serve path at full width, qwen3-0.6b then rwkv6-1.6b (the
+    # first model freed before the second is built); each kernel's counts
+    # of its served run
+    failures = []
+    serve = serve_flow(torch, np, configs, T, engine, fa, SERVE_MODELS[0],
+                       failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_rwkv = serve_flow(torch, np, configs, T, engine, la,
+                            SERVE_MODELS[1], failures)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # 12. the flash kernel's times at the path shape
+    # 12. the flash and linear-attention kernels' times at the path shapes
     frow = time_flash(torch, F, fa, ref, fcases[0])
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": serve["flash_launches"],
+        "launches": serve["launches"],
         "max_abs_err": flash_errs["path"],
         "ms": frow["ms"], "plain_ms": frow["plain_ms"],
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
@@ -1095,13 +1347,33 @@ def main() -> int:
         "kernel_only_ms": frow["kernel_only_ms"],
         "timed_shape": frow["shape"], "timed_dtype": frow["dtype"],
         "library_call": frow["library_call"],
-        "launches_by_shape": serve["flash_shapes"],
+        "launches_by_shape": serve["shapes"],
         "max_abs_err_by_case": flash_errs,
+    }
+    lrow = time_linear(torch, la, ref, lcases[0])
+    linear = {
+        "name": "linear_attn", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/linear_attn.cu",
+        "replaces": "src/repro/kernels/linear_attn.py:84",
+        "launches": serve_rwkv["launches"],
+        "max_abs_err": linear_errs["path"],
+        "ms": lrow["ms"], "plain_ms": lrow["plain_ms"],
+        "bound_ms": lrow["bound_ms"], "bound_by": lrow["bound_by"],
+        "library_ms": None,
+        "kernel_only_ms": lrow["kernel_only_ms"],
+        "timed_shape": lrow["shape"], "timed_dtype": lrow["dtype"],
+        "chunk": LINEAR_CHUNK, "library_call": None,
+        "launches_by_shape": serve_rwkv["shapes"],
+        "max_abs_err_by_case": linear_errs,
     }
 
     # 13. the kernels line
     print(json.dumps({"kernels": [kern] + tile_kernel_rows(rows, fig6, chol)
-                      + [flash]}))
+                      + [flash, linear]}))
+    if failures:
+        for f in failures:
+            print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
+        return 1
     print(power_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -2,9 +2,9 @@
 
 The tensor's device picks the route, as in :mod:`repro_torch.core.torchsim`:
 CUDA tensors launch the Hopper kernels, CPU tensors run their plain
-versions.  :func:`matmul` and :func:`attention` pad their operands to the
-kernels' block contracts and slice the result back
-(``repro/kernels/ops.py:26-81``).
+versions.  :func:`matmul`, :func:`attention` and :func:`linear_attn` pad
+their operands to the kernels' block contracts and slice the result back
+(``repro/kernels/ops.py:26-102``).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from .block_matmul import block_matmul, gemm_update_tile
 from .cholesky_tiles import syrk_tile, trsm_tile
 from .flash_attention import flash_attention
+from .linear_attn import linear_attention_state
 
 
 def _pad_to(x: torch.Tensor, axis: int,
@@ -72,6 +73,35 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           softcap=softcap, scale=scale, block_q=block_q,
                           block_k=block_k)
     return out[:, :t0, :]
+
+
+def linear_attn_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor, *, chunk: int = 32
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked decayed linear attention with padding on T, and its final
+    ``(BH, dk, dv)`` f32 state.  ``r``/``k``/``w`` ``(BH, T, dk)``, ``v``
+    ``(BH, T, dv)``, ``u`` ``(H, dk)``.
+
+    The chunk shrinks to ``min(chunk, max(8, T))``; padded steps have
+    ``r = k = v = 0`` and decay ``w = 1`` (log 0), so they neither decay
+    nor add to the state."""
+    t = r.shape[1]
+    chunk = min(chunk, max(8, t))
+    r, t0 = _pad_to(r, 1, chunk)
+    k, _ = _pad_to(k, 1, chunk)
+    v, _ = _pad_to(v, 1, chunk)
+    if r.shape[1] != t0:
+        w = F.pad(w, (0, 0, 0, r.shape[1] - t0), value=1.0)
+    out, state = linear_attention_state(r, k, v, w, u, chunk=chunk)
+    return out[:, :t0, :], state
+
+
+def linear_attn(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor, *,
+                chunk: int = 32) -> torch.Tensor:
+    """:func:`linear_attn_state`'s output alone (the JAX package's
+    ``ops.linear_attn`` contract)."""
+    return linear_attn_state(r, k, v, w, u, chunk=chunk)[0]
 
 
 def syrk(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -3,13 +3,13 @@
 Each function computes the mathematically defined result in f32 with no
 tiling, fusion or online accumulation, with the names and contracts of
 the JAX package's oracles.  The wrappers in :mod:`.block_matmul`,
-:mod:`.cholesky_tiles` and :mod:`.flash_attention` run these for CPU
-tensors; on the card only the tests and ``chip_smoke.py`` call them, to
-hold the kernels to them.
+:mod:`.cholesky_tiles`, :mod:`.flash_attention` and :mod:`.linear_attn`
+run these for CPU tensors; on the card only the tests and
+``chip_smoke.py`` call them, to hold the kernels to them.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,6 +50,39 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = torch.where(mask[None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("hts,hsd->htd", probs, v.float()).to(q.dtype)
+
+
+def linear_attention_state(r: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, w: torch.Tensor,
+                           u: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact per-step recurrence, in f32, and its final state:
+
+        o_t = r_t S_{t-1} + ((r_t ⊙ u) · k_t) v_t
+        S_t = diag(w_t) S_{t-1} + kᵀ_t v_t,   S_0 = 0
+
+    ``r``/``k``/``w`` ``(BH, T, dk)``, ``v`` ``(BH, T, dv)``, ``u``
+    ``(H, dk)`` with ``BH = B x H`` (row ``bh`` takes ``u[bh % H]``).
+    Returns ``(out (BH, T, dv) in r's dtype, state (BH, dk, dv) f32)``."""
+    bh, t, dk = r.shape
+    dv = v.shape[-1]
+    u_full = u.float().repeat(bh // u.shape[0], 1)            # (BH, dk)
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    state = torch.zeros((bh, dk, dv), dtype=torch.float32, device=r.device)
+    outs = []
+    for i in range(t):
+        r_t, k_t, v_t = rf[:, i], kf[:, i], vf[:, i]
+        bonus = torch.sum(r_t * u_full * k_t, dim=-1)          # (BH,)
+        outs.append(torch.einsum("bk,bkv->bv", r_t, state)
+                    + bonus[:, None] * v_t)
+        state = wf[:, i, :, None] * state + k_t[:, :, None] * v_t[:, None, :]
+    return torch.stack(outs, dim=1).to(r.dtype), state
+
+
+def linear_attention(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """:func:`linear_attention_state`'s output alone."""
+    return linear_attention_state(r, k, v, w, u)[0]
 
 
 def syrk(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,11 @@
 
 Batched serving of a smoke-sized model with weights drawn from seed 0:
 prefill per request, lock-step batched greedy decode over fixed slots.
-Runs on the card unless ``--device cpu`` is given; the attention route is
-the config's ``attn_impl`` (``"kernel"``: the flash kernel on the card,
-its plain version on the CPU).
+Runs on the card unless ``--device cpu`` is given; ``--arch`` is any
+ported arch (the four dense ones or ``rwkv6-1.6b``).  The route is the
+config's ``attn_impl`` (``"kernel"``: the flash kernel for attention and
+the linear-attention kernel for RWKV6's prefill on the card, their plain
+versions on the CPU).
 """
 from __future__ import annotations
 

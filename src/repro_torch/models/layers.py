@@ -118,13 +118,14 @@ def gelu_mlp(x, up: "Dense", down: "Dense") -> torch.Tensor:
 # --------------------------------------------------------------- modules --
 
 class Dense(nn.Module):
-    """``x @ w (+ b)``; ``w`` truncated-normal in [-2, 2] times
-    ``1/sqrt(d_in)``, ``b`` zeros."""
+    """``x @ w (+ b)``; ``w`` truncated-normal in [-2, 2] times ``scale``
+    (default ``1/sqrt(d_in)``), ``b`` zeros."""
 
     def __init__(self, d_in: int, d_out: int, *, dtype, device,
-                 generator: Optional[torch.Generator], bias: bool = False):
+                 generator: Optional[torch.Generator], bias: bool = False,
+                 scale: Optional[float] = None):
         super().__init__()
-        scale = 1.0 / math.sqrt(d_in)
+        scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
 
         def fill(t):
             nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,

@@ -1,0 +1,241 @@
+"""Attention-free blocks: RWKV6 ("Finch") time and channel mix.
+
+The JAX package's ``repro/models/linear_blocks.py``, RWKV6 part.  Its core
+is decayed linear attention,
+
+    o_t = r_t S_{t-1} + ((r_t ⊙ u)·k_t) v_t
+    S_t = diag(w_t) S_{t-1} + kᵀ_t v_t
+
+with a per-channel data-dependent decay ``w``.  Prefill routes on the
+model's ``attn_impl``, the field that routes attention too:
+
+* ``"kernel"`` (the port's default) —
+  :func:`repro_torch.kernels.ops.linear_attn`: the hand-written Hopper
+  kernel (``csrc/linear_attn.cu``) for CUDA tensors, the exact per-step
+  recurrence for CPU tensors;
+* ``"chunked"`` or ``"naive"`` — :func:`linear_attention_chunked`, the
+  JAX package's pure-jnp production path in plain PyTorch (a loop over
+  chunks, the same closed form as the kernel).
+
+Decode carries the ``(dk, dv)`` state explicitly through
+:func:`linear_attention_decode`, plain PyTorch as in the JAX package.
+Mamba2 (zamba2's block) is still to port.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .layers import Dense, RMSNorm, _param
+
+State = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Decayed linear attention
+# ---------------------------------------------------------------------------
+
+def linear_attention_chunked(r, k, v, w, u, *, chunk: int = 64
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/w: (B, H, T, dk); v: (B, H, T, dv); u: (H, dk).
+
+    Returns ``(out (B, H, T, dv) in r's dtype, final state (B, H, dk, dv)
+    f32)`` from a zero state.  Padded steps have ``w = 1`` and ``k = v =
+    0``, so the state passes through them unchanged; every decay exponent
+    is ≤ 0."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    chunk = min(chunk, t)
+    t0 = t
+    pad = (-t) % chunk
+    if pad:
+        r, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (r, k, v))
+        w = F.pad(w, (0, 0, 0, pad), value=1.0)
+        t = t + pad
+    n = t // chunk
+    rc, kc, vc, wc = (x.reshape(b, h, n, chunk, -1) for x in (r, k, v, w))
+    uf = u.float()[None, :, None, :]                           # (1, H, 1, dk)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    eye = torch.eye(chunk, device=r.device)
+    state = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=r.device)
+    outs = []
+    for j in range(n):
+        rj, kj, vj, wj = (x[:, :, j].float() for x in (rc, kc, vc, wc))
+        logw = torch.log(torch.clamp_min(wj, 1e-30))
+        a_inc = torch.cumsum(logw, dim=2)
+        a_exc = a_inc - logw
+        a_end = a_inc[:, :, -1:, :]
+        inter = torch.einsum("bhtk,bhkv->bhtv", rj * torch.exp(a_exc), state)
+        diff = torch.clamp_max(a_exc[:, :, :, None, :]
+                               - a_inc[:, :, None, :, :], 0.0)  # (b,h,C,C,dk)
+        dec = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+        scores = torch.einsum("bhtk,bhsk,bhtsk->bhts", rj, kj, dec)
+        bonus = torch.sum(rj * uf * kj, dim=-1)                 # (b,h,C)
+        scores = scores + eye[None, None] * bonus[:, :, :, None]
+        intra = torch.einsum("bhts,bhsv->bhtv", scores, vj)
+        k_dec = kj * torch.exp(a_end - a_inc)
+        state = (torch.exp(a_end).transpose(2, 3) * state
+                 + torch.einsum("bhtk,bhtv->bhkv", k_dec, vj))
+        outs.append(inter + intra)
+    out = torch.stack(outs, dim=2).reshape(b, h, t, dv)[:, :, :t0]
+    return out.to(r.dtype), state
+
+
+def linear_attention_decode(r, k, v, w, u, state
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token: r/k/w (B, H, dk), v (B, H, dv), state (B, H, dk, dv)."""
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    bonus = torch.sum(rf * u[None].float() * kf, dim=-1)
+    out = torch.einsum("bhk,bhkv->bhv", rf, state) + bonus[..., None] * vf
+    state = wf[..., None] * state + kf[..., None] * vf[..., None, :]
+    return out.to(r.dtype), state
+
+
+def linear_attention_kernel(r, k, v, w, u, *, chunk: int = 64
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`linear_attention_chunked`'s contract through
+    :func:`repro_torch.kernels.ops.linear_attn`, with the heads flattened
+    as ``(B, H)`` so that row ``b·H + h`` takes ``u[h]``."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    flat = [x.reshape(b * h, t, x.shape[-1]).contiguous()
+            for x in (r, k, v, w)]
+    out, state = ops.linear_attn_state(*flat, u.contiguous(), chunk=chunk)
+    return out.reshape(b, h, t, dv), state.reshape(b, h, dk, dv)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 block (time mix + channel mix)
+# ---------------------------------------------------------------------------
+
+def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """x: (B, T, d) → x shifted right by one; ``last`` supplies position
+    -1 (zeros when it is None)."""
+    prev = torch.zeros_like(x[:, :1]) if last is None else last[:, None, :]
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def _lerp(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """``a·m + b·(1 - m)`` in f32, cast to ``dtype``."""
+    return (a.float() * m + b.float() * (1 - m)).to(dtype)
+
+
+class RWKV6(nn.Module):
+    """One RWKV6 layer (``rwkv6_init`` / ``rwkv6_block``).  Its attributes
+    are the JAX parameter keys (``ln1, ln2, mix, wr, wk, wv, wg, ww,
+    w_bias, bonus, gn, wo, cmix, ck, cv, cr``), drawn in that order from
+    the JAX package's distributions.
+
+    ``impl`` routes prefill's linear attention: ``"kernel"`` through
+    :func:`linear_attention_kernel`, anything else (``"chunked"``,
+    ``"naive"``) through :func:`linear_attention_chunked`."""
+
+    def __init__(self, d: int, d_ff: int, head_dim: int = 64, *,
+                 chunk: int = 64, impl: str = "kernel", dtype, device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.head_dim, self.chunk, self.impl = head_dim, chunk, impl
+        h = d // head_dim
+        kw = dict(dtype=dtype, device=device, generator=generator)
+
+        def uniform_mix(t):
+            nn.init.uniform_(t, 0.0, 1.0, generator=generator)
+            t.mul_(0.5).add_(0.25)
+
+        self.ln1 = RMSNorm(d, dtype=dtype, device=device)
+        self.ln2 = RMSNorm(d, dtype=dtype, device=device)
+        self.mix = _param((5, d), dtype, device, uniform_mix)
+        self.wr = Dense(d, d, **kw)
+        self.wk = Dense(d, d, **kw)
+        self.wv = Dense(d, d, **kw)
+        self.wg = Dense(d, d, **kw)
+        self.ww = Dense(d, d, scale=0.01, **kw)
+        # base decay ≈ e^{-e^{-4}}
+        self.w_bias = _param((d,), dtype, device, lambda t: t.fill_(-4.0))
+        self.bonus = _param(
+            (h, head_dim), dtype, device,
+            lambda t: nn.init.normal_(t, 0.0, 1.0,
+                                      generator=generator).mul_(0.1))
+        self.gn = RMSNorm(d, dtype=dtype, device=device)
+        self.wo = Dense(d, d, **kw)
+        self.cmix = _param((2, d), dtype, device, uniform_mix)
+        self.ck = Dense(d, d_ff, **kw)
+        self.cv = Dense(d_ff, d, **kw)
+        self.cr = Dense(d, d, **kw)
+
+    def forward(self, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[State] = None,
+                cache_length: Optional[int] = None
+                ) -> Tuple[torch.Tensor, State]:
+        """Returns ``(x, state)``.  Prefill (``cache`` None, or more than
+        one token) starts from a zero state and returns a fresh one;
+        decode (``cache`` given, one token) continues ``cache`` and updates
+        the dict in place.  ``positions`` and ``cache_length`` are not
+        used: the state carries no positions."""
+        b, t, d = x.shape
+        hd = self.head_dim
+        h = d // hd
+        decoding = cache is not None and t == 1
+
+        # ---- time mix ------------------------------------------------------
+        xn = self.ln1(x)
+        shifted = _token_shift(xn, cache["shift1"] if decoding else None)
+        mix = self.mix.float()
+        r = self.wr(_lerp(xn, shifted, mix[0], x.dtype)).reshape(b, t, h, hd)
+        k = self.wk(_lerp(xn, shifted, mix[1], x.dtype)).reshape(b, t, h, hd)
+        v = self.wv(_lerp(xn, shifted, mix[2], x.dtype)).reshape(b, t, h, hd)
+        g = self.wg(_lerp(xn, shifted, mix[3], x.dtype))
+        w_log = (self.ww(_lerp(xn, shifted, mix[4], x.dtype)).float()
+                 + self.w_bias.float())
+        w = torch.exp(-torch.exp(w_log)).reshape(b, t, h, hd)   # (0, 1)
+
+        rt, kt, vt, wt = (a.transpose(1, 2) for a in (r, k, v, w))
+        if decoding:
+            o1, wkv = linear_attention_decode(
+                rt[:, :, 0], kt[:, :, 0], vt[:, :, 0], wt[:, :, 0],
+                self.bonus, cache["wkv"])
+            o = o1[:, None]                                     # (b,1,h,hd)
+        else:
+            attend = (linear_attention_kernel if self.impl == "kernel"
+                      else linear_attention_chunked)
+            o, wkv = attend(rt, kt, vt, wt, self.bonus,
+                            chunk=min(self.chunk, t))
+            o = o.transpose(1, 2)
+        o = o.reshape(b, t, d)
+        o = self.gn(o) * F.silu(g)
+        x = x + self.wo(o)
+
+        # ---- channel mix ---------------------------------------------------
+        xn2 = self.ln2(x)
+        shifted2 = _token_shift(xn2, cache["shift2"] if decoding else None)
+        cm = self.cmix.float()
+        xk = _lerp(xn2, shifted2, cm[0], x.dtype)
+        xr = _lerp(xn2, shifted2, cm[1], x.dtype)
+        kk = torch.square(F.relu(self.ck(xk)))
+        x = x + self.cv(kk) * torch.sigmoid(self.cr(xr))
+
+        new_state = {"wkv": wkv, "shift1": xn[:, -1, :],
+                     "shift2": xn2[:, -1, :]}
+        if decoding:
+            cache.update(new_state)
+            return x, cache
+        return x, new_state
+
+
+def rwkv6_state_init(batch: int, d: int, head_dim: int = 64, *,
+                     dtype=torch.float32, device=None) -> State:
+    """A zero decode state: ``wkv (B, H, hd, hd)`` f32, ``shift1`` and
+    ``shift2`` ``(B, d)`` in ``dtype``."""
+    h = d // head_dim
+    return {"wkv": torch.zeros((batch, h, head_dim, head_dim),
+                               dtype=torch.float32, device=device),
+            "shift1": torch.zeros((batch, d), dtype=dtype, device=device),
+            "shift2": torch.zeros((batch, d), dtype=dtype, device=device)}

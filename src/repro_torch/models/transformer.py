@@ -1,24 +1,28 @@
-"""Model assembly for the dense attention LMs, and their serving paths.
+"""Model assembly for the dense attention LMs and RWKV6, and their serving
+paths.
 
 :class:`ModelConfig` and :class:`BlockSpec` are the JAX package's
 (``repro/models/transformer.py``), field for field, so its config modules
 copy verbatim; two defaults differ: ``param_dtype`` is
-``torch.bfloat16``, and ``attn_impl`` is ``"kernel"``, the flash kernel
-(the JAX package's own accelerator hot path) — on a CPU tensor that route
-runs the kernel's plain version.
+``torch.bfloat16``, and ``attn_impl`` is ``"kernel"`` — the flash kernel
+for attention and the linear-attention kernel for RWKV6's prefill (the
+JAX package's own accelerator hot paths); on a CPU tensor that route
+runs the kernels' plain versions.
 
 :class:`Transformer` holds the layers in a ``ModuleList`` in layer order:
 layer ``period * len(pattern) + i`` is the JAX package's stacked
 ``blocks{i}[period]``.  :func:`forward`, :func:`prefill`,
 :func:`decode_step` and :func:`init_cache` are the train and serving
 paths of ``transformer.py:513-586``, taking the model where the JAX
-functions take ``(cfg, params)``.  A cache is a list with one ``{k, v}``
-dict per layer, ``(B, max_len, Hkv, hd)`` each; decode writes into it in
+functions take ``(cfg, params)``.  A cache is a list with one dict per
+layer: ``{k, v}`` ``(B, max_len, Hkv, hd)`` for an attention layer,
+``{wkv, shift1, shift2}`` for an RWKV6 layer; decode updates it in
 place.
 
-This slice carries the dense attention blocks (``kind="attn"``); MoE,
-RWKV6, Mamba2, zamba2's shared block, encoder-decoder and patch-token
-configs raise ``NotImplementedError`` when a model is built.
+This slice carries the dense attention blocks (``kind="attn"``) and
+RWKV6 (``kind="rwkv6"``); MoE, Mamba2, zamba2's shared block,
+encoder-decoder and patch-token configs raise ``NotImplementedError``
+when a model is built.
 """
 from __future__ import annotations
 
@@ -32,6 +36,10 @@ from torch import nn
 from .attention import Attention, Cache
 from .layers import (MLP, Dense, Embedding, RMSNorm, resolve_device,
                      resolve_dtype, softcap)
+from .linear_blocks import RWKV6, rwkv6_state_init
+
+#: The block kinds this slice builds.
+PORTED_KINDS = ("attn", "rwkv6")
 
 # --------------------------------------------------------------------------
 # Configuration
@@ -123,7 +131,8 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice leaves out."""
-    left_out = [f"{s.kind} blocks" for s in cfg.pattern if s.kind != "attn"]
+    left_out = [f"{s.kind} blocks" for s in cfg.pattern
+                if s.kind not in PORTED_KINDS]
     if cfg.shared_every:
         left_out.append("zamba2's shared block (shared_every)")
     if cfg.encoder_layers:
@@ -132,7 +141,8 @@ def check_supported(cfg: ModelConfig) -> None:
         left_out.append("patch-token frontends (patch_tokens)")
     if left_out:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention models only; "
+            f"{cfg.name}: the port serves dense attention and RWKV6 "
+            f"models only; "
             f"{', '.join(sorted(set(left_out)))} are still to port "
             f"(ROADMAP 'Open items', item 1.10)")
 
@@ -185,6 +195,16 @@ class Block(nn.Module):
         return x + h, new_cache
 
 
+def _layer(cfg: ModelConfig, spec: BlockSpec, *, device,
+           generator: Optional[torch.Generator]) -> nn.Module:
+    """One layer of ``spec``'s kind (``_block_init``)."""
+    if spec.kind == "rwkv6":
+        return RWKV6(cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim,
+                     chunk=cfg.scan_chunk, impl=cfg.attn_impl,
+                     dtype=cfg.dtype, device=device, generator=generator)
+    return Block(cfg, spec, device=device, generator=generator)
+
+
 class Transformer(nn.Module):
     """Embedding, the layers in layer order, the final norm and the head
     (tied to the embedding unless ``tie_embeddings`` is false).
@@ -207,7 +227,7 @@ class Transformer(nn.Module):
                                   eps=cfg.norm_eps,
                                   zero_centered=cfg.zero_centered_norm)
         self.layers = nn.ModuleList(
-            Block(cfg, cfg.pattern[n % len(cfg.pattern)], **kw)
+            _layer(cfg, cfg.pattern[n % len(cfg.pattern)], **kw)
             for n in range(cfg.n_periods * len(cfg.pattern)))
         self.lm_head = (None if cfg.tie_embeddings else
                         Dense(cfg.d_model, cfg.vocab, dtype=cfg.dtype, **kw))
@@ -256,7 +276,8 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
 def forward(model: Transformer, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns ``(logits (B, T, V) f32, aux)``;
-    ``aux`` (the MoE loss in the JAX package) is 0 for dense models."""
+    ``aux`` (the MoE loss in the JAX package) is 0 for the ported
+    models."""
     x = _embed_inputs(model, batch)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     for layer in model.layers:
@@ -266,37 +287,50 @@ def forward(model: Transformer, batch: Dict[str, torch.Tensor]
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> List[Cache]:
-    """Zeroed decode cache: one ``{k, v}`` per layer, each
-    ``(batch, max_len, n_kv, hd)`` in the weights' type."""
+    """Zeroed decode cache, one dict per layer: ``{k, v}``, each
+    ``(batch, max_len, n_kv, hd)`` in the weights' type, for attention;
+    :func:`~.linear_blocks.rwkv6_state_init` for RWKV6."""
     device = resolve_device(device)
     shape = (batch, max_len, cfg.n_kv, cfg.hd)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-            for _ in range(cfg.n_layers)]
+    cache = []
+    for n in range(cfg.n_periods * len(cfg.pattern)):
+        if cfg.pattern[n % len(cfg.pattern)].kind == "rwkv6":
+            cache.append(rwkv6_state_init(batch, cfg.d_model,
+                                          cfg.rwkv_head_dim, dtype=cfg.dtype,
+                                          device=device))
+        else:
+            cache.append({"k": torch.zeros(shape, dtype=cfg.dtype,
+                                           device=device),
+                          "v": torch.zeros(shape, dtype=cfg.dtype,
+                                           device=device)})
+    return cache
 
 
 def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
             max_len: int) -> Tuple[torch.Tensor, List[Cache]]:
     """Run the full prompt; return ``(last-position logits (B, 1, V),
-    cache)`` with each layer's k/v zero-padded to ``max_len``."""
+    cache)`` with each attention layer's k/v zero-padded to ``max_len``
+    and each RWKV6 layer's state as it stands after the prompt."""
     x = _embed_inputs(model, batch)
     b, t, _ = x.shape
     positions = _positions(b, t, x.device)
     cache = []
     for layer in model.layers:
-        x, kv = layer(x, positions)
-        cache.append({
-            name: torch.nn.functional.pad(kv[name],
-                                          (0, 0, 0, 0, 0, max_len - t))
-            for name in ("k", "v")})
+        x, c = layer(x, positions)
+        if isinstance(layer, Block):
+            c = {name: torch.nn.functional.pad(c[name],
+                                               (0, 0, 0, 0, 0, max_len - t))
+                 for name in ("k", "v")}
+        cache.append(c)
     return _logits(model, x[:, -1:]), cache
 
 
 def decode_step(model: Transformer, tokens: torch.Tensor, cache: List[Cache],
                 length: int) -> Tuple[torch.Tensor, List[Cache]]:
     """One serving step: ``tokens (B, 1)`` against a cache whose first
-    ``length`` positions are valid (the new token is written, in place,
-    at ``length - 1``).  Returns ``(logits (B, 1, V), cache)``."""
+    ``length`` positions are valid (an attention layer writes the new
+    token, in place, at ``length - 1``; an RWKV6 layer advances its state
+    in place).  Returns ``(logits (B, 1, V), cache)``."""
     x = _scale_embeddings(model.cfg, model.embed(tokens).to(model.cfg.dtype))
     b, t, _ = x.shape
     positions = torch.full((b, t), int(length) - 1, device=x.device)

@@ -3,11 +3,13 @@
 The JAX package's engine (``repro/serve/engine.py``) on the port's model:
 ``make_serve_step``/``make_prefill_step`` return the step functions, with
 greedy ``argmax`` on the device; :class:`Engine` is the host-side loop,
-with the same batching — each request prefilled alone, the slots' caches
-concatenated on the batch axis, and the slots decoded in lock-step from
+with the same batching — each request prefilled alone, every entry of the
+slots' caches concatenated on the batch axis (k/v of attention layers,
+the states of RWKV6 layers), and the slots decoded in lock-step from
 ``max(prompt lengths) + 1``.  With prompts of unequal length the shorter
 ones therefore attend to zero keys and decode at shifted positions, as in
-the JAX package (ROADMAP §3).
+the JAX package (ROADMAP §3); an RWKV6 state carries no positions, so its
+requests decode as if alone.
 
 The engine counts what a serving run needs for its throughput: prompt
 tokens and seconds of prefill, steps and seconds of decode (host clock;
@@ -109,7 +111,7 @@ class Engine:
                 tokens.append(tok)
                 lengths.append(len(r.prompt))
             cache = [{name: torch.cat([c[layer][name] for c in caches])
-                      for name in ("k", "v")}
+                      for name in caches[0][layer]}
                      for layer in range(len(caches[0]))] \
                 if len(caches) > 1 else caches[0]
             toks = torch.cat(tokens)

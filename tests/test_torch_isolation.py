@@ -3,9 +3,9 @@
 * Nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, imports
   ``jax``, ``jaxlib`` or any ``repro`` module (an AST scan of every
   import, lazy ones inside functions included).
-* A CPU sweep, and a CPU run of the serving launcher, through the port
-  leave ``jax`` and ``repro`` out of ``sys.modules`` (a fresh
-  interpreter each).
+* A CPU sweep, and CPU runs of the serving launcher (a dense arch and
+  RWKV6), through the port leave ``jax`` and ``repro`` out of
+  ``sys.modules`` (a fresh interpreter each).
 * ``repro_torch.carry.import_reference``: a trace saved by ``repro`` loads
   unchanged, the graph's content hash is the same in both packages, and a
   ``repro`` batch sweep's exported orders make a warm port sweep run with
@@ -53,9 +53,11 @@ def test_port_files_exist():
             "cholesky_tiles.py", "ops.py", "ref.py", "traditional.py",
             "flash_attention.py", "layers.py", "attention.py",
             "transformer.py", "registry.py", "qwen3_0_6b.py", "qwen3_4b.py",
-            "qwen15_4b.py", "gemma2_2b.py", "engine.py", "serve.py"} <= names
+            "qwen15_4b.py", "gemma2_2b.py", "engine.py", "serve.py",
+            "linear_attn.py", "linear_blocks.py", "rwkv6_1_6b.py"} <= names
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "flash_attention.cu").is_file()
+    assert (csrc / "linear_attn.cu").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -86,12 +88,16 @@ def test_cpu_sweep_leaves_jax_and_repro_unimported():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-def test_cpu_serve_launcher_leaves_jax_and_repro_unimported():
+def serve_launcher_imports(arch):
+    """Runs the CPU serving launcher on ``arch`` in a fresh interpreter;
+    returns its output, having checked that it left ``jax`` and ``repro``
+    unimported."""
     code = (
         "import sys\n"
         "from repro_torch.launch import serve\n"
         "assert serve.main(['--device', 'cpu', '--requests', '2',\n"
-        "                   '--prompt-len', '6', '--max-new', '3']) == 0\n"
+        "                   '--prompt-len', '6', '--max-new', '3',\n"
+        f"                   '--arch', '{arch}']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
         "             in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -100,7 +106,18 @@ def test_cpu_serve_launcher_leaves_jax_and_repro_unimported():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env, cwd=str(REPO))
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "served 2 requests, 6 tokens" in out.stdout
+    return out.stdout
+
+
+def test_cpu_serve_launcher_leaves_jax_and_repro_unimported():
+    assert "served 2 requests, 6 tokens" in serve_launcher_imports(
+        "qwen3-0.6b")
+
+
+def test_cpu_rwkv6_serve_launcher_leaves_jax_and_repro_unimported():
+    out = serve_launcher_imports("rwkv6-1.6b")
+    assert "arch=rwkv6-1.6b-smoke" in out
+    assert "served 2 requests, 6 tokens" in out
 
 
 def test_import_reference_round_trip(tmp_path):

@@ -2,7 +2,8 @@
 
 The same weights (``repro_torch.carry.import_lm_params``) and the same
 numpy prompts go through ``repro.serve.engine.Engine`` and the port's
-``Engine`` on the CPU, with prompts of equal and of unequal length.  The
+``Engine`` on the CPU (the dense archs and RWKV6), with prompts of equal
+and of unequal length.  The
 served tokens must be equal, except that a token may differ where the JAX
 step's two largest logits are closer than ``TIE_TOL`` (the port's and the
 JAX package's logits agree to 1e-4, ``tests/test_torch_models.py``); such
@@ -23,6 +24,7 @@ import torch
 from repro_torch import configs
 from repro_torch.carry import import_lm_params
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import linear_attn as la
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as T
 from repro_torch.serve import engine
@@ -86,7 +88,7 @@ def top_two_gap(logits):
     return float(b - a)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "rwkv6-1.6b"])
 @pytest.mark.parametrize("lengths", sorted(PROMPT_LENGTHS))
 def test_engine_serves_the_jax_engines_tokens(arch, lengths, jx):
     jax, jnp, jconfigs, JT, jengine = jx
@@ -132,6 +134,47 @@ def test_engine_serves_the_jax_engines_tokens(arch, lengths, jx):
     assert stats.prefill_tokens == sum(PROMPT_LENGTHS[lengths])
     assert stats.decode_steps == 3 * (max_new - 1)     # 3 rounds of 2 slots
     assert stats.prefill_s > 0 and stats.decode_s > 0
+
+
+def test_rwkv6_requests_decode_as_if_served_alone():
+    """An RWKV6 state carries no positions: with prompts of unequal length
+    in one batch, every request gets the tokens it gets alone (one slot),
+    and the batched caches hold each layer's ``{wkv, shift1, shift2}``."""
+    cfg = configs.get_smoke("rwkv6-1.6b")
+    model = T.Transformer(cfg, device="cpu")
+    prompt_list = prompts(cfg.vocab, PROMPT_LENGTHS["unequal"], seed=3)
+    out = {}
+    for slots in (1, 5):
+        eng = engine.Engine(model, slots=slots, max_len=24)
+        for rid, pr in enumerate(prompt_list):
+            eng.submit(engine.Request(rid=rid, prompt=pr, max_new=6))
+        out[slots] = {r.rid: r.out for r in eng.run()}
+    assert out[5] == out[1]
+    prefill = engine.make_prefill_step(model, 24)
+    _, cache = prefill({"tokens": torch.from_numpy(prompt_list[0])[None]})
+    assert [sorted(c) for c in cache] == [["shift1", "shift2", "wkv"]] * \
+        cfg.n_layers
+
+
+def test_rwkv6_engine_matches_teacher_forced_forward():
+    """``examples/serve_e2e.py``'s self-check on RWKV6: the served tokens
+    are the greedy tokens of a full forward (prefill through the kernel
+    route, decode through the recurrence)."""
+    cfg = configs.get_smoke("rwkv6-1.6b")
+    assert cfg.attn_impl == "kernel"
+    model = T.Transformer(cfg, device="cpu")
+    eng = engine.Engine(model, slots=2, max_len=40)
+    for rid, pr in enumerate(prompts(cfg.vocab, (20, 13, 20), seed=5)):
+        eng.submit(engine.Request(rid=rid, prompt=pr, max_new=6))
+    la.LAUNCHES.clear()
+    for r in eng.run():
+        seq = torch.from_numpy(np.concatenate([r.prompt, r.out[:-1]]))[None]
+        logits, _ = T.forward(model, {"tokens": seq.int()})
+        served = torch.tensor(r.out)
+        pos = logits[0, len(r.prompt) - 1:]
+        picked = pos.gather(1, served[:, None])[:, 0]
+        assert torch.all(pos.amax(1) - picked <= 1e-5), r.rid
+    assert not la.LAUNCHES                   # CPU: the plain version
 
 
 def test_serve_step_writes_the_cache_in_place():
@@ -182,6 +225,18 @@ def test_launcher_serves_on_the_cpu():
     assert "device=cpu attn_impl=kernel" in text
 
 
+def test_launcher_serves_rwkv6_on_the_cpu():
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = launch_serve.main(["--device", "cpu", "--requests", "3",
+                                "--prompt-len", "5", "--max-new", "3",
+                                "--slots", "2", "--arch", "rwkv6-1.6b"])
+    text = buf.getvalue()
+    assert rc == 0
+    assert "arch=rwkv6-1.6b-smoke device=cpu attn_impl=kernel" in text
+    assert "served 3 requests, 9 tokens" in text
+
+
 def test_engine_on_the_card_needs_a_card(monkeypatch):
     from repro_torch import DeviceError
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -202,13 +257,20 @@ def test_bf16_engine_serves_whole_requests():
                for r in done)
 
 
+#: Each arch's prefill kernel on the card: (wrapper module, launch key).
+CARD_KERNELS = {"qwen3-0.6b": (fa, "flash_attention"),
+                "gemma2-2b": (fa, "flash_attention"),
+                "rwkv6-1.6b": (la, "linear_attn")}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "rwkv6-1.6b"])
 def test_engine_on_the_card(arch):
     """The smoke config on the card: the forward's logits are the CPU's
-    (f32, TF32 off, rtol/atol 1e-4), every prefill goes through the flash
-    kernel, and each served token is its position's greedy token in a
-    teacher-forced forward on the card (within 1e-4)."""
+    (f32, TF32 off, rtol/atol 1e-4), every prefill goes through the arch's
+    kernel (flash attention, or linear attention for RWKV6), and each
+    served token is its position's greedy token in a teacher-forced
+    forward on the card (within 1e-4)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -224,9 +286,10 @@ def test_engine_on_the_card(arch):
     eng = engine.Engine(card, slots=2, max_len=32)
     for rid, pr in enumerate(prompts(cfg.vocab, (12,) * 3, seed=5)):
         eng.submit(engine.Request(rid=rid, prompt=pr, max_new=6))
-    fa.LAUNCHES.clear()
+    counters, key = CARD_KERNELS[arch]
+    counters.LAUNCHES.clear()
     done = eng.run()
-    assert fa.LAUNCHES["flash_attention"] == 3 * cfg.n_layers
+    assert counters.LAUNCHES[key] == 3 * cfg.n_layers
     for r in done:
         seq = np.concatenate([r.prompt, r.out[:-1]]).astype(np.int32)
         logits, _ = T.forward(card, {"tokens": torch.from_numpy(seq)[None]

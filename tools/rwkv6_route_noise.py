@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""How far rwkv6-1.6b's last-position prefill logits move between routes
+that compute the same function, at full width on one CUDA card.
+
+Builds rwkv6-1.6b at its published widths from ``torch.Generator`` seed 0
+(as ``chip_smoke.py`` does), prefills the same eight 512-token prompts,
+and reports the max abs difference of the last-position logits between:
+
+* the kernel route (``attn_impl="kernel"``, ``csrc/linear_attn.cu``) and
+  the plain closed form (``attn_impl="chunked"``), in bf16 and in f32;
+* the plain closed form at chunk 64 and at chunk 32 (the same arithmetic
+  summed in another order: the rounding noise of the bf16 model itself);
+* per layer, the hidden state's max abs difference between the kernel and
+  chunked routes, in bf16, for the first prompt;
+* ``chip_smoke.py``'s self-check (eight requests served through
+  ``Engine(slots=4)``, 32 new tokens each, then a teacher-forced forward
+  over each served sequence) with the forward through either route;
+
+and the kernel against its plain version at the path shape with the
+model's own decays (``w = exp(-exp(-4 + 0.01 z))``, ~0.98 a step).
+
+Run: ``python3 tools/rwkv6_route_noise.py`` (needs a card; prints one
+JSON line per measurement).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def last_logits(T, model, prompts):
+    import torch
+    out = []
+    for pr in prompts:
+        logits, _ = T.prefill(model, {"tokens": torch.as_tensor(
+            pr, device="cuda")[None]}, len(pr) + 1)
+        out.append(logits[0, -1].float())
+    return torch.stack(out)
+
+
+def routes(T, cfg, state, prompts, pairs):
+    """Max abs difference of the last-position logits for each pair of
+    ``(attn_impl, scan_chunk)`` settings, on the same weights."""
+    logits = {}
+    for setting in {s for pair in pairs for s in pair}:
+        impl, chunk = setting
+        m = T.Transformer(dataclasses.replace(cfg, attn_impl=impl,
+                                              scan_chunk=chunk),
+                          device="meta")
+        m.load_state_dict(state, assign=True)
+        logits[setting] = last_logits(T, m, prompts)
+    return {f"{a[0]}{a[1]} vs {b[0]}{b[1]}":
+            float((logits[a] - logits[b]).abs().max()) for a, b in pairs}, \
+        float(max(v.abs().max() for v in logits.values()))
+
+
+def layer_divergence(T, cfg, state, prompt):
+    """Per layer, the max abs difference of the hidden state between the
+    kernel and chunked routes, and its max magnitude."""
+    import torch
+    hidden = {}
+    for impl in ("kernel", "chunked"):
+        m = T.Transformer(dataclasses.replace(cfg, attn_impl=impl),
+                          device="meta")
+        m.load_state_dict(state, assign=True)
+        x = T._embed_inputs(m, {"tokens": torch.as_tensor(
+            prompt, device="cuda")[None]})
+        outs = []
+        for layer in m.layers:
+            x, _ = layer(x)
+            outs.append(x.float())
+        hidden[impl] = outs
+    return [[float((a - b).abs().max()), float(b.abs().max())]
+            for a, b in zip(hidden["kernel"], hidden["chunked"])]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("rwkv6_route_noise: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import linear_attn as la
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 65_536, size=(512,), dtype=np.int32)
+               for _ in range(8)]
+    pairs = ((("kernel", 64), ("chunked", 64)),
+             (("chunked", 64), ("chunked", 32)),
+             (("kernel", 64), ("kernel", 32)))
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(configs.get_config("rwkv6-1.6b"),
+                                  param_dtype=dtype)
+        model = T.Transformer(cfg, device="cuda",
+                              generator=torch.Generator("cuda")
+                              .manual_seed(0))
+        state = model.state_dict()
+        diffs, scale = routes(T, cfg, state, prompts, pairs)
+        print(json.dumps({"dtype": dtype, "logits_max_abs_diff": diffs,
+                          "logits_up_to": scale}), flush=True)
+        if dtype == "bfloat16":
+            print(json.dumps({"dtype": dtype, "layer_hidden_diff_and_max":
+                              layer_divergence(T, cfg, state, prompts[0])}),
+                  flush=True)
+        del model, state
+        torch.cuda.empty_cache()
+
+    # served tokens (kernel prefill, recurrence decode) against a
+    # teacher-forced forward through each route, bf16
+    from repro_torch.serve import engine
+    cfg = configs.get_config("rwkv6-1.6b")
+    model = T.Transformer(cfg, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+    eng = engine.Engine(model, slots=4, max_len=512 + 32 + 1)
+    for rid, pr in enumerate(prompts):
+        eng.submit(engine.Request(rid=rid, prompt=pr, max_new=32))
+    done = eng.run()
+    for impl in ("kernel", "chunked"):
+        m = T.Transformer(dataclasses.replace(cfg, attn_impl=impl),
+                          device="meta")
+        m.load_state_dict(model.state_dict(), assign=True)
+        gaps = []
+        for r in done:
+            seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+            logits, _ = T.forward(m, {"tokens": torch.as_tensor(
+                seq, device="cuda")[None]})
+            pos = logits[0, len(r.prompt) - 1:]
+            picked = pos.gather(1, torch.as_tensor(
+                r.out, device="cuda")[:, None])[:, 0]
+            gaps.append(pos.amax(1) - picked)
+        gaps = torch.cat(gaps)
+        print(json.dumps({"selfcheck_forward_route": impl,
+                          "worst_gap": float(gaps.max()),
+                          "argmax_equal": int((gaps == 0).sum()),
+                          "served": int(gaps.numel()),
+                          "gaps_above_0.1": int((gaps > 0.1).sum())}),
+              flush=True)
+    del model, m, eng
+    torch.cuda.empty_cache()
+
+    # the kernel against its plain version with the model's decays
+    g = np.random.default_rng(1)
+    bh, t, dk = 32, 512, 64
+    r, k, v = (torch.from_numpy(g.standard_normal((bh, t, dk))
+                                .astype(np.float32)).cuda()
+               .to(torch.bfloat16) for _ in range(3))
+    w = torch.from_numpy(np.exp(-np.exp(-4 + 0.01 * g.standard_normal(
+        (bh, t, dk)))).astype(np.float32)).cuda()
+    u = (torch.from_numpy(g.standard_normal((bh, dk)).astype(np.float32))
+         * 0.1).cuda().to(torch.bfloat16)
+    got, gs = la.linear_attention_state(r, k, v, w, u, chunk=64)
+    want, ws = ref.linear_attention_state(r, k, v, w, u)
+    diff = (got.float() - want.float()).abs()
+    ulp = torch.finfo(torch.bfloat16).eps * want.float().abs()
+    print(json.dumps({
+        "kernel_vs_plain_model_decay": {
+            "max_abs_err": float(diff.max()),
+            "outputs_up_to": float(want.float().abs().max()),
+            "share_off_by_more_than_one_ulp": float(
+                (diff > ulp * 1.01).float().mean()),
+            "share_not_equal": float((diff > 0).float().mean()),
+            "state_max_abs_err": float((gs - ws).abs().max()),
+            "state_up_to": float(ws.abs().max())}}), flush=True)
+    print(json.dumps({"card": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
