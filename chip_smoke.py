@@ -15,8 +15,10 @@ against its plain PyTorch version:
   dtrsm tiles;
 * the LM serve path (``repro_torch.serve.engine.Engine``) on qwen3-0.6b
   at its published full width, in bf16 with weights drawn from a seeded
-  ``torch.Generator``, through the hand-written flash-attention kernel
-  (``csrc/flash_attention.cu``) on every prefill;
+  ``torch.Generator``, through the hand-written flash-attention kernel on
+  every prefill: ``csrc/flash_attention_wgmma.cu`` (``wgmma`` products,
+  TMA-fed K/V ring) for bf16 at D 64/128/256, ``csrc/flash_attention.cu``
+  (f32 FMAs) for every other call;
 * RWKV6 serving (the same ``Engine``) on rwkv6-1.6b at its published full
   width, in bf16 from a seeded ``torch.Generator``, through the
   hand-written linear-attention kernel (``csrc/linear_attn.cu``) on every
@@ -29,7 +31,8 @@ Phases, one line each or more:
    f32);
 2. the kernel builds, all started together (seconds, ``-Xptxas -v``
    registers and spills): ``lockstep_step.cu``, ``tiles.cu`` at ``TILE``
-   64 and 128, ``flash_attention.cu`` and ``linear_attn.cu``;
+   64 and 128, ``flash_attention.cu``, ``flash_attention_wgmma.cu`` and
+   ``linear_attn.cu``;
 3. step_commit == plain PyTorch version, bit for bit, on seeded states at
    the main path's shapes, with all-``inf`` pools and ties;
 4. the tile kernels == plain versions within tolerance at every path
@@ -39,6 +42,9 @@ Phases, one line each or more:
    serve path's shape (16, 8, 512, 512, 128) bf16 causal (GQA 2:1), a
    padded length through ``ops.attention`` (T = S = 300), gemma2's local
    layer (8 heads over 4, D 256, window 256, softcap 50) and in f32;
+   the ``wgmma`` kernel == plain version at D 64 (causal GQA 2:1, and
+   windowed with softcap) and at T = S = 1024, and the FMA kernel in
+   bf16 at D 96, each call on the kernel ``kernel_for`` names;
    ``linear_attn`` == plain version (output and final state) at the
    RWKV6 path's shape (32, 512, 64, 64) chunk 64 with bf16 r/k/v/u and
    f32 w, a padded length through ``ops.linear_attn`` (T = 300), strong
@@ -65,7 +71,8 @@ Phases, one line each or more:
 11. serve qwen3-0.6b (full width, bf16, seed 0) through ``Engine(slots=
     4)``: 8 requests of 512-token prompts, 32 new tokens each, with the
     flash counts set to 0 just before and read just after (224 launches,
-    all at the path shape); prefill tokens/s and decode ms per step; the
+    all at the path shape, all on the ``wgmma`` kernel); prefill tokens/s
+    and decode ms per step; the
     kernel route's last-position prefill logits against the plain route's
     (``attn_impl="naive"``, same weights); and ``examples/serve_e2e.py``'s
     self-check: one teacher-forced ``forward`` per request over its
@@ -81,9 +88,15 @@ Phases, one line each or more:
     ``ROUTE_ATOL``) and the self-check's forward padded to 576 by
     ``ops.linear_attn``;
 12. ``flash_attention`` at the path shape by CUDA events, per wrapper
-    call and per bare launch, beside its plain version,
+    call and per bare launch of the ``wgmma`` kernel, beside the bare
+    launch of the FMA kernel (the earlier design, its output held to the
+    plain version first), its plain version,
     ``F.scaled_dot_product_attention(..., is_causal=True,
-    enable_gqa=True)`` and its bound; ``linear_attn`` at its path shape
+    enable_gqa=True)`` and its bound, each timed twice in turns; and the
+    device time of one launch of each, from ``torch.profiler``'s kernel
+    rows and from CUDA events around launches queued behind a device
+    spin at least twice as long as their enqueue; ``linear_attn`` at its
+    path shape
     the same way, beside its plain version and its bound (no single
     PyTorch call computes it);
 13. a ``kernels`` JSON line (launches on the paths, error against the
@@ -134,6 +147,16 @@ FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}     # rtol = atol
 #: prompt, ``(BH, BKV, T, S, D)`` in bf16, causal.
 FLASH_PATH = (16, 8, 512, 512, 128)
 
+#: The flash kernels' further bf16 checks, beyond ``flash_cases``: label,
+#: ``(BH, BKV, T, S, D)``, window, softcap (causal).  D 96 is the FMA
+#: kernel's: its bf16 build is held to the plain version there.
+ROUTE_CASES = (
+    ("d64", (16, 8, 512, 512, 64), 0, 0.0),
+    ("d64_window_softcap", (8, 4, 512, 512, 64), 100, 50.0),
+    ("t1024", (16, 8, 1024, 1024, 128), 0, 0.0),
+    ("fma_d96", (8, 4, 512, 512, 96), 0, 0.0),
+)
+
 #: The linear-attention kernel's path launch: rwkv6-1.6b's prefill of one
 #: 512-token prompt, ``(BH, T, dk, dv)`` with chunk 64, bf16 r/k/v/u and
 #: f32 w.
@@ -157,10 +180,10 @@ SERVE = {"requests": 8, "prompt_len": 512, "max_new": 32, "slots": 4}
 SERVE_MODELS = (
     {"arch": "qwen3-0.6b", "kernel": "flash_attention",
      "path_key": (*FLASH_PATH, "torch.bfloat16"), "plain_impl": "naive",
-     "route_dtype": "bfloat16"},
+     "route_dtype": "bfloat16", "variant": "wgmma"},
     {"arch": "rwkv6-1.6b", "kernel": "linear_attn",
      "path_key": (*LINEAR_PATH, LINEAR_CHUNK, "torch.bfloat16"),
-     "plain_impl": "chunked", "route_dtype": "float32"},
+     "plain_impl": "chunked", "route_dtype": "float32", "variant": None},
 )
 
 #: Limits of the serve phase, on logits (f32 after the unembedding): the
@@ -692,33 +715,175 @@ def check_flash(torch, ref, cases):
     return errs
 
 
-def time_flash(torch, F, fa, ref, case):
-    """The flash kernel's times at ``case`` by CUDA events: per wrapper
-    call, per bare launch, the plain version, the one PyTorch call that
-    computes the same function, and the bound."""
+def flash_bare(torch, fa, lib, variant, case, out):
+    """A bare launch of ``variant``'s kernel from ``lib`` at ``case``
+    (causal, the case's window and softcap) into ``out``: no checks, no
+    allocation, no count; returns the launch's error code."""
     q, k, v = case["q"], case["k"], case["v"]
     bh, bkv, t, s, d = case["shape"]
-    lib = fa.library()
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream().cuda_stream
-    code = fa.DTYPE_CODES[q.dtype]
-    scale = d ** -0.5
+    fn = (lib.flash_attention_wgmma_launch if variant == "wgmma"
+          else lib.flash_attention_launch)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+            bkv, t, s, d, fa.DTYPE_CODES[q.dtype], 1, case["window"],
+            case["softcap"], d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: fn(*args)
 
-    def bare():
-        return lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-            bkv, t, s, d, code, 1, 0, 0.0, scale, stream)
 
-    if bare() != 0:
-        raise SystemExit("bare flash_attention launch failed")
+def check_routes(torch, np, fa, ref):
+    """Each of ``ROUTE_CASES`` through the wrapper, which must launch the
+    kernel ``kernel_for`` names, held to the plain version at
+    ``FLASH_TOL``.  Exits on any disagreement.  Returns ``{label: max abs
+    error}``."""
+    errs = {}
+    tol = FLASH_TOL["bfloat16"]
+    for i, (label, (bh, bkv, t, s, d), window, cap) in enumerate(
+            ROUTE_CASES):
+        q, k, v = tile_inputs(torch, np, 30 + i, (bh, t, d), (bkv, s, d),
+                              (bkv, s, d), dtype="bfloat16")
+        kw = dict(causal=True, window=window, softcap=cap)
+        fa.VARIANTS.clear()
+        got = fa.flash_attention(q, k, v, **kw)
+        variants = dict(fa.VARIANTS)
+        want = ref.attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        variant = fa.kernel_for(torch.bfloat16, d)
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol)) and variants == {variant: 1}
+        errs[label] = err
+        phase(f"{variant}==plain", f"{label} (BH,BKV,T,S,D)="
+              f"{[bh, bkv, t, s, d]} bf16 window={window} softcap={cap} "
+              f"kernels {variants}: max_abs_err={err} within "
+              f"rtol=atol={tol}: {ok}")
+        if not ok:
+            raise SystemExit(f"flash_attention's {variant} kernel disagrees "
+                             f"with its plain version at {label}")
+    return errs
+
+
+def device_us(torch, fn, n: int = 20):
+    """Device time of one call of ``fn`` from ``torch.profiler``'s kernel
+    rows over ``n`` calls: the sum over the rows of each row's mean (a
+    call launches each row's kernel once), and each row's name, count and
+    total in us.  A row's count may fall short of ``n`` when the trace
+    loses records; the mean is over the launches it kept."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if "cuda" in str(e.device_type).lower()
+           and e.self_device_time_total > 0]
+    per_call = sum(e.self_device_time_total / e.count for e in dev)
+    return (per_call if dev else None), \
+        [[e.key[:60], e.count, e.self_device_time_total] for e in dev]
+
+
+def queued_us(torch, fn, n: int = 20, reps: int = 5):
+    """Device time of one call of ``fn`` by CUDA events with the host out
+    of the way: a device spin (``torch.cuda._sleep``, 2^22 cycles or
+    more) is queued first, so the ``n`` calls are enqueued before the
+    device reaches them and run back to back; the events around them then
+    time the device alone.  That holds only while the host's enqueue of
+    the ``n`` calls takes at most half the spin, timed alone by events:
+    past that, the spin grows fourfold, up to 2^28 cycles, and the run is
+    made again.  Returns the median over ``reps`` of the elapsed time over
+    ``n`` (None when no spin was long enough), the longest enqueue of the
+    ``n`` calls and the spin, both in us."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 22
+    while True:
+        t0.record()
+        torch.cuda._sleep(cycles)
+        t1.record()
+        torch.cuda.synchronize()
+        spin = t0.elapsed_time(t1) * 1e3
+        times, enqueue = [], 0.0
+        for _ in range(reps):
+            torch.cuda._sleep(cycles)
+            h0 = time.perf_counter()
+            t0.record()
+            for _ in range(n):
+                fn()
+            t1.record()
+            enqueue = max(enqueue, (time.perf_counter() - h0) * 1e6)
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1) * 1e3 / n)
+        if enqueue <= 0.5 * spin:
+            return sorted(times)[reps // 2], enqueue, spin
+        if cycles >= 1 << 28:
+            return None, enqueue, spin
+        cycles <<= 2
+
+
+def time_flash(torch, F, fa, ref, case):
+    """The flash kernels' times at ``case``: by CUDA events, per wrapper
+    call and per bare launch of the ``wgmma`` kernel, per bare launch of
+    the FMA kernel (the earlier design; its output is held to the plain
+    version first, and the run exits if it disagrees), the plain version
+    and the one PyTorch call that computes the same function, each timed
+    twice in turns; the device time of one launch of each kernel and of
+    that call, by ``torch.profiler`` and by ``queued_us``; and the
+    bound."""
+    q, k, v = case["q"], case["k"], case["v"]
+    bh, bkv, t, s, d = case["shape"]
+    outs = {name: torch.empty_like(q) for name in ("wgmma", "fma")}
+    runs = {
+        "wgmma": flash_bare(torch, fa, fa.wgmma_library(), "wgmma", case,
+                            outs["wgmma"]),
+        "fma": flash_bare(torch, fa, fa.library(), "fma", case, outs["fma"]),
+    }
+    want = ref.attention(q, k, v, **case["kw"]).float()
+    tol = FLASH_TOL[case["dtype"]]
+    for name, fn in runs.items():
+        if fn() != 0:
+            raise SystemExit(f"bare flash_attention {name} launch failed")
+        torch.cuda.synchronize()
+        err = float((outs[name].float() - want).abs().max())
+        ok = bool(torch.allclose(outs[name].float(), want, rtol=tol,
+                                 atol=tol))
+        phase("flash bare==plain", f"{name} kernel's bare launch at "
+              f"{case['shape']} {case['dtype']}: max_abs_err={err} within "
+              f"rtol=atol={tol}: {ok}")
+        if not ok:
+            raise SystemExit(f"the bare {name} flash launch disagrees with "
+                             f"the plain version")
     q4, k4, v4 = q[None], k[None], v[None]
+    runs["sdpa"] = lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True)
+    runs["wrapper"] = case["run"]
+    order = list(runs)
+    ev = {name: [] for name in order}
+    for name in order + order[::-1]:
+        ev[name].append(time_ms(runs[name], 200))
+    timed = ("wgmma", "fma", "sdpa")
+    dev = {name: device_us(torch, runs[name]) for name in timed}
+    queued = {name: queued_us(torch, runs[name]) for name in timed}
+    mean = {name: sum(x) / len(x) for name, x in ev.items()}
     row = {"shape": case["shape"], "dtype": case["dtype"],
-           "ms": time_ms(case["run"], 200),
-           "kernel_only_ms": time_ms(bare, 200),
+           "ms": mean["wrapper"], "kernel_only_ms": mean["wgmma"],
+           "fma_kernel_only_ms": mean["fma"],
            "plain_ms": time_ms(lambda: ref.attention(q, k, v, **case["kw"]),
                                50),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q4, k4, v4, is_causal=True, enable_gqa=True), 200),
+           "library_ms": mean["sdpa"],
+           "event_ms_by_pass": ev,
+           "device_us": {name: us for name, (us, _) in dev.items()},
+           "device_kernels": {name: rows for name, (_, rows)
+                              in dev.items()},
+           "queued_us": {name: us for name, (us, _, _) in queued.items()},
+           "queued_enqueue_us": {name: h for name, (_, h, _)
+                                 in queued.items()},
+           "queued_spin_us": {name: sp for name, (_, _, sp)
+                              in queued.items()},
            "library_call": "F.scaled_dot_product_attention(q, k, v, "
                            "is_causal=True, enable_gqa=True)"}
     pairs = flash_pairs(t, s, True, case["window"])
@@ -727,13 +892,29 @@ def time_flash(torch, F, fa, ref, case):
     flops = 4 * d * pairs * bh
     row["bound_ms"], row["bound_by"] = bound(flops, nbytes, case["dtype"])
     row.update(bytes=nbytes, flops=flops, pairs=pairs)
+    us = {name: "not measured" if x is None else f"{x:.2f} us"
+          for name, x in row["device_us"].items()}
+    qu = {name: "not measured (enqueue past half the spin)" if x is None
+          else f"{x:.2f} us" for name, x in row["queued_us"].items()}
+    gaps = "; ".join(f"{name} {row['queued_enqueue_us'][name]:.0f} of "
+                     f"{row['queued_spin_us'][name]:.0f}" for name in timed)
     phase("flash kernel", f"(BH,BKV,T,S,D)={case['shape']} {case['dtype']} "
-          f"causal: {row['ms'] * 1e3:.1f} us per wrapper call, "
-          f"{row['kernel_only_ms'] * 1e3:.1f} us per bare launch, plain "
-          f"version {row['plain_ms'] * 1e3:.1f} us, SDPA "
-          f"{row['library_ms'] * 1e3:.1f} us, bound "
+          f"causal, CUDA events (two passes in turns): wgmma "
+          f"{row['ms'] * 1e3:.2f} us per wrapper call, "
+          f"{row['kernel_only_ms'] * 1e3:.2f} us per bare launch; FMA kernel "
+          f"(earlier design) {row['fma_kernel_only_ms'] * 1e3:.2f} us; SDPA "
+          f"{row['library_ms'] * 1e3:.2f} us; plain version "
+          f"{row['plain_ms'] * 1e3:.1f} us; bound "
           f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes} B, "
           f"{flops} flops over {pairs} causal pairs per head)")
+    phase("flash device time", f"CUDA events behind a device spin, one "
+          f"launch: wgmma {qu['wgmma']}, FMA {qu['fma']}, SDPA "
+          f"{qu['sdpa']} (longest host enqueue of 20 calls against the "
+          f"spin, us: {gaps}); "
+          f"torch.profiler, one launch: wgmma {us['wgmma']}, FMA "
+          f"{us['fma']}, SDPA {us['sdpa']}; kernel "
+          f"rows [name, count, total us] of 20 calls each: "
+          f"{json.dumps(row['device_kernels'])}")
     return row
 
 
@@ -930,14 +1111,17 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
                                   max_new=SERVE["max_new"]))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    variants = getattr(counters, "VARIANTS", Counter())
     counters.LAUNCHES.clear()
     counters.SHAPES.clear()
+    variants.clear()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counters.LAUNCHES[kernel]
     shapes = dict(counters.SHAPES)
+    variants = dict(variants)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = eng.stats
     path_key = model_spec["path_key"]
@@ -955,6 +1139,7 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
         "decode_tok_per_s": st.decode_steps * SERVE["slots"] / st.decode_s,
         "kernel": kernel, "launches": launches,
         "shapes": {str(k): n for k, n in shapes.items()},
+        "variants": variants,
         "peak_mem_gb": peak_gb}
     phase("serve", json.dumps(summary))
     if len(done) != SERVE["requests"] or any(
@@ -965,6 +1150,11 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
         raise SystemExit(f"serve {cfg.name}: {launches} {kernel} launches "
                          f"({shapes}), expected {want_launches} at "
                          f"{path_key}")
+    if model_spec["variant"] and variants != {model_spec["variant"]:
+                                              want_launches}:
+        raise SystemExit(f"serve {cfg.name}: {kernel} launches by kernel "
+                         f"{variants}, expected all {want_launches} on "
+                         f"{model_spec['variant']}")
 
     # the kernel route against the plain route, on the served weights and,
     # where the route is gated in f32, on the arch's f32 weights
@@ -1031,15 +1221,16 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
                    selfcheck_launches={str(k): n
                                        for k, n in check_launches.items()},
                    profile=profile_serve(torch, engine, model, prompts,
-                                         max_len))
+                                         max_len, kernel))
     return summary
 
 
-def profile_serve(torch, engine, model, prompts, max_len):
+def profile_serve(torch, engine, model, prompts, max_len, kernel):
     """Where one 512-token prefill and one batch-4 decode step spend their
     time on the card: each run once unprofiled (host wall, ending in a
     synchronise) and once under ``torch.profiler`` (device time, kernel
-    count, the costliest host operations and device kernels)."""
+    count, the costliest host operations and device kernels, and the
+    device time and share of the rows whose name holds ``kernel``)."""
     from torch.profiler import ProfilerActivity, profile
     prefill = engine.make_prefill_step(model, max_len)
     step = engine.make_serve_step(model)
@@ -1074,9 +1265,12 @@ def profile_serve(torch, engine, model, prompts, max_len):
         device_s = sum(e.self_device_time_total for e in dev) * 1e-6
         top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]
         top_dev = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+        mine = sum(e.self_device_time_total for e in dev
+                   if kernel in e.key) * 1e-6
         out[name] = {
             "wall_s": wall, "device_s": device_s,
             "device_busy_share": device_s / wall,
+            "kernel_device_s": mine, "kernel_device_share": mine / device_s,
             "kernels": sum(e.count for e in dev),
             "top_host_ops": [[e.key, e.count, e.self_cpu_time_total * 1e-6]
                              for e in top_host],
@@ -1164,7 +1358,7 @@ def main() -> int:
 
     # 2. the kernel builds, one nvcc per library, all started together
     builds = ((ls.SOURCE, None), (bm.SOURCE, None), (bm.SOURCE, {"TILE": 128}),
-              (fa.SOURCE, None), (la.SOURCE, None))
+              (fa.SOURCE, None), (fa.SOURCE_WGMMA, None), (la.SOURCE, None))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         built = [f.result() for f in [pool.submit(build.load, src, defines)
@@ -1177,6 +1371,9 @@ def main() -> int:
               f"{info['seconds']:.2f} s (all builds {wall:.2f} s of wall): "
               f"{ptxas}")
     lib128 = bm.tiles_library(built[2])
+    wg_info = build.BUILD_INFO[build.label(fa.SOURCE_WGMMA, None)]
+    phase("flash wgmma build", f"{fa.SOURCE_WGMMA}: nvcc "
+          f"{wg_info['seconds']:.2f} s; {ptxas_summary(wg_info['ptxas'])}")
     if lib128.tiles_tile_edge() != 128 or \
             bm.tiles_library().tiles_tile_edge() != 64:
         raise SystemExit("tiles.cu builds have the wrong TILE")
@@ -1189,6 +1386,7 @@ def main() -> int:
     tile_errs = check_tiles(torch, cases)
     fcases = flash_cases(torch, np, fa, ops)
     flash_errs = check_flash(torch, ref, fcases)
+    route_errs = check_routes(torch, np, fa, ref)
     lcases = linear_cases(torch, np, la, ops)
     linear_errs = check_linear(torch, ref, lcases)
 
@@ -1337,18 +1535,28 @@ def main() -> int:
     frow = time_flash(torch, F, fa, ref, fcases[0])
     flash = {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": serve["launches"],
+        "launches_by_kernel": serve["variants"],
         "max_abs_err": flash_errs["path"],
         "ms": frow["ms"], "plain_ms": frow["plain_ms"],
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
         "library_ms": frow["library_ms"],
         "kernel_only_ms": frow["kernel_only_ms"],
+        "fma_kernel_only_ms": frow["fma_kernel_only_ms"],
+        "device_us": frow["device_us"],
+        "queued_us": frow["queued_us"],
+        "queued_enqueue_us": frow["queued_enqueue_us"],
+        "queued_spin_us": frow["queued_spin_us"],
+        "event_ms_by_pass": frow["event_ms_by_pass"],
+        "wgmma_build_s": wg_info["seconds"],
+        "wgmma_ptxas": ptxas_summary(wg_info["ptxas"]),
         "timed_shape": frow["shape"], "timed_dtype": frow["dtype"],
         "library_call": frow["library_call"],
         "launches_by_shape": serve["shapes"],
-        "max_abs_err_by_case": flash_errs,
+        "max_abs_err_by_case": {**flash_errs, **route_errs},
     }
     lrow = time_linear(torch, la, ref, lcases[0])
     linear = {

@@ -57,6 +57,7 @@ def test_port_files_exist():
             "linear_attn.py", "linear_blocks.py", "rwkv6_1_6b.py"} <= names
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "flash_attention.cu").is_file()
+    assert (csrc / "flash_attention_wgmma.cu").is_file()
     assert (csrc / "linear_attn.cu").is_file()
 
 

@@ -288,8 +288,11 @@ def test_engine_on_the_card(arch):
         eng.submit(engine.Request(rid=rid, prompt=pr, max_new=6))
     counters, key = CARD_KERNELS[arch]
     counters.LAUNCHES.clear()
+    fa.VARIANTS.clear()
     done = eng.run()
     assert counters.LAUNCHES[key] == 3 * cfg.n_layers
+    if counters is fa:                       # f32 smoke heads: FMA kernel
+        assert fa.VARIANTS == {"fma": 3 * cfg.n_layers}
     for r in done:
         seq = np.concatenate([r.prompt, r.out[:-1]]).astype(np.int32)
         logits, _ = T.forward(card, {"tokens": torch.from_numpy(seq)[None]
@@ -297,3 +300,61 @@ def test_engine_on_the_card(arch):
         pos = logits[0, len(r.prompt) - 1:]
         picked = pos.gather(1, torch.tensor(r.out, device="cuda")[:, None])
         assert torch.all(pos.amax(1) - picked[:, 0] <= 1e-4), r.rid
+
+
+#: Limits on bf16 logits (f32 after the unembedding), as in
+#: ``chip_smoke.py``: the kernel route's last-position prefill logits
+#: against the plain route's (``ROUTE_ATOL["bfloat16"]``), and a served
+#: token's logit below its position's maximum in a teacher-forced forward
+#: (``SELFCHECK_TOL``).
+BF16_ROUTE_ATOL = 0.1
+BF16_SELFCHECK_TOL = 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b"])
+def test_bf16_engine_on_the_card_goes_through_wgmma(arch):
+    """The smoke config in bf16 with 64-wide heads: every prefill of the
+    served run goes through the ``wgmma`` flash kernel, none through the
+    FMA kernel; each prompt's last-position prefill logits are the plain
+    route's (``attn_impl="naive"``, same weights) within
+    ``BF16_ROUTE_ATOL``, and each served token is within
+    ``BF16_SELFCHECK_TOL`` of its position's maximum logit in a
+    teacher-forced forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = dataclasses.replace(configs.get_smoke(arch), head_dim=64,
+                              param_dtype="bfloat16")
+    model = T.Transformer(cfg, device="cuda")
+    eng = engine.Engine(model, slots=2, max_len=80)
+    # equal lengths within each batch of two slots: the engine decodes
+    # unequal prompts at shifted positions (ROADMAP §3), which the
+    # teacher-forced check would flag
+    requests = prompts(cfg.vocab, (64, 64, 70), seed=7)
+    for rid, pr in enumerate(requests):
+        eng.submit(engine.Request(rid=rid, prompt=pr, max_new=5))
+    fa.LAUNCHES.clear()
+    fa.VARIANTS.clear()
+    done = eng.run()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 3 * cfg.n_layers
+    assert fa.VARIANTS == {"wgmma": 3 * cfg.n_layers}
+    assert all(len(r.out) == 5 and all(0 <= t < cfg.vocab for t in r.out)
+               for r in done)
+    plain = T.Transformer(dataclasses.replace(cfg, attn_impl="naive"),
+                          device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    for pr in requests:
+        toks = torch.from_numpy(pr.astype(np.int32))[None].cuda()
+        got, _ = T.forward(model, {"tokens": toks})
+        want, _ = T.forward(plain, {"tokens": toks})
+        torch.testing.assert_close(got[0, -1].float(), want[0, -1].float(),
+                                   rtol=0, atol=BF16_ROUTE_ATOL)
+    for r in done:
+        seq = np.concatenate([r.prompt, r.out[:-1]]).astype(np.int32)
+        logits, _ = T.forward(model, {"tokens": torch.from_numpy(seq)[None]
+                                      .cuda()})
+        pos = logits[0, len(r.prompt) - 1:].float()
+        picked = pos.gather(1, torch.tensor(r.out, device="cuda")[:, None])
+        assert torch.all(pos.amax(1) - picked[:, 0] <= BF16_SELFCHECK_TOL), \
+            r.rid
