@@ -62,12 +62,16 @@ Phases, one line each or more:
    share, kernels per step, the costliest host operations);
 8. Fig. 6 at n = 512: the estimator (traces plus ``Explorer(engine=
    "torch")``) over the six traditional-flow candidates, then each
-   candidate built afresh and run; every product held to ``AA @ BB``;
+   candidate built afresh (seconds, registers, static shared memory and
+   spills) and run; every product held to ``AA @ BB``;
 9. ``cholesky_via_tiles(512, 64, panel=16)``: exactly 28 syrk, 56
    gemm_update and 28 trsm launches, ``UᵀU`` held to ``A``;
 10. each tile kernel's time per wrapper call and per bare launch at each
-    path shape by CUDA events, beside its plain version's, the one
-    PyTorch call that computes the same function, and its bound;
+    path shape by CUDA events, beside the one PyTorch call that computes
+    the same function (the three timed twice in turns), its plain
+    version's and its bound; and the device time of one bare launch and
+    of one library call, from ``torch.profiler``'s kernel rows and from
+    CUDA events around launches queued behind a device spin;
 11. serve qwen3-0.6b (full width, bf16, seed 0) through ``Engine(slots=
     4)``: 8 requests of 512-token prompts, 32 new tokens each, with the
     flash counts set to 0 just before and read just after (224 launches,
@@ -404,11 +408,15 @@ def upper_tile(torch, np, seed: int, bs: int):
 
 
 def ptxas_summary(report: str) -> str:
-    """Kernel count, most registers and spill bytes of a ptxas report."""
+    """Kernel count, most registers, most static shared memory and spill
+    bytes of a ptxas report (dynamic shared memory is sized at launch and
+    not in the report)."""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+    smem = [int(b) for b in re.findall(r"(\d+) bytes smem", report)]
     spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", report))
     return (f"{len(regs)} kernels, at most {max(regs, default=0)} "
-            f"registers, {spills} bytes of spills")
+            f"registers, at most {max(smem, default=0)} bytes of static "
+            f"shared memory, {spills} bytes of spills")
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -424,7 +432,11 @@ def tile_cases(torch, np, ref, bm, ct, lib128):
     plain version, the PyTorch call that computes the same function, its
     bare launch, tolerance and bound.  ``block_matmul`` at (128,128,128)
     runs the ``TILE=128`` build, as the traditional flow's bs-128
-    candidates do; the rest the cached ``TILE=64`` build."""
+    candidates do; the rest the cached ``TILE=64`` build.  A bare launch
+    takes its arguments packed, raw pointers and all, so its lambda also
+    holds (``held``) the tensors they point into: freed, their memory
+    would go to other tensors, which every timed launch would then
+    overwrite."""
     cases = []
     stream = torch.cuda.current_stream().cuda_stream
     lib64 = bm.tiles_library()
@@ -441,10 +453,11 @@ def tile_cases(torch, np, ref, bm, ct, lib128):
             "tile": lib.tiles_tile_edge(),
             "run": (lambda a=a, b=b, lib=lib, m=m: bm.block_matmul(
                 a, b, block_m=m, block_n=m, block_k=m, library=lib)),
-            "bare": (lambda a=a, b=b, lib=lib, out=out, m=m, code=code:
-                     lib.tiles_gemm_launch(a.data_ptr(), b.data_ptr(), None,
-                                           out.data_ptr(), m, m, m, code,
-                                           code, 0, 0, stream)),
+            "bare": (lambda lib=lib, held=(a, b, out),
+                     args=bm.GEMM_ARGS.pack(
+                         a.data_ptr(), b.data_ptr(), 0, out.data_ptr(),
+                         stream, m, m, m, code, code, 0, 0):
+                     lib.tiles_gemm_launch(args)),
             "plain": lambda a=a, b=b: ref.matmul(a, b),
             "library": lambda a=a, b=b: torch.matmul(a, b),
             "library_call": "torch.matmul(a, b)",
@@ -457,9 +470,9 @@ def tile_cases(torch, np, ref, bm, ct, lib128):
         "kernel": "block_matmul", "entry": "gemm_update",
         "shape": [bs, bs, bs], "dtype": "float32", "tile": 64,
         "run": lambda: bm.gemm_update_tile(a, b, c),
-        "bare": lambda: lib64.tiles_gemm_launch(
-            b.data_ptr(), a.data_ptr(), c.data_ptr(), out.data_ptr(), bs, bs,
-            bs, 0, 0, 1, 1, stream),
+        "bare": lambda held=(a, b, c, out), args=bm.GEMM_ARGS.pack(
+            b.data_ptr(), a.data_ptr(), c.data_ptr(), out.data_ptr(), stream,
+            bs, bs, bs, 0, 0, 1, 1): lib64.tiles_gemm_launch(args),
         "plain": lambda: ref.gemm_update(a, b, c),
         "library": lambda: torch.addmm(c, b.T, a, alpha=-1),
         "library_call": "torch.addmm(c, b.T, a, alpha=-1)",
@@ -469,9 +482,9 @@ def tile_cases(torch, np, ref, bm, ct, lib128):
         "kernel": "syrk_tile", "entry": "syrk_tile",
         "shape": [bs, bs], "dtype": "float32", "tile": 64,
         "run": lambda: ct.syrk_tile(a, c),
-        "bare": lambda: lib64.tiles_gemm_launch(
-            a.data_ptr(), a.data_ptr(), c.data_ptr(), out.data_ptr(), bs, bs,
-            bs, 0, 0, 1, 1, stream),
+        "bare": lambda held=(a, c, out), args=bm.GEMM_ARGS.pack(
+            a.data_ptr(), a.data_ptr(), c.data_ptr(), out.data_ptr(), stream,
+            bs, bs, bs, 0, 0, 1, 1): lib64.tiles_gemm_launch(args),
         "plain": lambda: ref.syrk(a, c),
         "library": lambda: torch.addmm(c, a.T, a, alpha=-1),
         "library_call": "torch.addmm(c, a.T, a, alpha=-1)",
@@ -484,8 +497,9 @@ def tile_cases(torch, np, ref, bm, ct, lib128):
         "kernel": "trsm_tile", "entry": "trsm_tile",
         "shape": [bs, bs], "dtype": "float32", "panel": 16, "tile": None,
         "run": lambda: ct.trsm_tile(up, rhs, panel=16),
-        "bare": lambda: lib64.tiles_trsm_launch(
-            up.data_ptr(), rhs.data_ptr(), x.data_ptr(), bs, bs, 0, stream),
+        "bare": lambda held=(up, rhs, x), args=bm.TRSM_ARGS.pack(
+            up.data_ptr(), rhs.data_ptr(), x.data_ptr(), stream, bs, bs, 16,
+            0): lib64.tiles_trsm_launch(args),
         "plain": lambda: ref.trsm(up, rhs),
         "library": lambda: torch.linalg.solve_triangular(up.mT, rhs,
                                                          upper=False),
@@ -520,29 +534,71 @@ def check_tiles(torch, cases):
 
 
 def time_tiles(torch, cases, errs):
-    """Per-launch times of each case by CUDA events; bare launches are
-    checked for a zero return code."""
+    """Each case's times: by CUDA events back to back, per wrapper call,
+    per bare launch and per library call, each timed twice in turns
+    (wrapper, bare, library, library, bare, wrapper), and the plain
+    version once; the device time of one bare launch and of one library
+    call, by ``torch.profiler``'s kernel rows (``device_us``) and behind
+    a device spin (``queued_us``).  Bare launches are checked for a zero
+    return code."""
     rows = []
     for i, case in enumerate(cases):
         rc = case["bare"]()
         torch.cuda.synchronize()
         if rc != 0:
             raise SystemExit(f"bare {case['entry']} launch returned {rc}")
+        runs = {"wrapper": case["run"], "bare": case["bare"],
+                "library": case["library"]}
+        order = list(runs)
+        ev = {name: [] for name in order}
+        for name in order + order[::-1]:
+            ev[name].append(time_ms(runs[name], 1000))
+        mean = {name: sum(x) / len(x) for name, x in ev.items()}
+        dev = {name: device_us(torch, runs[name])
+               for name in ("bare", "library")}
+        queued = {name: queued_us(torch, runs[name])
+                  for name in ("bare", "library")}
         row = {k: case[k] for k in ("kernel", "entry", "shape", "dtype",
                                     "tile", "library_call")}
-        row.update(ms=time_ms(case["run"], 2000),
-                   kernel_only_ms=time_ms(case["bare"], 2000),
+        row.update(ms=mean["wrapper"], kernel_only_ms=mean["bare"],
+                   library_ms=mean["library"],
                    plain_ms=time_ms(case["plain"], 500),
-                   library_ms=time_ms(case["library"], 500),
                    bound_ms=case["bound"][0], bound_by=case["bound"][1],
-                   max_abs_err=errs[i])
+                   max_abs_err=errs[i], event_ms_by_pass=ev,
+                   device_us={n: us for n, (us, _) in dev.items()},
+                   device_kernels={n: r for n, (_, r) in dev.items()},
+                   queued_us={n: us for n, (us, _, _) in queued.items()},
+                   queued_enqueue_us={n: h for n, (_, h, _)
+                                      in queued.items()},
+                   queued_spin_us={n: sp for n, (_, _, sp)
+                                   in queued.items()})
+        row["slower_than_library"] = {
+            "wrapper_call": row["ms"] > row["library_ms"],
+            "device": (None if None in row["queued_us"].values() else
+                       row["queued_us"]["bare"]
+                       > row["queued_us"]["library"])}
         rows.append(row)
+        us = {n: "not measured" if x is None else f"{x:.2f} us"
+              for n, x in row["device_us"].items()}
+        qu = {n: "not measured (enqueue past half the spin)" if x is None
+              else f"{x:.2f} us" for n, x in row["queued_us"].items()}
+        gaps = "; ".join(f"{n} {row['queued_enqueue_us'][n]:.0f} of "
+                         f"{row['queued_spin_us'][n]:.0f}"
+                         for n in ("bare", "library"))
         phase("tile kernel", f"{row['entry']} {row['shape']} {row['dtype']}"
-              f" (TILE={row['tile']}): {row['ms'] * 1e3:.2f} us per wrapper "
-              f"call, {row['kernel_only_ms'] * 1e3:.2f} us per bare launch, "
-              f"plain version {row['plain_ms'] * 1e3:.2f} us, "
+              f" (TILE={row['tile']}): CUDA events (two passes in turns) "
+              f"{row['ms'] * 1e3:.2f} us per wrapper call, "
+              f"{row['kernel_only_ms'] * 1e3:.2f} us per bare launch, "
               f"{row['library_call']} {row['library_ms'] * 1e3:.2f} us, "
-              f"bound {row['bound_ms'] * 1e3:.4f} us ({row['bound_by']})")
+              f"plain version {row['plain_ms'] * 1e3:.2f} us, bound "
+              f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}); device "
+              f"time of one call behind a spin: kernel {qu['bare']}, "
+              f"library {qu['library']} (longest enqueue of 20 calls "
+              f"against the spin, us: {gaps}); by torch.profiler: kernel "
+              f"{us['bare']}, library {us['library']}; slower than the "
+              f"library: {row['slower_than_library']}; kernel rows [name, "
+              f"count, total us] of 20 calls each: "
+              f"{json.dumps(row['device_kernels'])}")
     return rows
 
 
@@ -590,6 +646,7 @@ def fig6_flow(torch, np, mm, Explorer, a9_smp_seconds, tr, bm, ls):
         if not ok or run.build_s <= 0:
             raise SystemExit(f"traditional candidate {name} failed")
         runs.append({"name": name, "build_s": run.build_s,
+                     "ptxas": ptxas_summary(run.ptxas),
                      "run_s": run.run_s, "fpga_tasks": run.fpga_tasks,
                      "smp_tasks": run.smp_tasks, "max_abs_err": err})
     launches = bm.LAUNCHES["block_matmul"]
@@ -1309,6 +1366,10 @@ def tile_kernel_rows(rows, fig6, chol):
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
             "kernel_only_ms": top["kernel_only_ms"],
+            "device_us": top["device_us"], "queued_us": top["queued_us"],
+            "queued_enqueue_us": top["queued_enqueue_us"],
+            "queued_spin_us": top["queued_spin_us"],
+            "slower_than_library": top["slower_than_library"],
             "timed_shape": top["shape"], "launches_by_path": by_path,
             "by_shape": mine})
     return out

@@ -144,7 +144,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: the port serves dense attention and RWKV6 "
             f"models only; "
             f"{', '.join(sorted(set(left_out)))} are still to port "
-            f"(ROADMAP 'Open items', item 1.10)")
+            f"(ROADMAP 'Open items', items 1.6–1.11)")
 
 
 # --------------------------------------------------------------------------
