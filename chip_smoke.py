@@ -7,8 +7,9 @@ against its plain PyTorch version:
 * the co-design sweep (``repro_torch``: trace -> augmented task graph ->
   FrozenGraph -> candidate-axis lockstep replay -> ranked
   ExplorationResult) with ``Explorer(engine="torch")``, through the
-  hand-written step-commit kernel, each result held against the port's
-  exact host engine (``engine="batch"``);
+  hand-written step-commit kernel (each lane's pool split across a group
+  of up to 32 threads that reduce by warp shuffles), each result held
+  against the port's exact host engine (``engine="batch"``);
 * the paper's tile accelerators (``csrc/tiles.cu``): Fig. 6's traditional
   build-and-run flow through a fresh build of the ``mxmBlock`` GEMM tile
   per candidate, and the Fig. 4 Cholesky through the dsyrk, dgemm and
@@ -21,8 +22,12 @@ against its plain PyTorch version:
   (f32 FMAs) for every other call;
 * RWKV6 serving (the same ``Engine``) on rwkv6-1.6b at its published full
   width, in bf16 from a seeded ``torch.Generator``, through the
-  hand-written linear-attention kernel (``csrc/linear_attn.cu``) on every
-  prefill, and the plain per-token recurrence on every decode step.
+  hand-written linear-attention kernels on every prefill, routed by
+  ``linear_attn.kernel_for``: ``csrc/linear_attn_tc.cu`` (chunks in
+  parallel, the decay factored at sub-chunks of 16, bf16 products on
+  tensor cores) at dk = dv = 64 and chunk 16/32/64, ``csrc/linear_attn.cu``
+  (chunks one after another) for every other call; and the plain
+  per-token recurrence on every decode step.
 
 Phases, one line each or more:
 
@@ -31,8 +36,8 @@ Phases, one line each or more:
    f32);
 2. the kernel builds, all started together (seconds, ``-Xptxas -v``
    registers and spills): ``lockstep_step.cu``, ``tiles.cu`` at ``TILE``
-   64 and 128, ``flash_attention.cu``, ``flash_attention_wgmma.cu`` and
-   ``linear_attn.cu``;
+   64 and 128, ``flash_attention.cu``, ``flash_attention_wgmma.cu``,
+   ``linear_attn.cu`` and ``linear_attn_tc.cu``;
 3. step_commit == plain PyTorch version, bit for bit, on seeded states at
    the main path's shapes, with all-``inf`` pools and ties;
 4. the tile kernels == plain versions within tolerance at every path
@@ -48,7 +53,9 @@ Phases, one line each or more:
    ``linear_attn`` == plain version (output and final state) at the
    RWKV6 path's shape (32, 512, 64, 64) chunk 64 with bf16 r/k/v/u and
    f32 w, a padded length through ``ops.linear_attn`` (T = 300), strong
-   decay (w <= 1e-6), Mamba2's scalar decay with u = 0, and in f32;
+   decay (w <= 1e-6), Mamba2's scalar decay with u = 0, and in f32, all
+   on the sub-chunked kernel, and a chunk of 7 at (3, 42, 16, 20) on the
+   serial one, each call on the kernel ``kernel_for`` names;
 5. four sweeps: ``trace_matmul(512, 64)`` with a 200-candidate slot ×
    ±SMP ramp (cold, then warm from the recorded orders), the same sweep
    with ``top_k=5, prune=True``, and ``trace_cholesky(512, 64)`` with the
@@ -57,7 +64,9 @@ Phases, one line each or more:
    candidate, no engine demotion, kernel launches > 0 and lanes that went
    through the lockstep path;
 6. step_commit at every ``(P, S, B)`` the sweeps launched it at: kernel ==
-   plain version, times by CUDA events and bound at each;
+   plain version; per wrapper call and per bare launch by CUDA events
+   (two passes in turns), the device time of one bare launch behind a
+   device spin and by ``torch.profiler``'s rows, and the bound at each;
 7. a warm Cholesky sweep plain and under ``torch.profiler`` (device busy
    share, kernels per step, the costliest host operations);
 8. Fig. 6 at n = 512: the estimator (traces plus ``Explorer(engine=
@@ -86,7 +95,8 @@ Phases, one line each or more:
     ``torch.profiler`` (device busy share, kernels, costliest operations);
     then the same for rwkv6-1.6b (the qwen model freed first), with the
     ``linear_attn`` counts set to 0 just before the served run and read
-    just after (192 launches, all at the path shape), the kernel route
+    just after (192 launches, all at the path shape, all on the
+    sub-chunked kernel), the kernel route
     against ``attn_impl="chunked"`` (printed on the served bf16 weights,
     gated on the arch's f32 weights from the same seed: see
     ``ROUTE_ATOL``) and the self-check's forward padded to 576 by
@@ -100,9 +110,11 @@ Phases, one line each or more:
     device time of one launch of each, from ``torch.profiler``'s kernel
     rows and from CUDA events around launches queued behind a device
     spin at least twice as long as their enqueue; ``linear_attn`` at its
-    path shape
-    the same way, beside its plain version and its bound (no single
-    PyTorch call computes it);
+    path shape the same way, per wrapper call and per bare launch of each
+    kernel (the sub-chunked one and the serial one, each output held to
+    the plain version first), beside its plain version and its bound (no
+    single PyTorch call computes it), and again at the f32 case of the
+    same shape, which is what ``kernel_for``'s route for f32 rests on;
 13. a ``kernels`` JSON line (launches on the paths, error against the
     plain version, times and bound at the commonest path shape) and
     candidates/s lines.
@@ -163,7 +175,7 @@ ROUTE_CASES = (
 
 #: The linear-attention kernel's path launch: rwkv6-1.6b's prefill of one
 #: 512-token prompt, ``(BH, T, dk, dv)`` with chunk 64, bf16 r/k/v/u and
-#: f32 w.
+#: f32 w, on the sub-chunked kernel.
 LINEAR_PATH = (32, 512, 64, 64)
 LINEAR_CHUNK = 64
 
@@ -187,7 +199,8 @@ SERVE_MODELS = (
      "route_dtype": "bfloat16", "variant": "wgmma"},
     {"arch": "rwkv6-1.6b", "kernel": "linear_attn",
      "path_key": (*LINEAR_PATH, LINEAR_CHUNK, "torch.bfloat16"),
-     "plain_impl": "chunked", "route_dtype": "float32", "variant": None},
+     "plain_impl": "chunked", "route_dtype": "float32",
+     "variant": "subchunk"},
 )
 
 #: Limits of the serve phase, on logits (f32 after the unembedding): the
@@ -301,27 +314,42 @@ def kernel_check(ls, torch, np, shapes, label, seed):
 
 
 def kernel_times(ls, torch, np, shape):
-    """Kernel and plain-version times per call at ``shape``, on the same
-    seeded inputs, by CUDA events; plus the bound."""
+    """step_commit at ``shape`` on seeded inputs: per wrapper call and per
+    bare launch (the packed arguments, no checks, no allocation) by CUDA
+    events, each timed twice in turns; the plain version; the device time
+    of one bare launch by ``torch.profiler``'s rows (``device_us``) and
+    behind a device spin (``queued_us``); the thread group a lane's pool
+    is split across; and the bound.  The state is updated in place by
+    every call, as in the scan."""
     P, S, B = shape
     rng = np.random.default_rng(1)
     host = [torch.from_numpy(a) for a in seeded_state(rng, P, S, B)]
     dev = [t.cuda() for t in host]
     n_live = int(host[6].sum())
-    lib = ls._lib()
+    lib = ls.step_library()
     end = torch.empty(B, dtype=torch.float64, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [t.data_ptr() for t in dev] + [end.data_ptr()]
+    args = ls.STEP_ARGS.pack(*(t.data_ptr() for t in dev), end.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream, S, B)
 
-    def raw():
-        lib.step_commit_launch(*ptrs, S, B, stream)
+    def bare():
+        return lib.step_commit_launch(args)
 
-    wrapper_ms = time_ms(lambda: ls.step_commit(*dev), 2000)
-    kernel_ms = time_ms(raw, 2000)
-    plain_ms = time_ms(lambda: ls.step_commit_ref(*dev), 500)
-    bound_ms = commit_bytes(S, B, n_live) / HBM_BYTES_PER_S * 1e3
-    return {"shape": [P, S, B], "ms": wrapper_ms, "kernel_only_ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+    if bare() != 0:
+        raise SystemExit(f"bare step_commit launch failed at {shape}")
+    runs = {"wrapper": lambda: ls.step_commit(*dev), "bare": bare}
+    ev = {name: [] for name in runs}
+    for name in list(runs) + list(runs)[::-1]:
+        ev[name].append(time_ms(runs[name], 2000))
+    mean = {name: sum(x) / len(x) for name, x in ev.items()}
+    us, rows = device_us(torch, bare)
+    q_us, enqueue, spin = queued_us(torch, bare)
+    return {"shape": [P, S, B], "group": lib.step_commit_group(S),
+            "ms": mean["wrapper"], "kernel_only_ms": mean["bare"],
+            "event_ms_by_pass": ev,
+            "plain_ms": time_ms(lambda: ls.step_commit_ref(*dev), 500),
+            "device_us": us, "device_kernels": rows, "queued_us": q_us,
+            "queued_enqueue_us": enqueue, "queued_spin_us": spin,
+            "bound_ms": commit_bytes(S, B, n_live) / HBM_BYTES_PER_S * 1e3,
             "bytes": commit_bytes(S, B, n_live)}
 
 
@@ -976,8 +1004,8 @@ def time_flash(torch, F, fa, ref, case):
 
 
 def linear_inputs(torch, np, seed, shape, dtype, *, decay="rwkv",
-                  bonus=True):
-    """Seeded ``(r, k, v, w, u)`` on the card at ``(BH, T, dk, dv)``, as
+                  bonus=True, device="cuda"):
+    """Seeded ``(r, k, v, w, u)`` on ``device`` at ``(BH, T, dk, dv)``, as
     ``tests/test_kernels.py`` draws them: r standard normal, k and v at
     0.5, u at 0.3 (zeros when ``bonus`` is false), one head per row.
     ``decay``: ``"rwkv"`` is ``exp(-exp(z))``, ``"strong"`` the same with
@@ -1000,47 +1028,56 @@ def linear_inputs(torch, np, seed, shape, dtype, *, decay="rwkv",
     u = (rng.standard_normal((bh, dk)) * 0.3 if bonus
          else np.zeros((bh, dk)))
     cast = getattr(torch, dtype)
-    out = [torch.from_numpy(a.astype(np.float32)).to(cast).cuda()
+    out = [torch.from_numpy(a.astype(np.float32)).to(cast).to(device)
            for a in (r, k, v)]
-    out.append(torch.from_numpy(w.astype(np.float32)).cuda())
-    out.append(torch.from_numpy(u.astype(np.float32)).to(cast).cuda())
+    out.append(torch.from_numpy(w.astype(np.float32)).to(device))
+    out.append(torch.from_numpy(u.astype(np.float32)).to(cast).to(device))
     return out
 
 
 def linear_cases(torch, np, la, ops):
     """The linear-attention kernel's check cases, each through the wrapper
     (or ``ops.linear_attn``, which pads T) on seeded inputs on the card."""
-    specs = [  # label, (BH, T, dk, dv), dtype, decay, bonus, padded
-        ("path", LINEAR_PATH, "bfloat16", "rwkv", True, False),
-        ("padded", (32, 300, 64, 64), "bfloat16", "rwkv", True, True),
-        ("strong_decay", LINEAR_PATH, "float32", "strong", True, False),
-        ("scalar_decay_u0", LINEAR_PATH, "float32", "scalar", False, False),
-        ("f32", LINEAR_PATH, "float32", "rwkv", True, False),
+    specs = [  # label, (BH, T, dk, dv), dtype, decay, bonus, padded, chunk
+        ("path", LINEAR_PATH, "bfloat16", "rwkv", True, False, LINEAR_CHUNK),
+        ("padded", (32, 300, 64, 64), "bfloat16", "rwkv", True, True,
+         LINEAR_CHUNK),
+        ("strong_decay", LINEAR_PATH, "float32", "strong", True, False,
+         LINEAR_CHUNK),
+        ("scalar_decay_u0", LINEAR_PATH, "float32", "scalar", False, False,
+         LINEAR_CHUNK),
+        ("f32", LINEAR_PATH, "float32", "rwkv", True, False, LINEAR_CHUNK),
+        ("odd_chunk", (3, 42, 16, 20), "float32", "rwkv", True, False, 7),
     ]
     cases = []
-    for i, (label, shape, dtype, decay, bonus, padded) in enumerate(specs):
+    for i, (label, shape, dtype, decay, bonus, padded, chunk) in enumerate(
+            specs):
         r, k, v, w, u = linear_inputs(torch, np, 20 + i, shape, dtype,
                                       decay=decay, bonus=bonus)
-        run = ((lambda r=r, k=k, v=v, w=w, u=u: ops.linear_attn_state(
-            r, k, v, w, u, chunk=LINEAR_CHUNK)) if padded
-               else (lambda r=r, k=k, v=v, w=w, u=u: la.linear_attention_state(
-                   r, k, v, w, u, chunk=LINEAR_CHUNK)))
+        run = ((lambda r=r, k=k, v=v, w=w, u=u, c=chunk: ops.linear_attn_state(
+            r, k, v, w, u, chunk=c)) if padded
+               else (lambda r=r, k=k, v=v, w=w, u=u, c=chunk:
+                     la.linear_attention_state(r, k, v, w, u, chunk=c)))
         tol = LINEAR_TOL["strong" if decay == "strong" else dtype]
         cases.append({"label": label, "shape": list(shape), "dtype": dtype,
-                      "decay": decay, "padded": padded,
+                      "decay": decay, "padded": padded, "chunk": chunk,
+                      "route": la.kernel_for(getattr(torch, dtype), shape[2],
+                                             shape[3], chunk),
                       "inputs": (r, k, v, w, u), "run": run, "tol": tol,
                       "state_tol": LINEAR_TOL["strong" if decay == "strong"
                                               else "float32"]})
     return cases
 
 
-def check_linear(torch, ref, cases):
+def check_linear(torch, la, ref, cases):
     """Each case's kernel (output and final state) against the plain
-    version; exits on any disagreement.  Returns ``{label: max abs error
-    of the output}``."""
+    version, on the kernel ``kernel_for`` names; exits on any disagreement
+    or another kernel.  Returns ``{label: max abs error of the output}``."""
     errs = {}
     for case in cases:
+        la.VARIANTS.clear()
         got, got_state = case["run"]()
+        routes = dict(la.VARIANTS)
         want, want_state = ref.linear_attention_state(*case["inputs"])
         torch.cuda.synchronize()
         tol, stol = case["tol"], case["state_tol"]
@@ -1050,13 +1087,15 @@ def check_linear(torch, ref, cases):
                                   atol=tol)) and got.dtype == want.dtype
               and bool(torch.allclose(got_state, want_state, rtol=stol,
                                       atol=stol))
-              and bool(torch.isfinite(got.float()).all()))
+              and bool(torch.isfinite(got.float()).all())
+              and routes == {case["route"]: 1})
         errs[case["label"]] = err
         via = ("ops.linear_attn" if case["padded"]
                else "linear_attention_state")
         phase("linear==plain", f"{case['label']} (BH,T,dk,dv)="
               f"{case['shape']} {case['dtype']} r/k/v/u, f32 w, decay "
-              f"{case['decay']}, chunk {LINEAR_CHUNK} via {via}: "
+              f"{case['decay']}, chunk {case['chunk']} via {via}, kernels "
+              f"{routes}: "
               f"max_abs_err={err} (outputs up to "
               f"{float(want.float().abs().max()):.3f}) within rtol=atol="
               f"{tol}, final state max_abs_err={serr} within {stol}: {ok}")
@@ -1067,7 +1106,7 @@ def check_linear(torch, ref, cases):
 
 
 def linear_work(bh: int, t: int, dk: int, dv: int) -> int:
-    """The f32 operations the function needs: the per-step recurrence's
+    """The operations the function needs: the per-step recurrence's
     (``ref.linear_attention_state``), per step and row ``dk·dv`` for the
     state's decay, ``2·dk·dv`` for its ``kᵀv`` update and ``2·dk·dv`` for
     ``r S``, ``3·dk`` for the bonus's ``(r ⊙ u)·k`` and ``2·dv`` for
@@ -1076,46 +1115,117 @@ def linear_work(bh: int, t: int, dk: int, dv: int) -> int:
     return bh * t * (5 * dk * dv + 3 * dk + 2 * dv)
 
 
-def time_linear(torch, la, ref, case):
-    """The linear-attention kernel's times at ``case`` by CUDA events: per
-    wrapper call, per bare launch, the plain version, and the bound (no
-    single PyTorch call computes the function: no library time)."""
+def linear_bare(torch, la, variant, case, out, state, scratch):
+    """A bare launch of ``variant``'s kernel at ``case`` into ``out`` and
+    ``state`` (the packed arguments: no checks, no allocation, no count);
+    the lambda holds the tensors its raw pointers point into."""
     r, k, v, w, u = case["inputs"]
     bh, t, dk, dv = case["shape"]
-    lib = la.library()
-    out = torch.empty_like(v)
-    state = torch.empty((bh, dk, dv), dtype=torch.float32, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    codes = [la.DTYPE_CODES[x.dtype] for x in (r, w, u)]
+    lib = la.library(variant)
+    fn = (lib.linear_attn_tc_launch if variant == "subchunk"
+          else lib.linear_attn_launch)
+    args = la.LINEAR_ARGS.pack(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        out.data_ptr(), state.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(),
+        torch.cuda.current_stream().cuda_stream, bh, t, dk, dv, u.shape[0],
+        case["chunk"], *(la.DTYPE_CODES[x.dtype] for x in (r, w, u)))
+    return lambda held=(r, k, v, w, u, out, state, scratch): fn(args)
 
-    def bare():
-        return lib.linear_attn_launch(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            u.data_ptr(), out.data_ptr(), state.data_ptr(), bh, t, dk, dv,
-            u.shape[0], LINEAR_CHUNK, *codes, stream)
 
-    if bare() != 0:
-        raise SystemExit("bare linear_attn launch failed")
-    row = {"shape": case["shape"], "dtype": case["dtype"],
-           "chunk": LINEAR_CHUNK,
-           "ms": time_ms(lambda: la.linear_attention_state(
-               r, k, v, w, u, chunk=LINEAR_CHUNK), 200),
-           "kernel_only_ms": time_ms(bare, 200),
+def time_linear(torch, la, ref, case):
+    """The linear-attention kernels' times at ``case``: per wrapper call
+    (the kernel ``kernel_for`` names) and per bare launch of each kernel
+    (the serial one is the earlier design; each bare output is held to the
+    plain version first, and the run exits if one disagrees) by CUDA
+    events, each timed twice in turns; the device time of one bare launch
+    of each by ``torch.profiler``'s rows (the sub-chunked kernel's three
+    launches summed) and behind a device spin; the plain version; the
+    bound (no single PyTorch call computes the function: no library
+    time)."""
+    r, k, v, w, u = case["inputs"]
+    bh, t, dk, dv = case["shape"]
+    chunk = case["chunk"]
+    want, want_state = ref.linear_attention_state(r, k, v, w, u)
+    runs, outs = {}, {}
+    for variant in ("subchunk", "serial"):
+        out = torch.empty_like(v)
+        state = torch.empty((bh, dk, dv), dtype=torch.float32, device="cuda")
+        scratch = (torch.empty(la.scratch_floats(la.library(variant), bh,
+                                                 t, chunk),
+                               dtype=torch.float32, device="cuda")
+                   if variant == "subchunk" else None)
+        runs[variant] = linear_bare(torch, la, variant, case, out, state,
+                                    scratch)
+        if runs[variant]() != 0:
+            raise SystemExit(f"bare linear_attn {variant} launch failed")
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        serr = float((state - want_state).abs().max())
+        ok = (bool(torch.allclose(out.float(), want.float(),
+                                  rtol=case["tol"], atol=case["tol"]))
+              and bool(torch.allclose(state, want_state,
+                                      rtol=case["state_tol"],
+                                      atol=case["state_tol"])))
+        outs[variant] = (err, serr)
+        phase("linear bare==plain", f"{variant} kernel's bare launch at "
+              f"{case['shape']} chunk {chunk} {case['dtype']}: max_abs_err="
+              f"{err}, final state {serr}: {ok}")
+        if not ok:
+            raise SystemExit(f"the bare {variant} linear_attn launch "
+                             f"disagrees with the plain version")
+    runs["wrapper"] = lambda: la.linear_attention_state(r, k, v, w, u,
+                                                        chunk=chunk)
+    order = list(runs)
+    ev = {name: [] for name in order}
+    for name in order + order[::-1]:
+        ev[name].append(time_ms(runs[name], 200))
+    mean = {name: sum(x) / len(x) for name, x in ev.items()}
+    timed = ("subchunk", "serial")
+    dev = {name: device_us(torch, runs[name]) for name in timed}
+    queued = {name: queued_us(torch, runs[name]) for name in timed}
+    row = {"shape": case["shape"], "dtype": case["dtype"], "chunk": chunk,
+           "route": case["route"],
+           "ms": mean["wrapper"], "kernel_only_ms": mean["subchunk"],
+           "serial_kernel_only_ms": mean["serial"],
            "plain_ms": time_ms(lambda: ref.linear_attention_state(
                r, k, v, w, u), 3),
-           "library_ms": None, "library_call": None}
+           "library_ms": None, "library_call": None,
+           "event_ms_by_pass": ev, "bare_max_abs_err": outs,
+           "device_us": {name: us for name, (us, _) in dev.items()},
+           "device_kernels": {name: rows for name, (_, rows) in dev.items()},
+           "queued_us": {name: us for name, (us, _, _) in queued.items()},
+           "queued_enqueue_us": {name: h for name, (_, h, _)
+                                 in queued.items()},
+           "queued_spin_us": {name: sp for name, (_, _, sp)
+                              in queued.items()}}
     nbytes = sum(x.numel() * x.element_size() for x in (r, k, v, w, u)) \
-        + out.numel() * out.element_size() + state.numel() * 4
+        + v.numel() * v.element_size() + bh * dk * dv * 4
     flops = linear_work(bh, t, dk, dv)
-    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "float32")
+    row["bound_ms"], row["bound_by"] = bound(flops, nbytes, case["dtype"])
     row.update(bytes=nbytes, flops=flops)
-    phase("linear kernel", f"(BH,T,dk,dv)={case['shape']} chunk "
-          f"{LINEAR_CHUNK} {case['dtype']} r/k/v/u, f32 w: "
-          f"{row['ms'] * 1e3:.1f} us per wrapper call, "
-          f"{row['kernel_only_ms'] * 1e3:.1f} us per bare launch, plain "
-          f"version {row['plain_ms'] * 1e3:.1f} us, no library call, bound "
+    us = {name: "not measured" if x is None else f"{x:.2f} us"
+          for name, x in row["device_us"].items()}
+    qu = {name: "not measured (enqueue past half the spin)" if x is None
+          else f"{x:.2f} us" for name, x in row["queued_us"].items()}
+    gaps = "; ".join(f"{name} {row['queued_enqueue_us'][name]:.0f} of "
+                     f"{row['queued_spin_us'][name]:.0f}" for name in timed)
+    phase("linear kernel", f"(BH,T,dk,dv)={case['shape']} chunk {chunk} "
+          f"{case['dtype']} r/k/v/u, f32 w, CUDA events (two passes in "
+          f"turns): {row['ms'] * 1e3:.2f} us per wrapper call (routed to "
+          f"the {case['route']} kernel); bare launches: sub-chunked kernel "
+          f"{row['kernel_only_ms'] * 1e3:.2f} us, serial kernel "
+          f"{row['serial_kernel_only_ms'] * 1e3:.2f} us; plain version "
+          f"{row['plain_ms'] * 1e3:.1f} us, no library call, bound "
           f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes} B, "
-          f"{flops} f32 operations)")
+          f"{flops} operations at the {case['dtype']} peak)")
+    phase("linear device time", f"CUDA events behind a device spin, one "
+          f"launch: sub-chunked {qu['subchunk']}, serial {qu['serial']} "
+          f"(longest host enqueue of 20 calls against the spin, us: "
+          f"{gaps}); torch.profiler, one launch: sub-chunked "
+          f"{us['subchunk']}, serial {us['serial']}; kernel rows [name, "
+          f"count, total us] of 20 calls each: "
+          f"{json.dumps(row['device_kernels'])}")
     return row
 
 
@@ -1177,7 +1287,8 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counters.LAUNCHES[kernel]
-    shapes = dict(counters.SHAPES)
+    shapes = {tuple(str(x) if isinstance(x, torch.dtype) else x
+                    for x in key): n for key, n in counters.SHAPES.items()}
     variants = dict(variants)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = eng.stats
@@ -1419,7 +1530,8 @@ def main() -> int:
 
     # 2. the kernel builds, one nvcc per library, all started together
     builds = ((ls.SOURCE, None), (bm.SOURCE, None), (bm.SOURCE, {"TILE": 128}),
-              (fa.SOURCE, None), (fa.SOURCE_WGMMA, None), (la.SOURCE, None))
+              (fa.SOURCE, None), (fa.SOURCE_WGMMA, None), (la.SOURCE, None),
+              (la.SOURCE_TC, None))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         built = [f.result() for f in [pool.submit(build.load, src, defines)
@@ -1449,7 +1561,7 @@ def main() -> int:
     flash_errs = check_flash(torch, ref, fcases)
     route_errs = check_routes(torch, np, fa, ref)
     lcases = linear_cases(torch, np, la, ops)
-    linear_errs = check_linear(torch, ref, lcases)
+    linear_errs = check_linear(torch, la, ref, lcases)
 
     # 5. the sweeps: torch on the card, then batch on the host
     sweeps = []
@@ -1539,10 +1651,18 @@ def main() -> int:
         t = kernel_times(ls, torch, np, sh)
         t["launches"] = path_shapes[sh]
         by_shape.append(t)
+        qu = ("not measured (enqueue past half the spin)"
+              if t["queued_us"] is None else f"{t['queued_us']:.2f} us")
+        rows_us = ("not measured" if t["device_us"] is None
+                   else f"{t['device_us']:.2f} us")
         phase("kernel", f"step_commit at P,S,B={sh} ({t['launches']} path "
-              f"launches): {t['ms'] * 1e3:.2f} us per call through the "
-              f"wrapper, {t['kernel_only_ms'] * 1e3:.2f} us per bare launch,"
-              f" plain version {t['plain_ms'] * 1e3:.2f} us, bound "
+              f"launches, {t['group']} threads a lane): CUDA events (two "
+              f"passes in turns) {t['ms'] * 1e3:.2f} us per call through "
+              f"the wrapper, {t['kernel_only_ms'] * 1e3:.2f} us per bare "
+              f"launch; device time of one bare launch behind a spin {qu} "
+              f"(enqueue of 20 {t['queued_enqueue_us']:.0f} of "
+              f"{t['queued_spin_us']:.0f} us), by torch.profiler {rows_us}; "
+              f"plain version {t['plain_ms'] * 1e3:.2f} us, bound "
               f"{t['bound_ms'] * 1e3:.4f} us ({t['bytes']} B at 3.35 TB/s)")
     top = by_shape[0]
     kern = {
@@ -1555,6 +1675,9 @@ def main() -> int:
         "bound_ms": top["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
         "kernel_only_ms": top["kernel_only_ms"],
+        "device_us": top["device_us"], "queued_us": top["queued_us"],
+        "queued_enqueue_us": top["queued_enqueue_us"],
+        "queued_spin_us": top["queued_spin_us"], "group": top["group"],
         "timed_shape": top["shape"],
         "launches_by_sweep": {s["sweep"]: s["launches"] for s in sweeps},
         "by_shape": by_shape,
@@ -1620,20 +1743,35 @@ def main() -> int:
         "max_abs_err_by_case": {**flash_errs, **route_errs},
     }
     lrow = time_linear(torch, la, ref, lcases[0])
+    lrow32 = time_linear(torch, la, ref,
+                         next(c for c in lcases if c["label"] == "f32"))
     linear = {
         "name": "linear_attn", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/linear_attn.cu",
+        "source": "src/repro_torch/kernels/csrc/linear_attn_tc.cu",
+        "serial_source": "src/repro_torch/kernels/csrc/linear_attn.cu",
         "replaces": "src/repro/kernels/linear_attn.py:84",
         "launches": serve_rwkv["launches"],
+        "launches_by_kernel": serve_rwkv["variants"],
         "max_abs_err": linear_errs["path"],
         "ms": lrow["ms"], "plain_ms": lrow["plain_ms"],
         "bound_ms": lrow["bound_ms"], "bound_by": lrow["bound_by"],
         "library_ms": None,
         "kernel_only_ms": lrow["kernel_only_ms"],
+        "serial_kernel_only_ms": lrow["serial_kernel_only_ms"],
+        "device_us": lrow["device_us"], "queued_us": lrow["queued_us"],
+        "queued_enqueue_us": lrow["queued_enqueue_us"],
+        "queued_spin_us": lrow["queued_spin_us"],
+        "event_ms_by_pass": lrow["event_ms_by_pass"],
+        "prefill_device_share": serve_rwkv["profile"]["prefill_512"][
+            "kernel_device_share"],
         "timed_shape": lrow["shape"], "timed_dtype": lrow["dtype"],
         "chunk": LINEAR_CHUNK, "library_call": None,
         "launches_by_shape": serve_rwkv["shapes"],
         "max_abs_err_by_case": linear_errs,
+        "f32_timed": {key: lrow32[key] for key in (
+            "route", "ms", "kernel_only_ms", "serial_kernel_only_ms",
+            "plain_ms", "bound_ms", "bound_by", "device_us", "queued_us",
+            "event_ms_by_pass")},
     }
 
     # 13. the kernels line

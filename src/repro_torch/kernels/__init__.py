@@ -12,10 +12,14 @@
 #                    softcap, the LM serve path's prefill
 #                    (replaces repro/kernels/flash_attention.py::
 #                    flash_attention)
+#   linear_attn    — chunked decayed linear attention, RWKV6's prefill
+#                    (replaces repro/kernels/linear_attn.py::
+#                    linear_attention)
 #
 # ops holds the public wrappers with the JAX package's padding and shape
 # contracts, ref the plain PyTorch versions.  Each wrapper launches its
 # CUDA kernel for a CUDA tensor and runs its plain version for a CPU
 # tensor.  Sources live in csrc/ (lockstep_step.cu, tiles.cu,
-# flash_attention.cu) and are built by build.py at first use, never on
+# flash_attention.cu and flash_attention_wgmma.cu, linear_attn.cu and
+# linear_attn_tc.cu) and are built by build.py at first use, never on
 # import.

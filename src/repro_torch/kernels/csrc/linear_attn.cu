@@ -1,5 +1,6 @@
-// Chunked decayed linear attention for Hopper (sm_90a): the prefill hot
-// spot of RWKV6 serving.  Replaces the Pallas TPU kernel
+// Chunked decayed linear attention for Hopper (sm_90a), the serial design
+// (chunks one after another in a block).  Replaces the Pallas TPU
+// kernel
 //   repro/kernels/linear_attn.py:84 linear_attention (_linear_attn_kernel :38)
 // and computes, for every row bh of r, k, w (BH, T, dk) and v (BH, T, dv)
 // with the bonus u[bh % H] (u is (H, dk)), from a zero state,
@@ -50,20 +51,47 @@
 // r, k, v, u and out, f32 w and state): the bytes are r, k, v and out at
 // 2 MiB each, w at 4 MiB and the state at 0.5 MiB, 13.1 MB in all, 3.9 us
 // at 3.35 TB/s; the work the function needs is the recurrence's, about
-// 0.34 G f32 operations (per step and row 5 dk dv for the state's decay,
-// its k^T v update and r S, plus the bonus), 5.1 us at 67 TFLOP/s:
-// operations.  The kernel is far from it (227 us a launch on
-// an H100 SXM at 700 W, timed by chip_smoke.py): step 3 takes 129k exp2s
+// 0.34 G operations (per step and row 5 dk dv for the state's decay,
+// its k^T v update and r S, plus the bonus), 0.34 us at bf16's 989
+// TFLOP/s: bytes (the f32 FMAs this kernel runs instead would take 5.1 us
+// at 67 TFLOP/s).  The kernel is far from it (227 us a launch on
+// an H100 80GB HBM3 at 700 W, timed by chip_smoke.py): step 3 takes 129k exp2s
 // per chunk and block, each thread's four score chains wait on exp2 and
 // FMA latency with one block of 8 warps an SM, the dv slices repeat the
 // scores four times over, and the chunks run one after another.
-// Factoring the decay at sub-tile boundaries (GLA's secondary chunking),
-// splitting the scores across a cluster's blocks, and tensor cores for
-// the products are later work.
+// linear_attn_tc.cu takes the three steps that header names (chunks in
+// parallel, the decay factored at sub-chunks of 16, tensor cores for bf16
+// products) for dk = dv = 64 at chunk 16, 32 or 64, RWKV6's prefill
+// among them; this kernel keeps every other call (linear_attn.kernel_for
+// names it "serial").
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// One launch's arguments, packed by the wrapper into a single ctypes
+// argument (struct.Struct("@9P9q") in linear_attn.py), the layout of
+// linear_attn_tc.cu's.
+struct LinearAttnArgs {
+  const void* r;
+  const void* k;
+  const void* v;
+  const void* w;
+  const void* u;
+  void* out;
+  void* state;
+  void* scratch;
+  void* stream;
+  int64_t bh;
+  int64_t t_len;
+  int64_t dk;
+  int64_t dv;
+  int64_t heads;
+  int64_t chunk;
+  int64_t dtype;
+  int64_t w_dtype;
+  int64_t u_dtype;
+};
 
 namespace {
 
@@ -290,32 +318,38 @@ int launch_w(int w_dtype, int u_dtype, const void* r, const void* k,
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes).  The launch runs on `stream`,
-// does not synchronise, allocates nothing, and returns cudaGetLastError()
-// so a refused launch is reported by the caller.  r, k, w are (bh, t_len,
-// dk), v and out (bh, t_len, dv), u (heads, dk), state (bh, dk, dv) f32,
-// all contiguous; dtype codes are 0 for f32 and 1 for bf16, one for r, k,
-// v and out, one for w and one for u.
+// Plain C entry points (bound with ctypes).  The launch runs on the
+// stream in the block, does not synchronise, allocates nothing, and
+// returns cudaGetLastError() so a refused launch is reported by the
+// caller.  r, k, w are (bh, t_len, dk), v and out (bh, t_len, dv), u
+// (heads, dk), state (bh, dk, dv) f32, all contiguous; dtype codes are 0
+// for f32 and 1 for bf16, one for r, k, v and out, one for w and one for
+// u; the scratch pointer is not used.
 
-extern "C" int linear_attn_launch(const void* r, const void* k,
-                                  const void* v, const void* w,
-                                  const void* u, void* out, void* state,
-                                  int bh, int t_len, int dk, int dv,
-                                  int heads, int chunk, int dtype,
-                                  int w_dtype, int u_dtype, void* stream) {
-  if (bh <= 0 || t_len < 0 || dk <= 0 || dk > kMaxDk || dv <= 0 ||
-      heads <= 0 || bh % heads || chunk <= 0 || chunk > kMaxChunk ||
-      t_len % chunk || (dv + kSlice - 1) / kSlice > 65535)
+extern "C" int linear_attn_launch(const LinearAttnArgs* a) {
+  if (a->bh <= 0 || a->bh >= (1LL << 31) || a->t_len < 0 ||
+      a->t_len >= (1LL << 31) || a->dk <= 0 || a->dk > kMaxDk ||
+      a->dv <= 0 || a->dv >= (1LL << 31) || a->heads <= 0 ||
+      a->bh % a->heads || a->chunk <= 0 || a->chunk > kMaxChunk ||
+      a->t_len % a->chunk || (a->dv + kSlice - 1) / kSlice > 65535)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_w<float>(w_dtype, u_dtype, r, k, v, w, u, out, state, bh,
-                           t_len, dk, dv, heads, chunk, st);
-  if (dtype == 1)
-    return launch_w<__nv_bfloat16>(w_dtype, u_dtype, r, k, v, w, u, out,
-                                   state, bh, t_len, dk, dv, heads, chunk,
-                                   st);
+  const int bh = (int)a->bh, t_len = (int)a->t_len, dk = (int)a->dk,
+            dv = (int)a->dv, heads = (int)a->heads, chunk = (int)a->chunk;
+  const int w_dtype = (int)a->w_dtype, u_dtype = (int)a->u_dtype;
+  const cudaStream_t st = (cudaStream_t)a->stream;
+  if (a->dtype == 0)
+    return launch_w<float>(w_dtype, u_dtype, a->r, a->k, a->v, a->w, a->u,
+                           a->out, a->state, bh, t_len, dk, dv, heads, chunk,
+                           st);
+  if (a->dtype == 1)
+    return launch_w<__nv_bfloat16>(w_dtype, u_dtype, a->r, a->k, a->v, a->w,
+                                   a->u, a->out, a->state, bh, t_len, dk, dv,
+                                   heads, chunk, st);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int linear_attn_args_bytes() {
+  return (int)sizeof(LinearAttnArgs);
 }
 
 extern "C" const char* linear_attn_error_string(int code) {

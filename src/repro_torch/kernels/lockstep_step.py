@@ -8,23 +8,35 @@ fold the busy/seen per-pool accumulators.
 
 :func:`step_commit` launches the CUDA kernel ``csrc/lockstep_step.cu`` for
 CUDA tensors; it replaces the Pallas TPU kernel
-``repro/kernels/lockstep_step.py::step_commit``.  For CPU tensors it runs
+``repro/kernels/lockstep_step.py::step_commit``.  The kernel splits each
+lane's pool across a group of :func:`group_size` threads, which reduce
+their first-minima by warp shuffles.  For CPU tensors it runs
 :func:`step_commit_ref`, the plain PyTorch version of the same function,
 and never the other way round: a CUDA tensor either goes through the
 kernel or raises :class:`repro_torch.DeviceError`.  The two are
-bit-identical (no multiply, hence no FMA contraction; the same NaN rules).
+bit-identical (no multiply, hence no FMA contraction; the same NaN rules;
+the same slot chosen).
 
 Both update ``clocks``, ``busy`` and ``seen`` in place and return ``end``.
+
+A launch costs the host little: the operand checks are one expression
+(the precise refusal is worked out only when it fails), the cached
+library is bound once and held here, the stream is read by PyTorch's raw
+current-stream call, and the arguments go to the kernel as one packed
+block.
 """
 from __future__ import annotations
 
 import ctypes
+import struct
 from collections import Counter
+from typing import Optional
 
 import torch
 
 from .. import DeviceError
 from . import build
+from .block_matmul import current_stream, on_card
 
 #: Kernel launches since the last reset: one per CUDA call, none for the
 #: plain version.  Callers reset it to 0 before a run they want to count.
@@ -34,6 +46,32 @@ LAUNCHES = 0
 SHAPES: Counter = Counter()
 
 SOURCE = "lockstep_step.cu"
+
+#: The widest thread group a lane's pool is split across (one warp).
+MAX_GROUP = 32
+
+#: The launch's packed arguments, ``StepCommitArgs`` of the source:
+#: pointers ``clocks, busy, seen, p, rt, base, live, end, stream``, then
+#: 64-bit ``S, B``.
+STEP_ARGS = struct.Struct("@9P2q")
+
+#: ``B`` at or above this does not fit the kernel's 32-bit thread count.
+MAX_LANES = 2 ** 26
+
+#: The cached build of ``lockstep_step.cu``, bound by the first launch.
+_CACHED: Optional[ctypes.CDLL] = None
+
+_F64, _I64, _BOOL = torch.float64, torch.int64, torch.bool
+
+
+def group_size(S: int) -> int:
+    """The threads the kernel splits a pool of ``S`` slots across: the
+    power of two at or above ``S``, at most :data:`MAX_GROUP`
+    (``group_for`` of the source)."""
+    g = 1
+    while g < S and g < MAX_GROUP:
+        g *= 2
+    return g
 
 
 def step_commit_ref(clocks: torch.Tensor, busy: torch.Tensor,
@@ -58,33 +96,57 @@ def step_commit_ref(clocks: torch.Tensor, busy: torch.Tensor,
     return end
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``lockstep_step.cu``) with its entry points'
+    argument types declared, its packed-argument size checked, and its
+    group sizes held to :func:`group_size` (the mirror the tests hold the
+    kernel's reduction to) at every S up to past a warp; marked on the
+    object, so each library is bound once."""
     if not getattr(lib, "_repro_torch_bound", False):
-        fn = lib.step_commit_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib.step_commit_launch.argtypes = [ctypes.c_char_p]
+        lib.step_commit_launch.restype = ctypes.c_int
+        lib.step_commit_args_bytes.argtypes = []
+        lib.step_commit_args_bytes.restype = ctypes.c_int
+        if lib.step_commit_args_bytes() != STEP_ARGS.size:
+            raise DeviceError(f"step_commit_args_bytes() is "
+                              f"{lib.step_commit_args_bytes()}, but "
+                              f"{STEP_ARGS.size} bytes are packed")
+        lib.step_commit_group.argtypes = [ctypes.c_int]
+        lib.step_commit_group.restype = ctypes.c_int
+        for S in range(1, 2 * MAX_GROUP + 2):
+            if lib.step_commit_group(S) != group_size(S):
+                raise DeviceError(f"step_commit_group({S}) is "
+                                  f"{lib.step_commit_group(S)}, but "
+                                  f"group_size({S}) is {group_size(S)}")
         lib.step_commit_error_string.argtypes = [ctypes.c_int]
         lib.step_commit_error_string.restype = ctypes.c_char_p
         lib._repro_torch_bound = True
     return lib
 
 
-def _check(clocks, busy, seen, p, rt, base, live) -> None:
-    """Refuses what the kernel cannot take, as :class:`DeviceError`: on
+def step_library() -> ctypes.CDLL:
+    """The cached build of ``lockstep_step.cu``, built and bound by the
+    first call and held here."""
+    global _CACHED
+    if _CACHED is None:
+        _CACHED = bind(build.load(SOURCE))
+    return _CACHED
+
+
+def check_operands(clocks, busy, seen, p, rt, base, live) -> None:
+    """Refuses, as :class:`DeviceError`, what the kernel cannot take: on
     CUDA tensors the sweep must fail, not move to the host."""
     if clocks.dim() != 3:
         raise DeviceError(f"clocks must be [P, S, B], got "
                           f"{tuple(clocks.shape)}")
     P, S, B = clocks.shape
-    want = {"clocks": (clocks, torch.float64, (P, S, B)),
-            "busy": (busy, torch.float64, (P, B)),
-            "seen": (seen, torch.bool, (P, B)),
-            "p": (p, torch.int64, (B,)),
-            "rt": (rt, torch.float64, (B,)),
-            "base": (base, torch.float64, (B,)),
-            "live": (live, torch.bool, (B,))}
+    want = {"clocks": (clocks, _F64, (P, S, B)),
+            "busy": (busy, _F64, (P, B)),
+            "seen": (seen, _BOOL, (P, B)),
+            "p": (p, _I64, (B,)),
+            "rt": (rt, _F64, (B,)),
+            "base": (base, _F64, (B,)),
+            "live": (live, _BOOL, (B,))}
     for name, (t, dtype, shape) in want.items():
         if t.device != clocks.device:
             raise DeviceError(f"{name} is on {t.device}, clocks on "
@@ -98,6 +160,35 @@ def _check(clocks, busy, seen, p, rt, base, live) -> None:
             raise DeviceError(f"{name} must be contiguous")
     if S < 1:
         raise DeviceError("clocks needs at least one slot")
+    if S >= 2 ** 31 or B >= MAX_LANES:
+        raise DeviceError(f"clocks {tuple(clocks.shape)} is too large for "
+                          f"the kernel")
+
+
+def takes(clocks, busy, seen, p, rt, base, live) -> bool:
+    """The fast form of :func:`check_operands`: True when the kernel takes
+    the operands (one device, the kernel's dtypes and shapes, contiguous,
+    at least one slot, sizes within the kernel's)."""
+    if clocks.dim() != 3:
+        return False
+    P, S, B = clocks.shape
+    pb, lane = (P, B), (B,)
+    dev = clocks.device
+    return (clocks.dtype is _F64 and busy.dtype is _F64
+            and seen.dtype is _BOOL and p.dtype is _I64
+            and rt.dtype is _F64 and base.dtype is _F64
+            and live.dtype is _BOOL
+            and busy.shape == pb and seen.shape == pb and p.shape == lane
+            and rt.shape == lane and base.shape == lane
+            and live.shape == lane
+            and busy.device == dev and seen.device == dev
+            and p.device == dev and rt.device == dev
+            and base.device == dev and live.device == dev
+            and clocks.is_contiguous() and busy.is_contiguous()
+            and seen.is_contiguous() and p.is_contiguous()
+            and rt.is_contiguous() and base.is_contiguous()
+            and live.is_contiguous()
+            and 1 <= S < 2 ** 31 and B < MAX_LANES)
 
 
 def step_commit(clocks: torch.Tensor, busy: torch.Tensor, seen: torch.Tensor,
@@ -109,24 +200,22 @@ def step_commit(clocks: torch.Tensor, busy: torch.Tensor, seen: torch.Tensor,
     CUDA tensors launch the Hopper kernel on the current stream (no
     synchronisation); CPU tensors run :func:`step_commit_ref`."""
     global LAUNCHES
-    if clocks.device.type == "cpu":
+    if not on_card("step_commit", clocks):
         return step_commit_ref(clocks, busy, seen, p, rt, base, live)
-    if clocks.device.type != "cuda":
-        raise DeviceError(f"step_commit has no kernel for device "
-                          f"{clocks.device}")
-    _check(clocks, busy, seen, p, rt, base, live)
+    if not takes(clocks, busy, seen, p, rt, base, live):
+        check_operands(clocks, busy, seen, p, rt, base, live)
+        raise DeviceError("step_commit: the kernel refuses these operands")
     P, S, B = clocks.shape
-    lib = _lib()
-    end = torch.empty(B, dtype=torch.float64, device=clocks.device)
-    stream = torch.cuda.current_stream(clocks.device).cuda_stream
-    rc = lib.step_commit_launch(
+    lib = _CACHED or step_library()
+    end = torch.empty_like(rt)
+    rc = lib.step_commit_launch(STEP_ARGS.pack(
         clocks.data_ptr(), busy.data_ptr(), seen.data_ptr(), p.data_ptr(),
         rt.data_ptr(), base.data_ptr(), live.data_ptr(), end.data_ptr(),
-        S, B, stream)
-    if rc != 0:
+        current_stream(clocks), S, B))
+    if rc:
         msg = lib.step_commit_error_string(rc).decode(errors="replace")
         raise DeviceError(f"step_commit kernel launch failed: {msg} "
                           f"(cudaError {rc}) at P={P} S={S} B={B}")
     LAUNCHES += 1
-    SHAPES[(P, S, B)] += 1
+    SHAPES[P, S, B] += 1
     return end

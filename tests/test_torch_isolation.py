@@ -59,6 +59,7 @@ def test_port_files_exist():
     assert (csrc / "flash_attention.cu").is_file()
     assert (csrc / "flash_attention_wgmma.cu").is_file()
     assert (csrc / "linear_attn.cu").is_file()
+    assert (csrc / "linear_attn_tc.cu").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

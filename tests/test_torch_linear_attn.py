@@ -16,15 +16,29 @@ bonus, f32 decay) are held to the JAX package's chunked form at 1e-2 on
 the bf16 output (above 2**-7, one bf16 ulp relative) and 2e-4 on the f32
 state.  The ``ValueError`` contract is checked beside the JAX kernel's.
 
-The kernel runs only on a card (``-m gpu``): it is held to its plain
-version there at ``chip_smoke.py``'s five cases, with the same
-tolerances, and refuses what it cannot take with ``DeviceError``.
+The sub-chunked kernel's arithmetic (``csrc/linear_attn_tc.cu``: the
+decay factored at sub-chunks of 16, the diagonal blocks pairwise, and on
+its bf16 route each decayed operand and incoming state split into bf16
+hi + lo, the scores into hi + mid + lo, for the tensor cores) is
+mirrored here in plain PyTorch and
+held to the JAX package's oracle and Pallas kernel at the tolerances
+above, under RWKV6's, strong and scalar decay; one bf16 rounding in its
+place misses them, which is why the kernel splits.  ``kernel_for``'s
+routing rule and the card route's packed arguments (through a stub
+library) are checked on the CPU too.
+
+The kernels run only on a card (``-m gpu``): they are held to their plain
+version there at ``chip_smoke.py``'s cases and at chunks 16 and 32, with
+the same tolerances, each call on the kernel ``kernel_for`` names, and
+refuse what they cannot take with ``DeviceError``.
 """
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch import DeviceError
+from repro_torch.kernels import build
 from repro_torch.kernels import linear_attn as la
 from repro_torch.kernels import ops, ref
 from repro_torch.models import linear_blocks as LB
@@ -85,11 +99,11 @@ def as_f32(x):
 @pytest.fixture
 def launches():
     """The wrapper's launch counters, cleared for the test."""
-    la.LAUNCHES.clear()
-    la.SHAPES.clear()
+    for counter in (la.LAUNCHES, la.SHAPES, la.VARIANTS):
+        counter.clear()
     yield la.LAUNCHES
-    la.LAUNCHES.clear()
-    la.SHAPES.clear()
+    for counter in (la.LAUNCHES, la.SHAPES, la.VARIANTS):
+        counter.clear()
 
 
 def port_version(impl, r, k, v, w, u, chunk, heads):
@@ -218,6 +232,324 @@ def test_bf16_rkv_f32_decay_matches_jax_chunked_form(route, jx):
                                atol=2e-4)
 
 
+# ------------------------------- the sub-chunked kernel's arithmetic ---
+
+def _rounded(x, rounding):
+    """``x`` as the kernel's products see it: f32 (``"f32"``), rounded to
+    bf16 once (``"bf16"``), or split into two or three bf16 terms
+    (``"split"``: hi + lo; ``"split3"``: hi + mid + lo)."""
+    if rounding == "f32":
+        return x
+    hi = x.to(torch.bfloat16).float()
+    if rounding == "bf16":
+        return hi
+    mid = (x - hi).to(torch.bfloat16).float()
+    if rounding == "split":
+        return hi + mid
+    return hi + mid + (x - hi - mid).to(torch.bfloat16).float()
+
+
+#: The kernel's roundings by route: (the decayed operands' and the
+#: state's, the scores' in scores.v).
+ROUTE_ROUNDING = {"float32": ("f32", "f32"), "bfloat16": ("split", "split3")}
+
+
+def subchunk_mirror(r, k, v, w, u, chunk, rounding="f32", pv_rounding=None,
+                    sub=16):
+    """``linear_attn_tc.cu``'s arithmetic in plain PyTorch, in f32:
+    running sums of log2 w per chunk; the diagonal ``sub x sub`` blocks of
+    the scores pairwise within each half, their second half's rows against
+    their first half's columns factored at the first half's last step,
+    with the bonus; each earlier block of a band the
+    product ``(R^ 2^(P_i - E_j)) K~_jᵀ``, where ``R^ = r 2^(a_exc - P_i)``
+    and ``K~ = k 2^(E_j - a_inc)`` (``P_i`` the running sum before band i,
+    ``E_j`` at band j's last step: every exponent <= 0); then per chunk
+    ``o = (R^ 2^P_i) S_c + scores v`` and ``S_{c+1} = 2^a_end S_c + (k
+    2^(a_end - a_inc))ᵀ v``.  ``rounding`` applies to both operands of
+    every product but ``v``'s (exact in bf16 on the bf16 route), and
+    ``pv_rounding`` (``rounding`` when None) to the scores in scores.v.
+    Returns ``(out in r's dtype, final f32 state)``."""
+    bh, t, dk = r.shape
+    dv, heads = v.shape[2], u.shape[0]
+    n, ns = t // chunk, chunk // sub
+    rf, kf, vf = (x.float().reshape(bh, n, chunk, -1) for x in (r, k, v))
+    uf = u.float().repeat(bh // heads, 1)[:, None, None, None, :]
+    a_inc = torch.cumsum(torch.log2(torch.clamp(w.float(), min=1e-30))
+                         .reshape(bh, n, chunk, dk), dim=2)
+    a_exc = F.pad(a_inc, (0, 0, 1, 0))[:, :, :-1]
+    ends = a_inc[:, :, sub - 1::sub]                  # E_j
+    prev = F.pad(ends, (0, 0, 1, 0))[:, :, :-1]       # P_i
+    band = torch.arange(chunk) // sub
+
+    def e2(x):
+        return torch.exp2(torch.clamp(x, max=0))
+
+    def rnd(x):
+        return _rounded(x, rounding)
+
+    def rnd_pv(x):
+        return _rounded(x, pv_rounding or rounding)
+
+    def blocks(x):
+        return x.reshape(bh, n, ns, sub, -1)
+
+    rb, kb = blocks(rf), blocks(kf)
+    pair = torch.einsum("bnitd,bnisd,bnitsd->bnits", rb, kb,
+                        e2(blocks(a_exc)[..., :, None, :]
+                           - blocks(a_inc)[..., None, :, :]))
+    # a band's second half against its first, factored at the first
+    # half's last step (f32 on either route)
+    half = sub // 2
+    mid = blocks(a_inc)[..., half - 1:half, :]
+    r_mid = rb[..., half:, :] * e2(blocks(a_exc)[..., half:, :] - mid)
+    k_mid = kb[..., :half, :] * e2(mid - blocks(a_inc)[..., :half, :])
+    pair[..., half:, :half] = r_mid @ k_mid.mT
+    diag = (pair * torch.tril(torch.ones(sub, sub), -1)
+            + torch.diag_embed((rb * uf * kb).sum(-1)))
+    r_hat = rf * e2(a_exc - prev[:, :, band])
+    k_til = kf * e2(ends[:, :, band] - a_inc)
+    scores = torch.zeros(bh, n, chunk, chunk)
+    for i in range(ns):
+        rows = slice(sub * i, sub * (i + 1))
+        scores[:, :, rows, rows] = diag[:, :, i]
+        for j in range(i):
+            cols = slice(sub * j, sub * (j + 1))
+            g = e2(prev[:, :, i] - ends[:, :, j])[:, :, None]
+            scores[:, :, rows, cols] = (rnd(r_hat[:, :, rows] * g)
+                                        @ rnd(k_til[:, :, cols]).mT)
+    r_dec = r_hat * e2(prev)[:, :, band]
+    a_end = a_inc[:, :, -1]
+    d_state = rnd(kf * e2(a_end[:, :, None] - a_inc)).mT @ vf
+    decay = e2(a_end)[..., None]
+    state = torch.zeros(bh, dk, dv)
+    outs = []
+    for c in range(n):
+        outs.append(rnd(r_dec[:, c]) @ rnd(state)
+                    + rnd_pv(scores[:, c]) @ vf[:, c])
+        state = torch.addcmul(d_state[:, c], decay[:, c], state)
+    return torch.stack(outs, 1).reshape(bh, t, dv).to(r.dtype), state
+
+
+def route_inputs(seed, decay, dtype, bh=4, t=128):
+    """Inputs at the sub-chunked route's widths (dk = dv = 64), two heads:
+    f32 numpy arrays (r, k, v, u rounded to bf16 first for the bf16
+    route), and the torch tensors in the route's types (w in f32)."""
+    if decay == "scalar":
+        arrays = scalar_decay_inputs(seed, bh, t, 64, 64)
+        arrays[4] = np.zeros((2, 64), np.float32)
+    else:
+        arrays = lin_inputs(seed, bh, 2, t, 64, 64,
+                            decay_strength=3.0 if decay == "strong" else 1.0)
+        if decay == "strong":
+            arrays[3] = np.minimum(arrays[3], 1e-6)
+    tensors = to_torch(arrays)
+    if dtype == "bfloat16":
+        for i in (0, 1, 2, 4):
+            tensors[i] = tensors[i].to(torch.bfloat16)
+            arrays[i] = tensors[i].float().numpy()
+    return arrays, tensors
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", ["rwkv", "strong", "scalar"])
+def test_subchunked_form_matches_jax_oracle(decay, dtype, chunk, jx):
+    """The kernel's factored form, in f32 (its f32 route) and with its
+    bf16 route's splits, within the file's tolerances of the JAX
+    oracle: 1e-2 on a bf16 output, 2e-4 on an f32 one (1e-3 under strong
+    decay);
+    the f32 state within 2e-4 (1e-3 under strong decay); never inf or
+    NaN."""
+    jnp, _, jref, _, _ = jx
+    arrays, tensors = route_inputs(40 + chunk, decay, dtype)
+    got, state = subchunk_mirror(*tensors, chunk, *ROUTE_ROUNDING[dtype])
+    want, want_state = jref.linear_attention_state(*to_jax(jnp, arrays))
+    strong = decay == "strong"
+    tol = 1e-2 if dtype == "bfloat16" else (1e-3 if strong else 2e-4)
+    stol = 1e-3 if strong else 2e-4
+    assert got.dtype == DTYPES[dtype]
+    assert torch.isfinite(got.float()).all() and torch.isfinite(state).all()
+    np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=tol, atol=tol)
+    np.testing.assert_allclose(as_f32(state), as_f32(want_state), rtol=stol,
+                               atol=stol)
+
+
+def test_subchunked_form_matches_pallas_kernel(jx):
+    """The f32 route's form against the Pallas kernel in interpret mode."""
+    jnp, jops, _, _, _ = jx
+    arrays, tensors = route_inputs(50, "rwkv", "float32", bh=2, t=64)
+    got, _ = subchunk_mirror(*tensors, 32)
+    want = jops.linear_attn(*to_jax(jnp, arrays), chunk=32, interpret=True)
+    np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_one_bf16_rounding_would_miss_the_tolerance():
+    """Why the bf16 route splits: rounding the decayed operands, scores
+    and state to bf16 once (as the flash kernel rounds P) puts the final
+    state outside 2e-4 of the recurrence; the kernel's splits keep it
+    inside."""
+    _, tensors = route_inputs(60, "rwkv", "bfloat16")
+    _, want_state = ref.linear_attention_state(*tensors)
+    for roundings, inside in ((("bf16", "bf16"), False),
+                              (ROUTE_ROUNDING["bfloat16"], True)):
+        _, state = subchunk_mirror(*tensors, 64, *roundings)
+        assert torch.allclose(state, want_state, rtol=2e-4,
+                              atol=2e-4) is inside, roundings
+
+
+@pytest.mark.parametrize("dtype,dk,dv,chunk,want", [
+    (torch.bfloat16, 64, 64, 64, "subchunk"),
+    (torch.float32, 64, 64, 64, "subchunk"),
+    (torch.bfloat16, 64, 64, 16, "subchunk"),
+    (torch.float32, 64, 64, 32, "subchunk"),
+    (torch.bfloat16, 64, 64, 8, "serial"),
+    (torch.float32, 64, 64, 128, "serial"),
+    (torch.bfloat16, 128, 64, 64, "serial"),
+    (torch.bfloat16, 64, 32, 64, "serial"),
+    (torch.float32, 16, 20, 7, "serial"),
+])
+def test_kernel_for_routes_by_width_and_chunk(dtype, dk, dv, chunk, want):
+    assert la.kernel_for(dtype, dk, dv, chunk) == want
+
+
+# ------------------------------- the card route's host side (CPU, stubs) ---
+
+class StubEntry:
+    """A C entry point: calls ``fn``; takes ``argtypes``/``restype`` as a
+    ctypes function does."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+class StubLibrary:
+    """A stand-in for a build of either source (entry points named by
+    ``prefix``): records each launch's unpacked argument block and
+    returns ``rc``; the sub-chunked one keeps ``per_chunk`` scratch floats
+    a chunk."""
+
+    def __init__(self, prefix, rc=0, args_bytes=la.LINEAR_ARGS.size,
+                 per_chunk=64 * 64 + 64):
+        self.calls = []
+
+        def launch(packed):
+            self.calls.append(la.LINEAR_ARGS.unpack(packed))
+            return rc
+
+        setattr(self, f"{prefix}_launch", StubEntry(launch))
+        setattr(self, f"{prefix}_args_bytes", StubEntry(lambda: args_bytes))
+        setattr(self, f"{prefix}_error_string",
+                StubEntry(lambda code: b"stub error"))
+        if prefix == "linear_attn_tc":
+            self.linear_attn_tc_scratch_floats_per_chunk = StubEntry(
+                lambda: per_chunk)
+
+
+@pytest.fixture
+def card_route(monkeypatch, launches):
+    """CPU tensors sent down the card route: ``on_card`` says yes, the
+    stream is the number 7, and both cached builds are bound stubs
+    (loading a real one fails the test)."""
+    stubs = {"subchunk": la.bind(StubLibrary("linear_attn_tc"),
+                                 "linear_attn_tc"),
+             "serial": la.bind(StubLibrary("linear_attn"), "linear_attn")}
+    monkeypatch.setattr(la, "on_card", lambda kernel, t: True)
+    monkeypatch.setattr(la, "current_stream", lambda t: 7)
+    monkeypatch.setattr(la, "_CACHED", dict(stubs))
+    monkeypatch.setattr(build, "load", lambda *a, **k: pytest.fail(
+        "a cached build was loaded"))
+    return stubs
+
+
+@pytest.mark.parametrize("shape,chunk,variant", [
+    ((4, 128, 64, 64), 64, "subchunk"), ((3, 42, 16, 20), 7, "serial")])
+def test_card_route_passes_the_packed_argument_block(shape, chunk, variant,
+                                                     card_route, launches):
+    """One launch of the routed kernel, one packed block, field for field:
+    the operands', output's and state's addresses, the scratch (the
+    sub-chunked kernel's, sized by ``scratch_floats``; 0 for the serial
+    kernel), the stream, then the sizes and dtype codes."""
+    bh, t, dk, dv = shape
+    r, k, v, w, u = to_torch(lin_inputs(3, bh, bh, t, dk, dv))
+    r, k, v, u = (x.to(torch.bfloat16) for x in (r, k, v, u))
+    out, state = la.linear_attention_state(r, k, v, w, u, chunk=chunk)
+    (args,) = card_route[variant].calls
+    other = "serial" if variant == "subchunk" else "subchunk"
+    assert not card_route[other].calls
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), out.data_ptr(), state.data_ptr())
+    assert args[:7] == ptrs
+    assert (args[7] != 0) == (variant == "subchunk")
+    assert args[8:] == (7, bh, t, dk, dv, bh, chunk, 1, 0, 1)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (bh, t, dv)
+    assert state.dtype == torch.float32 and tuple(state.shape) == (bh, dk,
+                                                                   dv)
+    assert dict(la.VARIANTS) == {variant: 1} and launches["linear_attn"] == 1
+    assert la.scratch_floats(card_route["subchunk"], bh, t,
+                             chunk) == bh * (t // chunk) * 4160
+
+
+def test_scratch_is_sized_by_the_library():
+    """The sub-chunked kernel's scratch is the size its build states
+    (read once, when bound), not a copy of its formula."""
+    lib = la.bind(StubLibrary("linear_attn_tc", per_chunk=10),
+                  "linear_attn_tc")
+    assert lib.scratch_floats_per_chunk == 10
+    assert la.scratch_floats(lib, 6, 128, 32) == 6 * 4 * 10
+
+
+def refused_operands():
+    """``(label, operands, chunk, message)`` for each operand the kernels
+    refuse, as CPU tensors."""
+    r, k, v, w, u = to_torch(lin_inputs(5, 2, 2, 64, 64, 64))
+    long = to_torch(lin_inputs(5, 2, 2, 128, 16, 16))
+    wide = to_torch(lin_inputs(5, 2, 2, 64, 192, 16))
+    return [
+        ("mixed dtypes", (r, k.bfloat16(), v, w, u), 64, "k is"),
+        ("not contiguous", (r.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v, w, u), 64, "contiguous"),
+        ("half precision", (r.half(), k.half(), v.half(), w, u), 64,
+         "float32 or bfloat16"),
+        ("serial chunk above 64", tuple(long), 128, "exceed"),
+        ("serial dk above 128", tuple(wide), 16, "exceed"),
+        ("u on another device", (r, k, v, w, u.to("meta")), 64, "is on"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(len(refused_operands())),
+                         ids=[c[0] for c in refused_operands()])
+def test_card_route_refuses_before_any_launch(case, card_route, launches):
+    """The fast check refuses exactly what ``check_operands`` names, as a
+    DeviceError, before any library is touched or any launch counted."""
+    _, operands, chunk, match = refused_operands()[case]
+    assert not la.takes(*operands, chunk)
+    with pytest.raises(DeviceError, match=match):
+        la.linear_attention_state(*operands, chunk=chunk)
+    assert not any(stub.calls for stub in card_route.values())
+    assert not launches and not la.VARIANTS
+
+
+def test_refused_launch_raises_and_counts_nothing(card_route, monkeypatch,
+                                                  launches):
+    monkeypatch.setitem(la._CACHED, "subchunk", la.bind(
+        StubLibrary("linear_attn_tc", rc=1), "linear_attn_tc"))
+    arrays = to_torch(lin_inputs(4, 2, 2, 64, 64, 64))
+    with pytest.raises(DeviceError, match="subchunk kernel launch failed"):
+        la.linear_attention(*arrays, chunk=64)
+    assert not launches and not la.VARIANTS
+
+
+def test_a_library_of_another_argument_layout_is_refused():
+    with pytest.raises(DeviceError, match="linear_attn_tc_args_bytes"):
+        la.bind(StubLibrary("linear_attn_tc",
+                            args_bytes=la.LINEAR_ARGS.size - 8),
+                "linear_attn_tc")
+
+
 # ------------------------------------------------------- error contract ---
 
 BAD_SHAPES = {    # (BH, T, dk, dv, H, chunk)
@@ -275,6 +607,11 @@ CARD_CASES = [
     ("scalar_decay_u0", (32, 512, 64, 64), "float32", "scalar", False, 64),
     ("f32", (32, 512, 64, 64), "float32", "rwkv", False, 64),
     ("odd_chunk", (3, 42, 16, 20), "float32", "rwkv", False, 7),
+    ("chunk16", (32, 512, 64, 64), "bfloat16", "rwkv", False, 16),
+    ("chunk32", (32, 512, 64, 64), "bfloat16", "rwkv", False, 32),
+    ("chunk16_strong_f32", (32, 512, 64, 64), "float32", "strong", False,
+     16),
+    ("chunk32_f32", (32, 512, 64, 64), "float32", "rwkv", False, 32),
 ]
 
 
@@ -304,6 +641,8 @@ def test_kernel_matches_plain_version_on_the_card(case, launches):
         got, state = la.linear_attention_state(r, k, v, w, u, chunk=chunk)
     torch.cuda.synchronize()
     assert launches["linear_attn"] == 1
+    assert la.VARIANTS == {la.kernel_for(r.dtype, shape[2], shape[3],
+                                         chunk): 1}
     want, want_state = ref.linear_attention_state(r, k, v, w, u)
     tol = 1e-2 if dtype == "bfloat16" else (1e-3 if decay == "strong"
                                              else 2e-4)
@@ -334,3 +673,28 @@ def test_kernel_refuses_what_it_cannot_take(launches):
     with pytest.raises(DeviceError):                     # u off the card
         la.linear_attention(r, k, v, w, u.cpu(), chunk=16)
     assert not launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_subchunk_kernel_reads_unaligned_operands(dtype, launches):
+    """Operands whose bases are off the vector loads' alignment (contiguous
+    views two bytes or four bytes in) take the kernel's element loads and
+    give the same result."""
+    card()
+    r, k, v, w, u = card_inputs(31, (8, 128, 64, 64), dtype, "rwkv")
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    got, state = la.linear_attention_state(
+        *(shifted(x) for x in (r, k, v, w)), u, chunk=64)
+    torch.cuda.synchronize()
+    assert la.VARIANTS == {"subchunk": 1}
+    want, want_state = ref.linear_attention_state(r, k, v, w, u)
+    tol = 1e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=2e-4, atol=2e-4)

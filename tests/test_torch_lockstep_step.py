@@ -8,15 +8,30 @@ transcription of the commit in ``tests/test_megabatch.py``.  Inputs are
 seeded numpy states with ties, all-``inf`` pools and dead lanes.  The
 kernel itself runs only on a card (``-m gpu``); JAX is imported only by
 the tests that run the Pallas kernel, so the card's tests need none.
+
+The kernel splits each lane's pool across a group of ``group_size(S)``
+threads and reduces their first-minima by an xor-shuffle tree; a plain
+numpy mirror of that arithmetic, thread for thread, is held bit for bit
+to ``step_commit_ref`` and to the numpy transcription at every group
+size, on states whose ties and NaNs sit in different threads of a group.
+The card route's host side (the packed argument block, the refusals) is
+driven with CPU tensors through a stub library.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import DeviceError
+from repro_torch.kernels import build
 from repro_torch.kernels import lockstep_step as ls
 
 SHAPES = [(3, 4, 16), (2, 64, 256), (4, 16, 256), (3, 5, 128), (1, 1, 8)]
+
+#: Pool depths across every group size the kernel compiles (1 to 32
+#: threads a lane), with S just below, at and above a warp.
+GROUP_DEPTHS = [1, 5, 16, 31, 32, 33, 64, 128]
 
 
 def seeded_state(seed, P, S, B):
@@ -34,6 +49,112 @@ def seeded_state(seed, P, S, B):
     base = rng.random(B)
     live = rng.random(B) < 0.75
     return clocks, busy, seen, p, rt, base, live
+
+
+def adversarial_state(seed, P, S, B):
+    """``seeded_state`` with, lane by lane in turn: two tied minima in
+    different threads of the lane's group, two NaNs in different threads
+    below a smaller number's slot, one NaN after the minimum, an all-+inf
+    pool, and a tie between a slot of thread 0 and the pool's last slot."""
+    clocks, busy, seen, p, rt, base, live = seeded_state(seed, P, S, B)
+    rng = np.random.default_rng(seed + 1)
+    G = ls.group_size(S)
+    for b in range(B):
+        col = clocks[p[b], :, b]
+        col[:] = rng.integers(2, 6, S).astype(np.float64)
+        kind = b % 5
+        if kind == 0 and S > 1:
+            j1 = int(rng.integers(0, S))
+            j2 = (j1 + 1 + int(rng.integers(0, S - 1))) % S   # another slot
+            if G > 1 and j1 % G == j2 % G:
+                j2 = (j1 + 1) % S
+            col[[j1, j2]] = 1.0
+        elif kind == 1 and S > 2:
+            col[S - 1] = 0.5
+            j1, j2 = sorted(rng.choice(S - 1, 2, replace=False))
+            col[[j1, j2]] = np.nan
+        elif kind == 2:
+            col[0] = 1.0
+            col[S - 1] = np.nan
+        elif kind == 3:
+            col[:] = np.inf
+        else:
+            col[[0, S - 1]] = 1.0
+    return clocks, busy, seen, p, rt, base, live
+
+
+def _before(v, i, w, j):
+    """The kernel's order of (value, slot) pairs: a NaN first (the lower
+    slot among NaNs), then the smaller value, then the lower slot."""
+    vn, wn = math.isnan(v), math.isnan(w)
+    if vn != wn:
+        return vn
+    if not vn and v != w:
+        return v < w
+    return i < j
+
+
+def _max_nan(a, b):
+    if math.isnan(a):
+        return a
+    if math.isnan(b):
+        return b
+    return a if a > b else b
+
+
+def group_mirror(state):
+    """The kernel's arithmetic in numpy, thread for thread: thread g of the
+    lane's group of ``G = group_size(S)`` keeps the first minimum of slots
+    g, g + G, ... under ``_before``; the xor tree (offsets G/2 .. 1) leaves
+    each thread the better of its pair and its partner's; thread 0
+    commits.  Returns ``[clocks, busy, seen, end]``."""
+    clocks, busy, seen, p, rt, base, live = (a.copy() for a in state)
+    P, S, B = clocks.shape
+    G = ls.group_size(S)
+    end = np.empty(B)
+    for b in range(B):
+        col = clocks[p[b], :, b]
+        best = []
+        for g in range(G):
+            v, i = math.inf, S
+            for j in range(g, S, G):
+                if _before(col[j], j, v, i):
+                    v, i = col[j], j
+            best.append((v, i))
+        off = G // 2
+        while off:
+            best = [best[g ^ off] if _before(*best[g ^ off], *best[g])
+                    else best[g] for g in range(G)]
+            off //= 2
+        tmin, s = best[0]
+        start = _max_nan(rt[b], tmin)
+        e = start + base[b]
+        end[b] = e
+        if live[b]:
+            clocks[p[b], s, b] = e
+            with np.errstate(invalid="ignore"):     # inf - inf: all-inf pool
+                busy[p[b], b] = busy[p[b], b] + (e - start)
+            seen[p[b], b] = True
+    return [clocks, busy, seen, end]
+
+
+def numpy_oracle(state):
+    """The direct numpy transcription of the commit, lane by lane (the
+    oracle of ``tests/test_megabatch.py``).  Returns ``[clocks, busy,
+    seen, end]``."""
+    clocks, busy, seen, p, rt, base, live = (a.copy() for a in state)
+    end = np.empty(len(p))
+    for li in range(len(p)):
+        cl = state[0][p[li], :, li]
+        s = int(np.argmin(cl))                  # first minimum
+        start = _max_nan(rt[li], cl[s])
+        end[li] = start + base[li]
+        if live[li]:
+            clocks[p[li], s, li] = end[li]
+            with np.errstate(invalid="ignore"):     # inf - inf: all-inf pool
+                busy[p[li], li] += end[li] - start
+            seen[p[li], li] = True
+    return [clocks, busy, seen, end]
 
 
 def run_ref(state):
@@ -90,6 +211,30 @@ def test_ref_matches_numpy_oracle(P, S, B):
         assert same_bits(oseen[:, li], want_seen)
 
 
+@pytest.mark.parametrize("S", GROUP_DEPTHS)
+def test_group_reduction_mirror_matches_ref_and_numpy_oracle(S):
+    """The kernel's split of a pool across its thread group gives the same
+    commit as the sequential scan, bit for bit, at every group size: on
+    seeded states and on states whose tied minima and NaNs sit in
+    different threads of a group, with all-+inf pools."""
+    for state in (seeded_state(S, 3, S, 37),
+                  adversarial_state(S + 100, 3, S, 40)):
+        got = group_mirror(state)
+        for want in (run_ref(state), numpy_oracle(state)):
+            for name, g, w in zip(("clocks", "busy", "seen", "end"), got,
+                                  want):
+                assert same_bits(g, w), (S, name)
+
+
+def test_group_sizes_cover_every_compiled_instance():
+    """``group_size`` is the power of two at or above S, capped at a warp;
+    the test depths reach every instance the source compiles."""
+    assert [ls.group_size(S) for S in (1, 2, 3, 4, 5, 16, 17, 32, 33, 999)] \
+        == [1, 2, 4, 4, 8, 16, 32, 32, 32, 32]
+    assert {ls.group_size(S) for S in GROUP_DEPTHS} == {1, 8, 16, 32}
+    assert {ls.group_size(S) for S in (2, 3)} == {2, 4}
+
+
 def test_all_inf_pool_gives_nan_busy_only_on_live_lanes():
     """The pool with no free slot: start = end = inf, busy turns NaN on a
     live lane (the scan flags such rows bad_row and discards the lane),
@@ -134,10 +279,12 @@ def test_wrapper_checks_reject_bad_arguments(field, bad):
             "rt": torch.zeros(8, dtype=torch.float64),
             "base": torch.zeros(8, dtype=torch.float64),
             "live": torch.zeros(8, dtype=torch.bool)}
-    ls._check(**args)
+    ls.check_operands(**args)
+    assert ls.takes(**args)
     args[field] = bad
+    assert not ls.takes(**args)
     with pytest.raises(DeviceError, match=field):
-        ls._check(**args)
+        ls.check_operands(**args)
 
 
 def test_wrapper_refuses_devices_without_a_kernel():
@@ -145,6 +292,99 @@ def test_wrapper_refuses_devices_without_a_kernel():
          for a in seeded_state(0, 2, 4, 8)]
     with pytest.raises(DeviceError, match="no kernel"):
         ls.step_commit(*t)
+
+
+# ------------------------------- the card route's host side (CPU, stubs) ---
+
+class StubEntry:
+    """A C entry point: calls ``fn``; takes ``argtypes``/``restype`` as a
+    ctypes function does."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+class StubLibrary:
+    """A stand-in for a build of ``lockstep_step.cu``: records each
+    launch's unpacked argument block and returns ``rc``; ``args_bytes`` is
+    the size of its packed arguments, ``group`` its thread group by S."""
+
+    def __init__(self, rc=0, args_bytes=ls.STEP_ARGS.size,
+                 group=ls.group_size):
+        self.calls = []
+
+        def launch(packed):
+            self.calls.append(ls.STEP_ARGS.unpack(packed))
+            return rc
+
+        self.step_commit_launch = StubEntry(launch)
+        self.step_commit_args_bytes = StubEntry(lambda: args_bytes)
+        self.step_commit_group = StubEntry(group)
+        self.step_commit_error_string = StubEntry(lambda rc: b"stub error")
+
+
+@pytest.fixture
+def card_route(monkeypatch):
+    """CPU tensors sent down the card route: ``on_card`` says yes, the
+    stream is the number 7, and the cached build is a bound stub (loading
+    the real one fails the test); the counters start at 0."""
+    stub = ls.bind(StubLibrary())
+    monkeypatch.setattr(ls, "on_card", lambda kernel, t: True)
+    monkeypatch.setattr(ls, "current_stream", lambda t: 7)
+    monkeypatch.setattr(ls, "_CACHED", stub)
+    monkeypatch.setattr(build, "load", lambda *a, **k: pytest.fail(
+        "the cached build was loaded"))
+    monkeypatch.setattr(ls, "LAUNCHES", 0)
+    monkeypatch.setattr(ls, "SHAPES", type(ls.SHAPES)())
+    return stub
+
+
+def test_card_route_passes_the_packed_argument_block(card_route):
+    """One launch, one packed block, field for field: the seven operands'
+    and ``end``'s addresses, the stream, then S and B; counted once by
+    shape."""
+    t = [torch.from_numpy(a.copy()) for a in seeded_state(4, 3, 40, 24)]
+    end = ls.step_commit(*t)
+    (args,) = card_route.calls
+    assert args == (*(x.data_ptr() for x in t), end.data_ptr(), 7, 40, 24)
+    assert end.dtype == torch.float64 and tuple(end.shape) == (24,)
+    assert ls.LAUNCHES == 1 and dict(ls.SHAPES) == {(3, 40, 24): 1}
+
+
+def test_card_route_refuses_before_any_launch(card_route):
+    """A refused operand raises DeviceError naming it, and nothing is
+    launched or counted."""
+    t = [torch.from_numpy(a.copy()) for a in seeded_state(5, 2, 8, 16)]
+    t[4] = t[4].float()                                  # rt in f32
+    with pytest.raises(DeviceError, match="rt must be"):
+        ls.step_commit(*t)
+    assert not card_route.calls and ls.LAUNCHES == 0 and not ls.SHAPES
+
+
+def test_refused_launch_raises_and_counts_nothing(card_route, monkeypatch):
+    """A launch the C entry refuses is a DeviceError with its message."""
+    monkeypatch.setattr(ls, "_CACHED", ls.bind(StubLibrary(rc=1)))
+    t = [torch.from_numpy(a.copy()) for a in seeded_state(6, 2, 8, 16)]
+    with pytest.raises(DeviceError, match="stub error"):
+        ls.step_commit(*t)
+    assert ls.LAUNCHES == 0 and not ls.SHAPES
+
+
+def test_a_library_of_another_argument_layout_is_refused():
+    """A build whose packed block differs in size is refused when bound."""
+    with pytest.raises(DeviceError, match="step_commit_args_bytes"):
+        ls.bind(StubLibrary(args_bytes=ls.STEP_ARGS.size - 8))
+
+
+def test_a_library_of_other_group_sizes_is_refused():
+    """A build whose thread groups differ from ``group_size`` (the
+    mirror the reduction is held to) is refused when bound."""
+    with pytest.raises(DeviceError, match=r"step_commit_group\(33\)"):
+        ls.bind(StubLibrary(group=lambda S: min(ls.group_size(S), 16)
+                            if S > 32 else ls.group_size(S)))
 
 
 @pytest.mark.gpu
@@ -162,3 +402,24 @@ def test_kernel_matches_plain_version_on_the_card(P, S, B):
     assert ls.LAUNCHES == before + 1
     for g, w in zip(dev[:3] + [end_dev], ref[:3] + [end_ref]):
         assert same_bits(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8, 16, 31, 32, 33, 64, 128,
+                               200])
+def test_kernel_at_every_group_size_on_the_card(S):
+    """Every compiled group size (1 to 32 threads a lane), on states whose
+    ties and NaNs sit in different threads of a group, bit for bit against
+    the plain version; the library's group is ``group_size``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert ls.step_library().step_commit_group(S) == ls.group_size(S)
+    for state in (seeded_state(S, 4, S, 16),
+                  adversarial_state(S + 7, 3, S, 77)):
+        ref = [torch.from_numpy(a.copy()).cuda() for a in state]
+        dev = [torch.from_numpy(a.copy()).cuda() for a in state]
+        end_ref = ls.step_commit_ref(*ref)
+        end_dev = ls.step_commit(*dev)
+        torch.cuda.synchronize()
+        for g, w in zip(dev[:3] + [end_dev], ref[:3] + [end_ref]):
+            assert same_bits(g.cpu().numpy(), w.cpu().numpy()), S
