@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's four paths on the card and holds every kernel on them
+Drives the port's five paths on the card and holds every kernel on them
 against its plain PyTorch version:
 
 * the co-design sweep (``repro_torch``: trace -> augmented task graph ->
@@ -10,6 +10,9 @@ against its plain PyTorch version:
   hand-written step-commit kernel (each lane's pool split across a group
   of up to 32 threads that reduce by warp shuffles), each result held
   against the port's exact host engine (``engine="batch"``);
+* the same sweep as a service (``repro_torch.serve.sweepd``): torch
+  requests over HTTP to a server on the card, eight at once, and the
+  CLI's server drained by SIGTERM;
 * the paper's tile accelerators (``csrc/tiles.cu``): Fig. 6's traditional
   build-and-run flow through a fresh build of the ``mxmBlock`` GEMM tile
   per candidate, and the Fig. 4 Cholesky through the dsyrk, dgemm and
@@ -63,25 +66,42 @@ Phases, one line each or more:
    agree with the batch engine's at ``TORCH_RTOL`` with the same best
    candidate, no engine demotion, kernel launches > 0 and lanes that went
    through the lockstep path;
-6. step_commit at every ``(P, S, B)`` the sweeps launched it at: kernel ==
-   plain version; per wrapper call and per bare launch by CUDA events
-   (two passes in turns), the device time of one bare launch behind a
-   device spin and by ``torch.profiler``'s rows, and the bound at each;
-7. a warm Cholesky sweep plain and under ``torch.profiler`` (device busy
+6. the sweep service, with the step-commit counts set to 0 just before
+   each torch request phase and read just after: (a) an in-process
+   ``SweepServer`` on the card answers one torch request over HTTP, the
+   matmul trace inline with its bs = 64 report, ``accs "1-100"`` (200
+   candidates), held ``rankings_equivalent`` to a ``batch`` request of
+   the same body, its ``timings`` beside the one-shot cold sweep's; (b)
+   eight concurrent clients of the Cholesky trace inline at ``accs
+   "1-8"`` (16 candidates) against a fresh server's ``max_concurrent =
+   4``: all 200, all equivalent to ``batch``, ``/healthz`` at 8 done, 0
+   errors, 0 demotions, latency p50/p99; (c) ``python -m
+   repro_torch.explore serve --device cuda`` in its own process answers
+   (b)'s body through ``client`` (the trace file sent inline), then
+   drains on SIGTERM with a second request in flight, which completes
+   with the same best, and exits 0; (d) (b)'s best design through
+   ``estimate`` (its makespan equal to ``batch``'s) and ``write_prv`` into
+   ``chiprun_out/sweepd/``, and its Gantt chart;
+7. step_commit at every ``(P, S, B)`` the sweeps and the service launched
+   it at: kernel == plain version; per wrapper call and per bare launch
+   by CUDA events (two passes in turns), the device time of one bare
+   launch behind a device spin and by ``torch.profiler``'s rows, and the
+   bound at each;
+8. a warm Cholesky sweep plain and under ``torch.profiler`` (device busy
    share, kernels per step, the costliest host operations);
-8. Fig. 6 at n = 512: the estimator (traces plus ``Explorer(engine=
+9. Fig. 6 at n = 512: the estimator (traces plus ``Explorer(engine=
    "torch")``) over the six traditional-flow candidates, then each
    candidate built afresh (seconds, registers, static shared memory and
    spills) and run; every product held to ``AA @ BB``;
-9. ``cholesky_via_tiles(512, 64, panel=16)``: exactly 28 syrk, 56
-   gemm_update and 28 trsm launches, ``UᵀU`` held to ``A``;
-10. each tile kernel's time per wrapper call and per bare launch at each
+10. ``cholesky_via_tiles(512, 64, panel=16)``: exactly 28 syrk, 56
+    gemm_update and 28 trsm launches, ``UᵀU`` held to ``A``;
+11. each tile kernel's time per wrapper call and per bare launch at each
     path shape by CUDA events, beside the one PyTorch call that computes
     the same function (the three timed twice in turns), its plain
     version's and its bound; and the device time of one bare launch and
     of one library call, from ``torch.profiler``'s kernel rows and from
     CUDA events around launches queued behind a device spin;
-11. serve qwen3-0.6b (full width, bf16, seed 0) through ``Engine(slots=
+12. serve qwen3-0.6b (full width, bf16, seed 0) through ``Engine(slots=
     4)``: 8 requests of 512-token prompts, 32 new tokens each, with the
     flash counts set to 0 just before and read just after (224 launches,
     all at the path shape, all on the ``wgmma`` kernel); prefill tokens/s
@@ -101,7 +121,7 @@ Phases, one line each or more:
     gated on the arch's f32 weights from the same seed: see
     ``ROUTE_ATOL``) and the self-check's forward padded to 576 by
     ``ops.linear_attn``;
-12. ``flash_attention`` at the path shape by CUDA events, per wrapper
+13. ``flash_attention`` at the path shape by CUDA events, per wrapper
     call and per bare launch of the ``wgmma`` kernel, beside the bare
     launch of the FMA kernel (the earlier design, its output held to the
     plain version first), its plain version,
@@ -115,7 +135,7 @@ Phases, one line each or more:
     the plain version first), beside its plain version and its bound (no
     single PyTorch call computes it), and again at the f32 case of the
     same shape, which is what ``kernel_for``'s route for f32 rests on;
-13. a ``kernels`` JSON line (launches on the paths, error against the
+14. a ``kernels`` JSON line (launches on the paths, error against the
     plain version, times and bound at the commonest path shape) and
     candidates/s lines.
 
@@ -125,11 +145,15 @@ exits non-zero.  Run: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -215,6 +239,13 @@ SERVE_MODELS = (
 #: difference is printed, not gated.
 ROUTE_ATOL = {"bfloat16": 0.1, "float32": 1e-3}
 SELFCHECK_TOL = 0.1
+
+#: The sweep-service phase: concurrent clients of (b) against the
+#: server's default ``max_concurrent`` (4), and where its files go (the
+#: trace and reports (c)'s client sends, and (d)'s Paraver files).
+SWEEPD_CLIENTS = 8
+SWEEPD_DIR = ROOT / "build" / "chip_smoke_sweepd"
+PARAVER_DIR = ROOT / "chiprun_out" / "sweepd"
 
 
 def phase(name: str, text: str) -> None:
@@ -1247,6 +1278,296 @@ def route_diff(torch, T, model, plain_impl, prompts, max_len):
     return err, float(want.abs().max())
 
 
+def inline_request(trace, reports, accs: str, engine: str,
+                   top_k: int) -> dict:
+    """A sweep request carrying ``trace`` and ``reports`` inline, as the
+    port's ``client`` sends a trace file.  The server keys each report by
+    its own ``(kernel, device_kind)``, so each entry carries its map key
+    (the matmul app's reports are named ``mxm_block64`` but keyed by the
+    traced ``mxm_block``)."""
+    return {"trace": "inline",
+            "events": [json.loads(e.to_json()) for e in trace.events],
+            "reports": [dict(dataclasses.asdict(r), kernel=kernel,
+                             device_kind=kind)
+                        for (kernel, kind), r in reports.items()],
+            "accs": accs, "engine": engine, "top_k": top_k,
+            "budget_s": 1800.0}
+
+
+def same_ranking(doc: dict, want: dict, rankings_equivalent, rtol) -> bool:
+    """``doc`` ranks as ``want`` (a ``batch`` answer) does at ``rtol``,
+    with the same best."""
+    spans = {t["name"]: t["makespan_s"] for t in want["top"]}
+    return doc["best"] == want["best"] and rankings_equivalent(
+        [t["name"] for t in doc["top"]], [t["name"] for t in want["top"]],
+        spans, rtol)
+
+
+def best_estimate(estimate, build_candidates, parse_accs, trace, reports,
+                  accs: str, want: dict):
+    """``want``'s (a ``batch`` answer's) best candidate through the
+    reference estimator on the caller's own ``trace`` and ``reports``:
+    ``(estimate, batch's makespan, the estimate's makespan)``, equal when
+    the server built the same graph."""
+    cand = next(c for c in build_candidates(reports, parse_accs(accs),
+                                            smp=True)
+                if c.name == want["best"])
+    est = estimate(trace, cand.system, reports, cand.eligibility)
+    span = {t["name"]: t["makespan_s"] for t in want["top"]}[cand.name]
+    return est, span, est.makespan_s
+
+
+def start_server(sweepd, **kw):
+    """An in-process sweep server on a free port, serving in a thread;
+    returns ``(service, server, base URL)``."""
+    svc = sweepd.SweepService(**kw)
+    httpd = sweepd.serve(svc, port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return svc, httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def sweepd_flow(torch, np, ls, device, mm_case, ch_case, one_shot,
+                failures):
+    """The sweep service on ``device``: (a) one torch request of
+    ``mm_case`` (``(label, trace, reports, accs)``) over HTTP to an
+    in-process server, held to a ``batch`` request of the same body; (b)
+    ``SWEEPD_CLIENTS`` concurrent torch clients of ``ch_case`` against a
+    fresh server with ``max_concurrent=4``; (c) ``python -m
+    repro_torch.explore serve`` in its own process, one request of (b)'s
+    body through ``client``, then SIGTERM while a second is in flight;
+    (d) (b)'s best candidate through ``estimate`` and ``write_prv``.  The
+    step-commit counts are set to 0 just before (a)'s and (b)'s torch
+    requests and read just after.  Every failed check is appended to
+    ``failures``.  ``one_shot`` is the earlier one-shot sweep of (a)'s
+    trace (its row), printed beside (a)."""
+    from repro_torch.core import ascii_gantt, estimate, write_prv
+    from repro_torch.core.replay import TORCH_RTOL, rankings_equivalent
+    from repro_torch.serve import sweepd
+    from repro_torch.serve.protocol import (build_candidates, get_json,
+                                            parse_accs, post_json)
+
+    def check(label, ok, detail):
+        if not ok:
+            failures.append(f"sweepd {label}: {detail}")
+        return ok
+
+    out = {"launches": {}, "shapes": Counter()}
+
+    def counted(run):
+        ls.LAUNCHES = 0
+        ls.SHAPES.clear()
+        got = run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return got, ls.LAUNCHES, Counter(ls.SHAPES)
+
+    # (a) one full-size torch request over HTTP
+    label_a, mm_tr, mm_rep, mm_accs = mm_case
+    body_a = inline_request(mm_tr, mm_rep, mm_accs, "torch",
+                            2 * len(parse_accs(mm_accs)))
+    _, httpd_a, url_a = start_server(sweepd, device=device)
+    try:
+        t0 = time.perf_counter()
+        (status, doc_a), launches, shapes = counted(
+            lambda: post_json(url_a + "/sweep", body_a, timeout=1900))
+        wall_a = time.perf_counter() - t0
+        status_b, want_a = post_json(url_a + "/sweep",
+                                     dict(body_a, engine="batch"),
+                                     timeout=1900)
+        ch_label, ch_tr, ch_rep, ch_accs = ch_case
+        body_b = inline_request(ch_tr, ch_rep, ch_accs, "torch",
+                                2 * len(parse_accs(ch_accs)))
+        status_bb, want_b = post_json(url_a + "/sweep",
+                                      dict(body_b, engine="batch"),
+                                      timeout=1900)
+    finally:
+        httpd_a.shutdown()
+        httpd_a.server_close()
+    out["launches"][label_a] = launches
+    out["shapes"].update(shapes)
+    ok_a = (check("a", status == status_b == status_bb == 200,
+                  f"HTTP {status} / {status_b} / {status_bb}")
+            and check("a", doc_a["engine_final"] == "torch"
+                      and not doc_a["failed"]
+                      and doc_a["faults"]["engine_demotions"] == 0,
+                      "demoted or failed candidates")
+            and check("a", same_ranking(doc_a, want_a, rankings_equivalent,
+                                        TORCH_RTOL),
+                      "the torch ranking differs from batch's"))
+    check("a", launches > 0, "no step_commit launch")
+    if status_b == 200:
+        span, est_span = best_estimate(estimate, build_candidates,
+                                       parse_accs, mm_tr, mm_rep, mm_accs,
+                                       want_a)[1:]
+        check("a", est_span == span, f"batch's best makespan {span} is "
+              f"not the estimate's {est_span}")
+    n_a = doc_a.get("candidates", 0)
+    row_a = {"request": label_a, "candidates": n_a,
+             "best": doc_a.get("best"), "batch_best": want_a.get("best"),
+             "launches": launches, "timings": doc_a.get("timings"),
+             "client_wall_s": wall_a,
+             "cand_per_s": n_a / doc_a["timings"]["sweep_s"] if ok_a else None,
+             "one_shot": {"sweep": one_shot["sweep"],
+                          "torch_s": one_shot["torch_s"],
+                          "torch_cand_per_s": one_shot["torch_cand_per_s"]},
+             "batch_timings": want_a.get("timings"), "ok": ok_a}
+    phase("sweepd", json.dumps(row_a))
+
+    # (b) concurrent torch clients against max_concurrent = 4
+    svc_b, httpd_b, url_b = start_server(sweepd, device=device,
+                                         max_concurrent=4)
+    try:
+        results, lat = [None] * SWEEPD_CLIENTS, [0.0] * SWEEPD_CLIENTS
+
+        def client(i):
+            t = time.perf_counter()
+            results[i] = post_json(url_b + "/sweep", body_b, timeout=1900)
+            lat[i] = time.perf_counter() - t
+
+        def run_clients():
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(SWEEPD_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        t0 = time.perf_counter()
+        _, launches, shapes = counted(run_clients)
+        wall_b = time.perf_counter() - t0
+        _, health = get_json(url_b + "/healthz")
+    finally:
+        httpd_b.shutdown()
+        httpd_b.server_close()
+    out["launches"][ch_label] = launches
+    out["shapes"].update(shapes)
+    statuses = [r[0] for r in results]
+    ok_b = (check("b", statuses == [200] * SWEEPD_CLIENTS,
+                  f"statuses {statuses}")
+            and check("b", all(same_ranking(d, want_b, rankings_equivalent,
+                                            TORCH_RTOL)
+                               and d["engine_final"] == "torch"
+                               for _, d in results),
+                      "a client's ranking differs from batch's"))
+    reqs = health["requests"]
+    check("b", reqs["done"] == SWEEPD_CLIENTS and reqs["errors"] == 0
+          and health["faults"]["engine_demotions"] == 0,
+          f"/healthz {reqs}, {health['faults']}")
+    check("b", launches > 0, "no step_commit launch")
+    n_b = SWEEPD_CLIENTS * 2 * len(parse_accs(ch_accs))
+    p50, p99 = np.percentile(lat, [50, 99])
+    phase("sweepd", json.dumps({
+        "request": ch_label, "clients": SWEEPD_CLIENTS,
+        "max_concurrent": svc_b.max_concurrent, "statuses": statuses,
+        "best": results[0][1].get("best"), "batch_best": want_b["best"],
+        "launches": launches, "wall_s": wall_b, "cand_per_s": n_b / wall_b,
+        "latency_p50_s": p50, "latency_p99_s": p99, "latency_s": lat,
+        "sweep_s": [d.get("timings", {}).get("sweep_s")
+                    for _, d in results],
+        "queue_s": [d.get("timings", {}).get("queue_s")
+                    for _, d in results],
+        "healthz_requests": reqs,
+        "healthz_demotions": health["faults"]["engine_demotions"],
+        "ok": ok_b}))
+
+    # (c) the CLI's server in its own process, drained by SIGTERM
+    SWEEPD_DIR.mkdir(parents=True, exist_ok=True)
+    trace_path = SWEEPD_DIR / f"{ch_label}.jsonl"
+    reports_path = SWEEPD_DIR / f"{ch_label}_reports.json"
+    ch_tr.save(str(trace_path))
+    reports_path.write_text(json.dumps(body_b["reports"]))
+    err_path = SWEEPD_DIR / "server.err"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = [sys.executable, "-m", "repro_torch.explore"]
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        server = subprocess.Popen(cli + ["serve", "--port", "0", "--device",
+                                         device], stderr=err, env=env,
+                                  cwd=str(ROOT))
+    second = None
+    try:
+        url = None
+        while url is None and server.poll() is None \
+                and time.perf_counter() - t0 < 300:
+            words = err_path.read_text().split()
+            if "listening" in words:
+                url = words[words.index("listening") + 2]
+            else:
+                time.sleep(0.05)
+        if url is None:
+            raise SystemExit("sweepd (c): the server never listened: "
+                             + err_path.read_text()[-2000:])
+        start_s = time.perf_counter() - t0
+        client_cmd = cli + ["client", "--url", str(url), str(trace_path),
+                            "--reports", str(reports_path), "--accs",
+                            ch_accs, "--top-k", str(len(want_b["top"])),
+                            "--budget", "1800"]
+        t1 = time.perf_counter()
+        first = subprocess.run(client_cmd, capture_output=True, text=True,
+                               timeout=1900, env=env, cwd=str(ROOT))
+        first_s = time.perf_counter() - t1
+        doc_c = json.loads(first.stdout) if first.returncode == 0 else {}
+        check("c", first.returncode == 0 and same_ranking(
+            doc_c, want_b, rankings_equivalent, TORCH_RTOL),
+            f"client exit {first.returncode}: {first.stderr[-2000:]}")
+        second = subprocess.Popen(client_cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True,
+                                  env=env, cwd=str(ROOT))
+        in_flight = False
+        while not in_flight and second.poll() is None \
+                and time.perf_counter() - t1 < 600:
+            in_flight = get_json(url + "/healthz")[1][
+                "requests"]["running"] >= 1
+        server.send_signal(signal.SIGTERM)
+        out2, err2 = second.communicate(timeout=1900)
+        rc = server.wait(timeout=300)
+        doc_c2 = json.loads(out2) if second.returncode == 0 else {}
+        drain = [line for line in err_path.read_text().splitlines()
+                 if line.startswith("sweepd: drained")]
+        ok_c = (check("c", in_flight, "SIGTERM found no request in flight")
+                and check("c", second.returncode == 0 and same_ranking(
+                    doc_c2, want_b, rankings_equivalent, TORCH_RTOL),
+                    f"in-flight client exit {second.returncode}: "
+                    f"{err2[-2000:]}")
+                and check("c", rc == 0 and drain == [
+                    "sweepd: drained (2 request(s) served, 0 order "
+                    "payload(s) flushed)"],
+                    f"server exit {rc}: {err_path.read_text()[-2000:]}"))
+    finally:
+        for proc in (second, server):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    phase("sweepd", json.dumps({
+        "request": f"{ch_label}_cli", "server_start_s": start_s,
+        "client_s": first_s, "best": doc_c.get("best"),
+        "in_flight_best": doc_c2.get("best"), "in_flight_at_sigterm":
+        in_flight, "server_exit": rc, "drain_line": drain, "ok": ok_c}))
+
+    # (d) the best design of (b) as a Paraver trace
+    est, span, _ = best_estimate(estimate, build_candidates, parse_accs,
+                                 ch_tr, ch_rep, ch_accs, want_b)
+    cand_name = want_b["best"]
+    PARAVER_DIR.mkdir(parents=True, exist_ok=True)
+    prefix = str(PARAVER_DIR / f"{ch_label}_{cand_name}")
+    prv = write_prv(est.sim, prefix)
+    sizes = {ext: os.path.getsize(prefix + ext)
+             for ext in (".prv", ".row", ".pcf")}
+    with open(prv) as f:
+        header = f.readline()
+    ok_d = check("d", header.startswith("#Paraver") and all(sizes.values())
+                 and est.makespan_s == span,
+                 f"header {header!r}, sizes {sizes}, makespan "
+                 f"{est.makespan_s} against batch's {span}")
+    phase("sweepd", json.dumps({
+        "paraver": os.path.relpath(prv, ROOT), "candidate": cand_name,
+        "bytes": sizes, "records": sum(1 for _ in open(prv)) - 1,
+        "makespan_s": est.makespan_s, "batch_makespan_s": span,
+        "ok": ok_d}))
+    print(ascii_gantt(est.sim, width=96, max_rows=12), flush=True)
+    return out
+
+
 def serve_flow(torch, np, configs, T, engine, counters, model_spec,
                failures):
     """Serve ``SERVE``'s traffic with ``model_spec``'s arch on the card at
@@ -1638,7 +1959,21 @@ def main() -> int:
     sweep("matmul512_200_top5_prune", mm_tr, mm_rep, mm_a9, mm_cands,
           top_k=5, prune=True)
 
-    # 6. the kernel at the shapes the sweeps launched it at: kernel ==
+    # 6. the sweep service on the card: the matmul trace's 200 candidates
+    # in one request (its bs = 64 report: the trace's blocks are 64), then
+    # eight concurrent Cholesky clients, the CLI's server drained by
+    # SIGTERM, and the Paraver export; its launches count with the sweeps'
+    failures = []
+    served = sweepd_flow(
+        torch, np, ls, "cuda",
+        ("sweepd_matmul512_200_torch", mm_tr,
+         {key: r for key, r in mm_rep.items() if key[1] == "fpga:mxm64"},
+         "1-100"),
+        ("sweepd_cholesky512_16_8clients", ch_tr, ch_rep, "1-8"),
+        sweeps[0], failures)
+    path_shapes.update(served["shapes"])
+
+    # 7. the kernel at the shapes the sweeps launched it at: kernel ==
     # plain version at each, times at each (and at the first check shape,
     # for comparison), the line's at the commonest
     shapes = [sh for sh, _ in path_shapes.most_common()]
@@ -1669,7 +2004,8 @@ def main() -> int:
         "name": "step_commit", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lockstep_step.cu",
         "replaces": "src/repro/kernels/lockstep_step.py:67",
-        "launches": sum(s["launches"] for s in sweeps),
+        "launches": sum(s["launches"] for s in sweeps)
+        + sum(served["launches"].values()),
         "max_abs_err": worst_err,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": "bytes",
@@ -1679,11 +2015,12 @@ def main() -> int:
         "queued_enqueue_us": top["queued_enqueue_us"],
         "queued_spin_us": top["queued_spin_us"], "group": top["group"],
         "timed_shape": top["shape"],
-        "launches_by_sweep": {s["sweep"]: s["launches"] for s in sweeps},
+        "launches_by_sweep": {**{s["sweep"]: s["launches"]
+                                 for s in sweeps}, **served["launches"]},
         "by_shape": by_shape,
     }
 
-    # 7. where a warm sweep's time goes on the card
+    # 8. where a warm sweep's time goes on the card
     prof = profile_sweep(torch, Explorer, ch_tr, ch_rep, ch_a9, ch_cands,
                          libs[("cholesky512_48_cold", "torch")], ls)
     phase("profile", json.dumps({"sweep": "cholesky512_48_warm", **prof}))
@@ -1692,20 +2029,19 @@ def main() -> int:
         f"({s['launches_per_s']:.0f} steps/s), batch "
         f"{s['batch_cand_per_s']:.1f} cand/s" for s in sweeps))
 
-    # 8. Fig. 6: the estimator against build-and-run, fresh builds
+    # 9. Fig. 6: the estimator against build-and-run, fresh builds
     fig6 = fig6_flow(torch, np, mm, Explorer, a9_smp_seconds, tr, bm, ls)
     phase("fig6 summary", json.dumps(fig6))
 
-    # 9. the Fig. 4 Cholesky through the tiles
+    # 10. the Fig. 4 Cholesky through the tiles
     chol = cholesky_flow(torch, np, tr, bm, ct)
 
-    # 10. the tile kernels' times at the path shapes
+    # 11. the tile kernels' times at the path shapes
     rows = time_tiles(torch, cases, tile_errs)
 
-    # 11. the LM serve path at full width, qwen3-0.6b then rwkv6-1.6b (the
+    # 12. the LM serve path at full width, qwen3-0.6b then rwkv6-1.6b (the
     # first model freed before the second is built); each kernel's counts
     # of its served run
-    failures = []
     serve = serve_flow(torch, np, configs, T, engine, fa, SERVE_MODELS[0],
                        failures)
     gc.collect()
@@ -1715,7 +2051,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 12. the flash and linear-attention kernels' times at the path shapes
+    # 13. the flash and linear-attention kernels' times at the path shapes
     frow = time_flash(torch, F, fa, ref, fcases[0])
     flash = {
         "name": "flash_attention", "route": "cuda",
@@ -1774,7 +2110,7 @@ def main() -> int:
             "event_ms_by_pass")},
     }
 
-    # 13. the kernels line
+    # 14. the kernels line
     print(json.dumps({"kernels": [kern] + tile_kernel_rows(rows, fig6, chol)
                       + [flash, linear]}))
     if failures:

@@ -1,7 +1,8 @@
 # The paper's primary contribution — the coarse-grain heterogeneous
 # performance-estimation toolchain: task tracing, HLS-analogue cost reports,
-# trace augmentation, the dataflow runtime simulator and co-design
-# exploration, with the candidate-axis engine on the card (torchsim).
+# trace augmentation, the dataflow runtime simulator, co-design
+# exploration, with the candidate-axis engine on the card (torchsim), and
+# timeline export.
 from .regions import Access, Direction, Region, region_of
 from .taskgraph import Task, TaskGraph
 from .trace import Trace, TraceEvent, Tracer, task
@@ -24,6 +25,7 @@ from .estimator import (PerfEstimate, contention_time_model, estimate,
 from .explore import (Axis, CacheStats, Candidate, CandidateOutcome,
                       DesignSpace, ENGINE_NAMES, ExplorationResult, Explorer,
                       explore, hillclimb, lower_bound_seconds, parallel_map)
+from .paraver import ascii_gantt, write_prv
 
 __all__ = [
     "Access", "Direction", "Region", "region_of",
@@ -45,4 +47,5 @@ __all__ = [
     "Axis", "CacheStats", "Candidate", "CandidateOutcome", "DesignSpace",
     "ENGINE_NAMES", "ExplorationResult", "Explorer", "explore", "hillclimb",
     "lower_bound_seconds", "parallel_map",
+    "ascii_gantt", "write_prv",
 ]

@@ -49,6 +49,7 @@ or launch.  The CPU runs the engine only when asked (``device="cpu"``).
 from __future__ import annotations
 
 import collections
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -280,6 +281,35 @@ def _bad_rows(fg: FrozenGraph, kind_pool: Sequence[int]) -> np.ndarray:
 # replay library's per-key order cap).
 _XS_CACHE_CAP = 32
 
+#: Guards the engine's shared caches: the per-FrozenGraph memos
+#: (``fg._torch_caps``, ``fg._torch_xs``) and :data:`_DEV_XS_CACHE`,
+#: which sweeps in several threads of one process share.  The lock
+#: covers each lookup, eviction and insertion, never the work that builds
+#: an entry, so two threads that miss on one key may both build it and
+#: the second insert wins.
+_CACHE_LOCK = threading.Lock()
+
+
+def _memo_get(fg: FrozenGraph, attr: str, key: Tuple):
+    """``fg``'s memo ``attr`` at ``key``, or None."""
+    with _CACHE_LOCK:
+        cache = getattr(fg, attr, None)
+        return None if cache is None else cache.get(key)
+
+
+def _memo_put(fg: FrozenGraph, attr: str, key: Tuple, value):
+    """Store ``value`` in ``fg``'s memo ``attr`` (created on first use,
+    oldest entry evicted at :data:`_XS_CACHE_CAP`); returns ``value``."""
+    with _CACHE_LOCK:
+        cache = getattr(fg, attr, None)
+        if cache is None:
+            cache = {}
+            setattr(fg, attr, cache)
+        if key not in cache and len(cache) >= _XS_CACHE_CAP:
+            cache.pop(next(iter(cache)))
+        cache[key] = value
+    return value
+
 
 def _pool_caps(fg: FrozenGraph, order: Sequence[int],
                kind_pool: Sequence[int], P: int) -> np.ndarray:
@@ -292,11 +322,8 @@ def _pool_caps(fg: FrozenGraph, order: Sequence[int],
     free slot, and every slot starts free), so a pool that receives at
     most ``m`` dispatches can never touch slot ``m`` or beyond.  Memoised
     per (order, kind_pool) beside :func:`_group_xs`."""
-    cache = getattr(fg, "_torch_caps", None)
-    if cache is None:
-        cache = fg._torch_caps = {}
     ckey = (tuple(order), tuple(kind_pool), P)
-    cached = cache.get(ckey)
+    cached = _memo_get(fg, "_torch_caps", ckey)
     if cached is not None:
         return cached
     (_uids, _ci, _cond, dev_first, dev_opts, _asets, _costs, _succs,
@@ -307,10 +334,7 @@ def _pool_caps(fg: FrozenGraph, order: Sequence[int],
             p = kind_pool[k]
             if p >= 0:
                 cap[p] += 1
-    if len(cache) >= _XS_CACHE_CAP:
-        cache.pop(next(iter(cache)))
-    cache[ckey] = cap
-    return cap
+    return _memo_put(fg, "_torch_caps", ckey, cap)
 
 
 def _group_xs(fg: FrozenGraph, order: Sequence[int],
@@ -322,11 +346,8 @@ def _group_xs(fg: FrozenGraph, order: Sequence[int],
     lists (pad = ``n``, a dummy ready row — remapped to the megabatch dummy
     by :func:`_scan_cohorts`).  Memoised on the FrozenGraph; dropped on
     pickling."""
-    cache = getattr(fg, "_torch_xs", None)
-    if cache is None:
-        cache = fg._torch_xs = {}
     ckey = (tuple(order), tuple(kind_pool))
-    cached = cache.get(ckey)
+    cached = _memo_get(fg, "_torch_xs", ckey)
     if cached is not None:
         return cached
     (uids, ci, cond, dev_first, dev_opts, asets, costs, succs,
@@ -372,16 +393,13 @@ def _group_xs(fg: FrozenGraph, order: Sequence[int],
     # the rest so no masked-out lane arithmetic can produce a NaN
     np.nan_to_num(xs["own_cost"], copy=False)
     np.nan_to_num(xs["par_cost"], copy=False)
-    if len(cache) >= _XS_CACHE_CAP:
-        cache.pop(next(iter(cache)))
-    cache[ckey] = xs
-    return xs
+    return _memo_put(fg, "_torch_xs", ckey, xs)
 
 
 # Lane-aligned device blocks, memoised across _scan_cohorts calls: keyed by
 # device, content (per-cohort graph hash × order × pool template),
 # megabatch dims and the slice's cohort-index vector.  The cap bounds
-# residency, LRU evicts.
+# residency, LRU evicts; _CACHE_LOCK guards it.
 _DEV_XS_CACHE: "collections.OrderedDict[Tuple, Tuple]" = \
     collections.OrderedDict()
 _DEV_XS_CACHE_CAP = 16
@@ -557,21 +575,24 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
         """Step inputs gathered per lane (``[T, B, ...]``; successors
         ``[T, SC, B]``) on ``device``, memoised per cohort-index vector."""
         key = (base_key, g_np.tobytes())
-        hit = _DEV_XS_CACHE.get(key)
-        if hit is None:
-            mega = _mega()
-            xs_d = {}
-            for k, v in mega.items():
-                lanes = v[:, :, g_np] if k == "succ" else v[:, g_np]
-                xs_d[k] = torch.from_numpy(
-                    np.ascontiguousarray(lanes)).to(device)
-            hit = (xs_d, torch.from_numpy(kind_pool_m[g_np]).to(device),
-                   torch.from_numpy(smp_kid_m[g_np]).to(device))
-            if len(_DEV_XS_CACHE) >= _DEV_XS_CACHE_CAP:
+        with _CACHE_LOCK:
+            hit = _DEV_XS_CACHE.get(key)
+            if hit is not None:
+                _DEV_XS_CACHE.move_to_end(key)
+                return hit
+        mega = _mega()
+        xs_d = {}
+        for k, v in mega.items():
+            lanes = v[:, :, g_np] if k == "succ" else v[:, g_np]
+            xs_d[k] = torch.from_numpy(
+                np.ascontiguousarray(lanes)).to(device)
+        hit = (xs_d, torch.from_numpy(kind_pool_m[g_np]).to(device),
+               torch.from_numpy(smp_kid_m[g_np]).to(device))
+        with _CACHE_LOCK:
+            if key not in _DEV_XS_CACHE \
+                    and len(_DEV_XS_CACHE) >= _DEV_XS_CACHE_CAP:
                 _DEV_XS_CACHE.popitem(last=False)
             _DEV_XS_CACHE[key] = hit
-        else:
-            _DEV_XS_CACHE.move_to_end(key)
         return hit
 
     for sl, S_sl in slices:

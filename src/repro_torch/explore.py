@@ -11,8 +11,14 @@ ramp, pick an engine, dump the ranking.  This module is that glue, once:
 
 The default engine is ``torch`` on ``--device cuda``: without a card it
 exits with an error (``--device cpu`` runs the torch engine on the
-host, ``--engine batch`` the exact numpy engine).  The sweep service's
-``serve`` and ``client`` subcommands are not ported yet and are refused.
+host, ``--engine batch`` the exact numpy engine).
+
+Two subcommands wrap the same machinery as a long-lived service
+(:mod:`repro_torch.serve.sweepd` — warm caches, admission control,
+coalescing), its torch-engine requests on the server's ``--device``:
+
+    python -m repro_torch.explore serve --port 8787 --cache-dir .sweeps
+    python -m repro_torch.explore client synth:40 --top-k 3
 
 The positional trace is either a JSONL file written by
 :meth:`repro_torch.core.trace.Trace.save` or ``synth:N`` — the deterministic
@@ -76,15 +82,19 @@ def _build_candidates(reports: Dict[Tuple[str, str], KernelReport],
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in ("serve", "client"):
-        print(f"error: the {argv[0]!r} subcommand (the sweep service) is "
-              f"not ported to repro_torch yet; use "
-              f"'python -m repro.explore {argv[0]}'", file=sys.stderr)
-        return 2
+    # service subcommands ride the same entry point; lazy import keeps the
+    # one-shot path free of the server machinery
+    if argv and argv[0] == "serve":
+        from .serve.sweepd import main as serve_main
+        return serve_main(argv[1:])
+    if argv and argv[0] == "client":
+        from .serve.sweepd import client_main
+        return client_main(argv[1:])
 
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.explore",
-        description="Rank co-design candidates for one trace.")
+        description="Rank co-design candidates for one trace "
+                    "(subcommands: serve, client).")
     ap.add_argument("trace", help="Trace JSONL (Trace.save) or synth:N")
     ap.add_argument("--reports", metavar="PATH",
                     help="JSON list of kernel cost reports "

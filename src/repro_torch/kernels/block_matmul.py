@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
+import threading
 from collections import Counter
 from typing import Dict, Optional
 
@@ -40,6 +41,10 @@ LAUNCHES: Counter = Counter()
 
 #: The same launches by ``(wrapper, M, N, K, dtype)``; cleared with it.
 SHAPES: Counter = Counter()
+
+#: Makes each launch's update of ``LAUNCHES`` and ``SHAPES`` one step for
+#: threads that launch at once.
+COUNT_LOCK = threading.Lock()
 
 SOURCE = "tiles.cu"
 
@@ -63,25 +68,27 @@ _CACHED: Optional[ctypes.CDLL] = None
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``tiles.cu``) with its entry points' argument
-    types declared; marked on the object, so each library is bound once."""
-    if not getattr(lib, "_repro_torch_bound", False):
-        for name in ("tiles_gemm_launch", "tiles_trsm_launch"):
-            getattr(lib, name).argtypes = [ctypes.c_char_p]
-            getattr(lib, name).restype = ctypes.c_int
-        for name, packed in (("tiles_gemm_args_bytes", GEMM_ARGS),
-                             ("tiles_trsm_args_bytes", TRSM_ARGS)):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-            if getattr(lib, name)() != packed.size:
-                raise DeviceError(f"{name}() is {getattr(lib, name)()}, "
-                                  f"but {packed.size} bytes are packed")
-        lib.tiles_trsm_fits.argtypes = [ctypes.c_int]
-        lib.tiles_trsm_fits.restype = ctypes.c_int
-        lib.tiles_tile_edge.argtypes = []
-        lib.tiles_tile_edge.restype = ctypes.c_int
-        lib.tiles_error_string.argtypes = [ctypes.c_int]
-        lib.tiles_error_string.restype = ctypes.c_char_p
-        lib._repro_torch_bound = True
+    types declared; marked on the object under :data:`build.BIND_LOCK`,
+    so each library is bound once."""
+    with build.BIND_LOCK:
+        if not getattr(lib, "_repro_torch_bound", False):
+            for name in ("tiles_gemm_launch", "tiles_trsm_launch"):
+                getattr(lib, name).argtypes = [ctypes.c_char_p]
+                getattr(lib, name).restype = ctypes.c_int
+            for name, packed in (("tiles_gemm_args_bytes", GEMM_ARGS),
+                                 ("tiles_trsm_args_bytes", TRSM_ARGS)):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = ctypes.c_int
+                if getattr(lib, name)() != packed.size:
+                    raise DeviceError(f"{name}() is {getattr(lib, name)()}, "
+                                      f"but {packed.size} bytes are packed")
+            lib.tiles_trsm_fits.argtypes = [ctypes.c_int]
+            lib.tiles_trsm_fits.restype = ctypes.c_int
+            lib.tiles_tile_edge.argtypes = []
+            lib.tiles_tile_edge.restype = ctypes.c_int
+            lib.tiles_error_string.argtypes = [ctypes.c_int]
+            lib.tiles_error_string.restype = ctypes.c_char_p
+            lib._repro_torch_bound = True
     return lib
 
 
@@ -204,8 +211,9 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
     out = torch.empty(m, n, dtype=out_dtype, device=a.device)
     launch_gemm(lib, a, b, None, out, m, n, k, trans_a=False,
                 what="block_matmul")
-    LAUNCHES["block_matmul"] += 1
-    SHAPES["block_matmul", m, n, k, a.dtype] += 1
+    with COUNT_LOCK:
+        LAUNCHES["block_matmul"] += 1
+        SHAPES["block_matmul", m, n, k, a.dtype] += 1
     return out
 
 
@@ -226,6 +234,7 @@ def gemm_update_tile(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(c)
     launch_gemm(tiles_library(), b, a, c, out, M, N, K, trans_a=True,
                 what="gemm_update")
-    LAUNCHES["gemm_update"] += 1
-    SHAPES["gemm_update", M, N, K, a.dtype] += 1
+    with COUNT_LOCK:
+        LAUNCHES["gemm_update"] += 1
+        SHAPES["gemm_update", M, N, K, a.dtype] += 1
     return out

@@ -47,6 +47,12 @@ Defines = Optional[Mapping[str, int]]
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCKS: Dict[str, threading.Lock] = {}
 _LOCKS_LOCK = threading.Lock()
+
+#: Held by every wrapper module's ``bind`` while it declares a library's
+#: entry points and checks them, so that threads which load one library
+#: at once bind it once: the first binds and marks it, the rest find it
+#: marked.
+BIND_LOCK = threading.Lock()
 _FRESH_IDS = itertools.count()
 
 #: Per :func:`label`: ``{"seconds": build wall time (0.0 when the library

@@ -16,6 +16,7 @@ current stream or raise :class:`repro_torch.DeviceError`.
 """
 from __future__ import annotations
 
+import threading
 from collections import Counter
 
 import torch
@@ -32,6 +33,10 @@ LAUNCHES: Counter = Counter()
 
 #: The same launches by ``(wrapper, bs, n, dtype)``; cleared with it.
 SHAPES: Counter = Counter()
+
+#: Makes each launch's update of ``LAUNCHES`` and ``SHAPES`` one step for
+#: threads that launch at once.
+COUNT_LOCK = threading.Lock()
 
 
 def syrk_tile(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -50,8 +55,9 @@ def syrk_tile(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(c)
     launch_gemm(tiles_library(), a, a, c, out, bs, bs, bs, trans_a=True,
                 what="syrk_tile")
-    LAUNCHES["syrk_tile"] += 1
-    SHAPES["syrk_tile", bs, bs, a.dtype] += 1
+    with COUNT_LOCK:
+        LAUNCHES["syrk_tile"] += 1
+        SHAPES["syrk_tile", bs, bs, a.dtype] += 1
     return out
 
 
@@ -82,6 +88,7 @@ def trsm_tile(a: torch.Tensor, b: torch.Tensor, *,
                               f"in one block's shared memory")
         raise_launch_error(lib, rc,
                            f"trsm_tile at bs={bs} n={n} panel={panel}")
-    LAUNCHES["trsm_tile"] += 1
-    SHAPES["trsm_tile", bs, n, b.dtype] += 1
+    with COUNT_LOCK:
+        LAUNCHES["trsm_tile"] += 1
+        SHAPES["trsm_tile", bs, n, b.dtype] += 1
     return out

@@ -25,6 +25,7 @@ mask ragged edges themselves.
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 from typing import Optional
 
@@ -45,6 +46,10 @@ SHAPES: Counter = Counter()
 #: The same launches by the kernel that ran (:func:`kernel_for`'s
 #: ``"wgmma"`` or ``"fma"``); cleared with it.
 VARIANTS: Counter = Counter()
+
+#: Makes each launch's update of ``LAUNCHES``, ``SHAPES`` and
+#: ``VARIANTS`` one step for threads that launch at once.
+COUNT_LOCK = threading.Lock()
 
 SOURCE = "flash_attention.cu"
 SOURCE_WGMMA = "flash_attention_wgmma.cu"
@@ -68,16 +73,19 @@ def kernel_for(dtype: torch.dtype, d: int) -> str:
 
 def _bind(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
     """Declares the argument types of ``<prefix>_launch`` and
-    ``<prefix>_error_string``; both sources share the signature."""
-    if not getattr(lib, "_repro_torch_bound", False):
-        fn = getattr(lib, f"{prefix}_launch")
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{prefix}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        lib._repro_torch_bound = True
+    ``<prefix>_error_string``; both sources share the signature.  Marked
+    on the object under :data:`build.BIND_LOCK`, so each library is bound
+    once."""
+    with build.BIND_LOCK:
+        if not getattr(lib, "_repro_torch_bound", False):
+            fn = getattr(lib, f"{prefix}_launch")
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                           + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{prefix}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            lib._repro_torch_bound = True
     return lib
 
 
@@ -183,7 +191,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     launch(lib, q, k, v, out, causal=causal, window=window, softcap=softcap,
            scale=scale, variant=variant)
-    LAUNCHES["flash_attention"] += 1
-    SHAPES[(bh, bkv, t_len, s_len, d, str(q.dtype))] += 1
-    VARIANTS[variant] += 1
+    with COUNT_LOCK:
+        LAUNCHES["flash_attention"] += 1
+        SHAPES[(bh, bkv, t_len, s_len, d, str(q.dtype))] += 1
+        VARIANTS[variant] += 1
     return out

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
+import threading
 from collections import Counter
 from typing import Dict, Tuple
 
@@ -55,6 +56,10 @@ SHAPES: Counter = Counter()
 #: The same calls by the kernel that ran (:func:`kernel_for`'s
 #: ``"subchunk"`` or ``"serial"``); cleared with it.
 VARIANTS: Counter = Counter()
+
+#: Makes each launch's update of ``LAUNCHES``, ``SHAPES`` and
+#: ``VARIANTS`` one step for threads that launch at once.
+COUNT_LOCK = threading.Lock()
 
 SOURCE = "linear_attn.cu"
 SOURCE_TC = "linear_attn_tc.cu"
@@ -103,26 +108,28 @@ def bind(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
     ``<prefix>_error_string`` declared and its packed-argument size
     checked; both sources share them.  The sub-chunked build's scratch a
     chunk is read once, into ``lib.scratch_floats_per_chunk``.  Marked on
-    the object, so each library is bound once."""
-    if not getattr(lib, "_repro_torch_bound", False):
-        launch_fn = getattr(lib, f"{prefix}_launch")
-        launch_fn.argtypes = [ctypes.c_char_p]
-        launch_fn.restype = ctypes.c_int
-        size = getattr(lib, f"{prefix}_args_bytes")
-        size.argtypes = []
-        size.restype = ctypes.c_int
-        if size() != LINEAR_ARGS.size:
-            raise DeviceError(f"{prefix}_args_bytes() is {size()}, but "
-                              f"{LINEAR_ARGS.size} bytes are packed")
-        err = getattr(lib, f"{prefix}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        if prefix == "linear_attn_tc":
-            per_chunk = lib.linear_attn_tc_scratch_floats_per_chunk
-            per_chunk.argtypes = []
-            per_chunk.restype = ctypes.c_int
-            lib.scratch_floats_per_chunk = per_chunk()
-        lib._repro_torch_bound = True
+    the object under :data:`build.BIND_LOCK`, so each library is bound
+    once."""
+    with build.BIND_LOCK:
+        if not getattr(lib, "_repro_torch_bound", False):
+            launch_fn = getattr(lib, f"{prefix}_launch")
+            launch_fn.argtypes = [ctypes.c_char_p]
+            launch_fn.restype = ctypes.c_int
+            size = getattr(lib, f"{prefix}_args_bytes")
+            size.argtypes = []
+            size.restype = ctypes.c_int
+            if size() != LINEAR_ARGS.size:
+                raise DeviceError(f"{prefix}_args_bytes() is {size()}, but "
+                                  f"{LINEAR_ARGS.size} bytes are packed")
+            err = getattr(lib, f"{prefix}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            if prefix == "linear_attn_tc":
+                per_chunk = lib.linear_attn_tc_scratch_floats_per_chunk
+                per_chunk.argtypes = []
+                per_chunk.restype = ctypes.c_int
+                lib.scratch_floats_per_chunk = per_chunk()
+            lib._repro_torch_bound = True
     return lib
 
 
@@ -257,9 +264,10 @@ def linear_attention_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               dtype=torch.float32, device=r.device)
     launch(lib, variant, r, k, v, w, u, out, state,
            0 if scratch is None else scratch.data_ptr(), chunk)
-    LAUNCHES["linear_attn"] += 1
-    SHAPES[bh, t_len, dk, dv, chunk, r.dtype] += 1
-    VARIANTS[variant] += 1
+    with COUNT_LOCK:
+        LAUNCHES["linear_attn"] += 1
+        SHAPES[bh, t_len, dk, dv, chunk, r.dtype] += 1
+        VARIANTS[variant] += 1
     return out, state
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
+import threading
 from collections import Counter
 from typing import Optional
 
@@ -44,6 +45,10 @@ LAUNCHES = 0
 
 #: The same launches by ``(P, S, B)`` shape; cleared with ``LAUNCHES``.
 SHAPES: Counter = Counter()
+
+#: Makes each launch's update of ``LAUNCHES`` and ``SHAPES`` one step for
+#: threads that launch at once.
+COUNT_LOCK = threading.Lock()
 
 SOURCE = "lockstep_step.cu"
 
@@ -101,26 +106,28 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     argument types declared, its packed-argument size checked, and its
     group sizes held to :func:`group_size` (the mirror the tests hold the
     kernel's reduction to) at every S up to past a warp; marked on the
-    object, so each library is bound once."""
-    if not getattr(lib, "_repro_torch_bound", False):
-        lib.step_commit_launch.argtypes = [ctypes.c_char_p]
-        lib.step_commit_launch.restype = ctypes.c_int
-        lib.step_commit_args_bytes.argtypes = []
-        lib.step_commit_args_bytes.restype = ctypes.c_int
-        if lib.step_commit_args_bytes() != STEP_ARGS.size:
-            raise DeviceError(f"step_commit_args_bytes() is "
-                              f"{lib.step_commit_args_bytes()}, but "
-                              f"{STEP_ARGS.size} bytes are packed")
-        lib.step_commit_group.argtypes = [ctypes.c_int]
-        lib.step_commit_group.restype = ctypes.c_int
-        for S in range(1, 2 * MAX_GROUP + 2):
-            if lib.step_commit_group(S) != group_size(S):
-                raise DeviceError(f"step_commit_group({S}) is "
-                                  f"{lib.step_commit_group(S)}, but "
-                                  f"group_size({S}) is {group_size(S)}")
-        lib.step_commit_error_string.argtypes = [ctypes.c_int]
-        lib.step_commit_error_string.restype = ctypes.c_char_p
-        lib._repro_torch_bound = True
+    object under :data:`build.BIND_LOCK`, so each library is bound once,
+    however many threads load it at once."""
+    with build.BIND_LOCK:
+        if not getattr(lib, "_repro_torch_bound", False):
+            lib.step_commit_launch.argtypes = [ctypes.c_char_p]
+            lib.step_commit_launch.restype = ctypes.c_int
+            lib.step_commit_args_bytes.argtypes = []
+            lib.step_commit_args_bytes.restype = ctypes.c_int
+            if lib.step_commit_args_bytes() != STEP_ARGS.size:
+                raise DeviceError(f"step_commit_args_bytes() is "
+                                  f"{lib.step_commit_args_bytes()}, but "
+                                  f"{STEP_ARGS.size} bytes are packed")
+            lib.step_commit_group.argtypes = [ctypes.c_int]
+            lib.step_commit_group.restype = ctypes.c_int
+            for S in range(1, 2 * MAX_GROUP + 2):
+                if lib.step_commit_group(S) != group_size(S):
+                    raise DeviceError(f"step_commit_group({S}) is "
+                                      f"{lib.step_commit_group(S)}, but "
+                                      f"group_size({S}) is {group_size(S)}")
+            lib.step_commit_error_string.argtypes = [ctypes.c_int]
+            lib.step_commit_error_string.restype = ctypes.c_char_p
+            lib._repro_torch_bound = True
     return lib
 
 
@@ -216,6 +223,7 @@ def step_commit(clocks: torch.Tensor, busy: torch.Tensor, seen: torch.Tensor,
         msg = lib.step_commit_error_string(rc).decode(errors="replace")
         raise DeviceError(f"step_commit kernel launch failed: {msg} "
                           f"(cudaError {rc}) at P={P} S={S} B={B}")
-    LAUNCHES += 1
-    SHAPES[P, S, B] += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
+        SHAPES[P, S, B] += 1
     return end

@@ -397,10 +397,13 @@ def test_cli_runs_the_torch_engine_by_default_on_the_requested_device(
     assert doc["best"] == "4acc" and len(doc["top"]) == 3
 
 
-def test_cli_refuses_the_unported_service_and_a_missing_card(capsys):
+def test_cli_dispatches_the_service_and_refuses_a_missing_card(capsys):
     for sub in ("serve", "client"):
-        assert cli_main([sub, "--port", "0"]) == 2
-        assert "not ported" in capsys.readouterr().err
+        with pytest.raises(SystemExit) as done:
+            cli_main([sub, "--help"])
+        assert done.value.code == 0
+        assert f"python -m repro_torch.explore {sub}" in \
+            capsys.readouterr().out
     if not torch.cuda.is_available():
         assert cli_main(["synth:8", "--accs", "1-2"]) == 2
         assert "CUDA" in capsys.readouterr().err

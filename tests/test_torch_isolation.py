@@ -3,9 +3,11 @@
 * Nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, imports
   ``jax``, ``jaxlib`` or any ``repro`` module (an AST scan of every
   import, lazy ones inside functions included).
-* A CPU sweep, and CPU runs of the serving launcher (a dense arch and
-  RWKV6), through the port leave ``jax`` and ``repro`` out of
-  ``sys.modules`` (a fresh interpreter each).
+* A CPU sweep, CPU runs of the serving launcher (a dense arch and
+  RWKV6), and the sweep service's CLI and one torch request through it,
+  through the port leave ``jax`` and ``repro`` out of ``sys.modules``
+  (a fresh interpreter each); the sweep service leaves CUDA
+  uninitialised.
 * ``repro_torch.carry.import_reference``: a trace saved by ``repro`` loads
   unchanged, the graph's content hash is the same in both packages, and a
   ``repro`` batch sweep's exported orders make a warm port sweep run with
@@ -54,7 +56,12 @@ def test_port_files_exist():
             "flash_attention.py", "layers.py", "attention.py",
             "transformer.py", "registry.py", "qwen3_0_6b.py", "qwen3_4b.py",
             "qwen15_4b.py", "gemma2_2b.py", "engine.py", "serve.py",
-            "linear_attn.py", "linear_blocks.py", "rwkv6_1_6b.py"} <= names
+            "linear_attn.py", "linear_blocks.py", "rwkv6_1_6b.py",
+            "sweepd.py", "coalesce.py", "paraver.py"} <= names
+    port = REPO / "src" / "repro_torch"
+    assert (port / "serve" / "sweepd.py").is_file()
+    assert (port / "serve" / "coalesce.py").is_file()
+    assert (port / "core" / "paraver.py").is_file()
     csrc = REPO / "src" / "repro_torch" / "kernels" / "csrc"
     assert (csrc / "flash_attention.cu").is_file()
     assert (csrc / "flash_attention_wgmma.cu").is_file()
@@ -80,6 +87,34 @@ def test_cpu_sweep_leaves_jax_and_repro_unimported():
         "               device='cpu').explore(synth_candidates(range(1, 7)),\n"
         "                                     top_k=3)\n"
         "assert res.best_name == '4acc', res.best_name\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "             in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sweep_service_leaves_jax_and_repro_unimported_and_cuda_cold():
+    """``client --help`` through the port's CLI, then one torch request
+    through an in-process ``SweepService(device="cpu")``: neither ``jax``
+    nor ``repro`` is imported, and CUDA is never initialised."""
+    code = (
+        "import contextlib, io, sys\n"
+        "from repro_torch.explore import main\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    try:\n"
+        "        main(['client', '--help'])\n"
+        "    except SystemExit as done:\n"
+        "        assert done.code == 0, done.code\n"
+        "from repro_torch.serve.sweepd import SweepService\n"
+        "status, doc = SweepService(device='cpu').submit(\n"
+        "    '{\"trace\": \"synth:24\", \"engine\": \"torch\"}')\n"
+        "assert status == 200 and doc['engine_final'] == 'torch', doc\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
         "             in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -18,6 +18,9 @@ The card route's host side (the packed argument block, the refusals) is
 driven with CPU tensors through a stub library.
 """
 import math
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -371,6 +374,73 @@ def test_refused_launch_raises_and_counts_nothing(card_route, monkeypatch):
     with pytest.raises(DeviceError, match="stub error"):
         ls.step_commit(*t)
     assert ls.LAUNCHES == 0 and not ls.SHAPES
+
+
+class YieldingCounter(type(ls.SHAPES)):
+    """A Counter that gives up the interpreter lock on every read, so an
+    increment that no lock holds together can lose another thread's."""
+
+    def __getitem__(self, key):
+        count = super().__getitem__(key)
+        time.sleep(1e-4)
+        return count
+
+
+def test_counts_add_up_across_threads(card_route, monkeypatch):
+    """Eight threads launch through the card route at once, two at each
+    of four shapes (as the sweep service's requests do), with ``SHAPES``
+    a :class:`YieldingCounter`: ``LAUNCHES`` and ``SHAPES`` count every
+    launch, none lost to a race."""
+    monkeypatch.setattr(ls, "SHAPES", YieldingCounter())
+    per_thread = 300
+    states = [[torch.from_numpy(a.copy())
+               for a in seeded_state(40 + i, 2, 4 + i % 4, 8)]
+              for i in range(8)]
+    errors = []
+    start = threading.Barrier(len(states))
+
+    def worker(t):
+        try:
+            start.wait(timeout=30)
+            for _ in range(per_thread):
+                ls.step_commit(*t)
+        except Exception as exc:        # noqa: BLE001 — reported below
+            errors.append(repr(exc))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in states]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert len(card_route.calls) == 8 * per_thread
+    assert ls.LAUNCHES == 8 * per_thread
+    assert dict(ls.SHAPES) == {(2, 4 + i, 8): 2 * per_thread
+                               for i in range(4)}
+
+
+def test_threads_bind_a_library_once():
+    """Threads that bind one library at once run its checks once: the
+    first binds it under ``build.BIND_LOCK``, the others find it bound."""
+    stub = StubLibrary()
+    sizes = []
+    checked = stub.step_commit_args_bytes.fn
+    stub.step_commit_args_bytes = StubEntry(
+        lambda: sizes.append(time.sleep(0.001)) or checked())
+    threads = [threading.Thread(target=ls.bind, args=(stub,))
+               for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(sizes) == 1 and stub._repro_torch_bound
 
 
 def test_a_library_of_another_argument_layout_is_refused():

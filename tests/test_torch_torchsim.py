@@ -10,7 +10,11 @@ package's ``simulate_fast``, ``simulate_jax(step_impl="lax")`` and
 ``simulate_jax_many``.  The torch engine runs on the CPU here
 (``device="cpu"``); the card runs the ``gpu`` tests.
 """
+import collections
 import pickle
+import sys
+import threading
+import time
 
 import hypothesis
 import hypothesis.strategies as st
@@ -375,3 +379,101 @@ def test_torch_on_the_card_matches_fast_and_launches_the_kernel():
     assert_tier(got, fast_refs(fg_ref, ref_systems, "availability"),
                 ref_systems)
     assert np.isfinite([s.makespan for s in got]).all()
+
+
+class YieldingCache(collections.OrderedDict):
+    """A cache that gives up the interpreter lock around every access
+    (a 1 ms ``time.sleep``), so another thread runs between any two steps of
+    a lookup, an eviction or a refresh that no lock holds together."""
+
+    def _yield(self):
+        time.sleep(0.001)
+
+    def __len__(self):
+        self._yield()
+        return super().__len__()
+
+    def __iter__(self):
+        self._yield()
+        return super().__iter__()
+
+    def get(self, key, default=None):
+        self._yield()
+        got = super().get(key, default)
+        self._yield()
+        return got
+
+    def __setitem__(self, key, value):
+        self._yield()
+        super().__setitem__(key, value)
+
+    def pop(self, key, *default):
+        self._yield()
+        return super().pop(key, *default)
+
+    def popitem(self, last=True):
+        self._yield()
+        return super().popitem(last)
+
+    def move_to_end(self, key, last=True):
+        self._yield()
+        super().move_to_end(key, last)
+
+
+@pytest.mark.parametrize("share", [False, True],
+                         ids=["own_graphs", "shared_graphs"])
+def test_threads_sharing_the_engine_caches_get_their_serial_results(
+        monkeypatch, share):
+    """Eight threads sweep through ``simulate_torch_many`` at once, as the
+    sweep service's request threads do, with every cache at one entry so
+    each insert evicts another thread's: the device-block cache
+    (``_DEV_XS_CACHE``) and, with ``shared_graphs`` (two threads on each
+    FrozenGraph, on different slot ramps), the per-graph memos.  The
+    caches yield the interpreter lock at every access
+    (:class:`YieldingCache`).  No thread raises, and every result equals
+    its serial run's."""
+    monkeypatch.setattr(torchsim, "_DEV_XS_CACHE_CAP", 1)
+    monkeypatch.setattr(torchsim, "_XS_CACHE_CAP", 1)
+    monkeypatch.setattr(torchsim, "_DEV_XS_CACHE", YieldingCache())
+    sizes = [12, 12, 14, 14, 16, 16, 18, 18] if share \
+        else [12, 13, 14, 15, 16, 17, 18, 19]
+    graphs = {n: synth.frozen_for(synth.synth_trace(n), n % 2 == 0)[0]
+              for n in sorted(set(sizes))}
+    jobs = [(graphs[n], zynq_pair(range(1 + i % 2, 9 + i % 2))[1])
+            for i, n in enumerate(sizes)]
+
+    def sweep(fg, systems):
+        res = torchsim.simulate_torch_many([(fg, systems)], device="cpu",
+                                           min_lockstep=2)[0]
+        return [(s.makespan, s.placements) for s in res]
+
+    serial = [sweep(fg, systems) for fg, systems in jobs]
+    for fg in graphs.values():
+        fg._torch_xs, fg._torch_caps = YieldingCache(), YieldingCache()
+    got = [[] for _ in jobs]
+    errors = []
+    start = threading.Barrier(len(jobs))
+
+    def worker(i):
+        try:
+            start.wait(timeout=30)
+            for _ in range(2):
+                got[i].append(sweep(*jobs[i]))
+        except Exception as exc:        # noqa: BLE001 — reported below
+            errors.append(f"thread {i}: {exc!r}")
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    for i, runs in enumerate(got):
+        assert runs == [serial[i]] * 2, i
