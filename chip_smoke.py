@@ -59,13 +59,24 @@ Phases, one line each or more:
    decay (w <= 1e-6), Mamba2's scalar decay with u = 0, and in f32, all
    on the sub-chunked kernel, and a chunk of 7 at (3, 42, 16, 20) on the
    serial one, each call on the kernel ``kernel_for`` names;
-5. four sweeps: ``trace_matmul(512, 64)`` with a 200-candidate slot ×
+5. four sweeps, each torch sweep through the step loop's captured CUDA
+   graphs (the compile cache's runners, ``repro_torch.core.graphcache``):
+   ``trace_matmul(512, 64)`` with a 200-candidate slot ×
    ±SMP ramp (cold, then warm from the recorded orders), the same sweep
    with ``top_k=5, prune=True``, and ``trace_cholesky(512, 64)`` with the
    six Fig. 9 designs each at 1..8 accelerator slots — each ranking must
    agree with the batch engine's at ``TORCH_RTOL`` with the same best
    candidate, no engine demotion, kernel launches > 0 and lanes that went
-   through the lockstep path;
+   through the lockstep path; then ``[graph sweep]``:
+   ``matmul512_200_warm`` and ``cholesky512_48_cold`` eagerly
+   (``torch_graphs=False``) and through the graphs of a fresh compile
+   cache with a disk tier, then again warm: every result bit for bit,
+   the replay protocol's counts and the step-commit launches equal both
+   ways, steps/s and candidates/s each way, captures, replays and capture
+   seconds, 0 captures on the warm repeat, and each graph's device time
+   a step by CUDA events; then a second Python process sweeps the
+   Cholesky ramp on that store with 0 ``nvcc`` builds and every runner a
+   disk hit;
 6. the sweep service, with the step-commit counts set to 0 just before
    each torch request phase and read just after: (a) an in-process
    ``SweepServer`` on the card answers one torch request over HTTP, the
@@ -111,8 +122,13 @@ Phases, one line each or more:
     self-check: one teacher-forced ``forward`` per request over its
     served sequence (T = 543, padded to 640 by ``ops.attention``), where
     every served token's logit must be within ``SELFCHECK_TOL`` of its
-    position's maximum; then one prefill and one decode step under
-    ``torch.profiler`` (device busy share, kernels, costliest operations);
+    position's maximum; decode runs through the captured decode step
+    (``Engine``'s compile cache), and the same traffic through the eager
+    step in the same call must serve the same tokens with the same
+    last-step logits (``[serve graphs]``: ms a step both ways, capture
+    seconds); then one prefill and one decode step (eager, and one replay
+    of the captured graph) under ``torch.profiler`` (device busy share,
+    kernels, costliest operations);
     then the same for rwkv6-1.6b (the qwen model freed first), with the
     ``linear_attn`` counts set to 0 just before the served run and read
     just after (192 launches, all at the path shape, all on the
@@ -150,6 +166,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -246,6 +263,32 @@ SELFCHECK_TOL = 0.1
 SWEEPD_CLIENTS = 8
 SWEEPD_DIR = ROOT / "build" / "chip_smoke_sweepd"
 PARAVER_DIR = ROOT / "chiprun_out" / "sweepd"
+
+#: The graph-sweep phase's compile-cache roots (one a sweep), emptied at
+#: the start of the phase.
+GRAPH_DIR = ROOT / "build" / "chip_smoke_graphs"
+
+#: The second process of the graph-sweep phase: the Cholesky sweep on the
+#: first process's store, printing its cache counters and nvcc runs.
+SECOND_PROCESS = """
+import json, sys
+sys.path.insert(0, sys.argv[2])
+from repro_torch.apps import cholesky as ch
+from repro_torch.core import Explorer, a9_smp_seconds, zynq_system
+from repro_torch.core.diskcache import DiskCache
+from repro_torch.core.explore import Candidate
+from repro_torch.core.graphcache import CompileCache
+from repro_torch.kernels import build
+sys.path.insert(0, sys.argv[3])
+from chip_smoke import cholesky_ramp
+cc = CompileCache(DiskCache(sys.argv[1]))
+ex = Explorer(ch.trace_cholesky(n=512, bs=64), ch.report_map(bs=64),
+              engine="torch", smp_seconds_fn=a9_smp_seconds("float64"),
+              compile_cache=cc)
+res = ex.explore(cholesky_ramp(ch, zynq_system, Candidate, 8), top_k=3)
+print(json.dumps({"cc": cc.as_dict(), "nvcc": build.BUILDS,
+                  "rebuilds": build.REBUILDS, "best": res.best_name}))
+"""
 
 
 def phase(name: str, text: str) -> None:
@@ -390,32 +433,226 @@ def profile_sweep(torch, Explorer, trace, reports, a9, cands, library, ls):
     Returns the plain wall, the device time of the profiled run's kernels,
     their count, the steps (step-commit launches) and the busiest ops."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import torchsim
+    cc = torchsim._DEFAULT_CACHE
 
     def run():
         ex = Explorer(trace, reports, engine="torch", smp_seconds_fn=a9,
                       order_library=library)
         ls.LAUNCHES = 0
+        before = cc.as_dict()
         torch.cuda.synchronize()
         t = time.perf_counter()
         ex.explore(cands, top_k=3)
         torch.cuda.synchronize()
-        return time.perf_counter() - t, ls.LAUNCHES
+        after = cc.as_dict()
+        return (time.perf_counter() - t, ls.LAUNCHES,
+                {k: after[k] - before[k] for k in ("captures", "replays")})
 
-    wall, steps = run()
+    wall, steps, graphs = run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_wall, _ = run()
+        prof_wall, _, _ = run()
     events = prof.key_averages()
     dev = [e for e in events if "cuda" in str(e.device_type).lower()]
     device_s = sum(e.self_device_time_total for e in dev) * 1e-6
     n_kernels = sum(e.count for e in dev)
     top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:5]
+    commits = sum(e.count for e in dev if "step_commit" in e.key)
     return {"wall_s": wall, "profiled_wall_s": prof_wall, "steps": steps,
+            "graph_captures": graphs["captures"],
+            "graph_replays": graphs["replays"],
             "device_s": device_s, "device_busy_share": device_s / wall,
+            "profiled_busy_share": device_s / prof_wall,
             "kernels": n_kernels,
             "kernels_per_step": n_kernels / max(steps, 1),
+            # the profiler sees the kernels inside the replayed graphs
+            # when it counts one step_commit a step
+            "profiler_sees_graph_kernels": commits == steps,
+            "step_commit_rows": commits,
             "top_host_ops": [[e.key, e.count, e.self_cpu_time_total * 1e-6]
                              for e in top_host]}
+
+
+def library_copy(lib):
+    """A copy of a ReplayLibrary's recorded orders, so that two sweeps
+    start from the same library."""
+    import copy
+    from repro_torch.core.replay import ReplayLibrary
+    if lib is None:
+        return None
+    new = ReplayLibrary(lib.max_orders_per_key)
+    with lib._lock:
+        new._entries = copy.deepcopy(lib._entries)
+    return new
+
+
+def sims_bits(ex):
+    """Every torch-tier result an Explorer holds, by its content key:
+    makespan, per-pool busy (its keys are the pools seen), placements and
+    pool slots, floats as their hex form (bit for bit)."""
+    return {repr(k): (s.makespan.hex(),
+                      sorted((p, b.hex()) for p, b in s.busy.items()),
+                      s.placements, s.pool_slots)
+            for k, s in ex._sims.items()}
+
+
+def graph_step_times(torch, cc, STEPS, n: int = 20):
+    """Device time of the captured step graphs of ``cc``: each runner's
+    graph replayed ``n`` times back to back by CUDA events (on whatever
+    its buffers hold: the work of a step has fixed shapes), per replay and
+    per step, by signature ``(P, S, B)``."""
+    out = []
+    for runner in list(cc._mem.values()):
+        graph = getattr(runner, "graph", None)
+        if graph is None or not hasattr(runner, "state"):
+            continue
+        P, S, B = runner.state.clocks.shape
+        graph.replay()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n):
+            graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1) / n
+        out.append({"P,S,B": [P, S, B], "ms_per_replay": ms,
+                    "us_per_step": ms * 1e3 / STEPS})
+    return out
+
+
+def graph_sweep(torch, Explorer, ls, label, trace, reports, a9, cands,
+                top_k, library, failures):
+    """One sweep eagerly (``torch_graphs=False``) and through captured step
+    graphs on a fresh compile cache with a disk tier, then again on the
+    warm cache, in one call and each from a copy of ``library``: every
+    torch-tier result bit for bit, the replay protocol's counts and the
+    step-commit launches (by shape) equal both ways; the warm repeat
+    captures nothing.  Each run's wall is split between the step loop
+    (``torchsim._scan_cohorts``, timed around each call: staging, the
+    loop or its replays, the copy-out) and the rest (graphs, host order
+    discovery, assembly).  Returns the phase's row and the cache."""
+    from repro_torch.core import torchsim
+    from repro_torch.core.diskcache import DiskCache
+    from repro_torch.core.graphcache import CompileCache
+    cc = CompileCache(DiskCache(str(GRAPH_DIR / label)))
+    runs = {}
+    loop_s = [0.0]
+    scan = torchsim._scan_cohorts
+
+    def timed_scan(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return scan(*args, **kwargs)
+        finally:
+            loop_s[0] += time.perf_counter() - t0
+
+    torchsim._scan_cohorts = timed_scan
+    try:
+        runs = graph_sweep_runs(torch, Explorer, ls, trace, reports, a9,
+                                cands, top_k, library, cc, loop_s)
+    finally:
+        torchsim._scan_cohorts = scan
+    return graph_sweep_row(torch, torchsim, label, cands, runs, cc,
+                           failures), cc
+
+
+def graph_sweep_runs(torch, Explorer, ls, trace, reports, a9, cands, top_k,
+                     library, cc, loop_s):
+    """The three runs of :func:`graph_sweep`, each from a copy of
+    ``library``; ``loop_s`` accumulates the step loop's seconds."""
+    runs = {}
+    for name, kw in (("eager", {"torch_graphs": False}),
+                     ("graph", {"compile_cache": cc}),
+                     ("graph_warm", {"compile_cache": cc})):
+        ex = Explorer(trace, reports, engine="torch", smp_seconds_fn=a9,
+                      order_library=library_copy(library), **kw)
+        before = cc.as_dict()
+        ls.LAUNCHES = 0
+        ls.SHAPES.clear()
+        torch.cuda.synchronize()
+        loop_s[0] = 0.0
+        t = time.perf_counter()
+        r = ex.explore(cands, top_k=top_k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        after = cc.as_dict()
+        runs[name] = {
+            "wall_s": wall, "step_loop_s": loop_s[0],
+            "rest_s": wall - loop_s[0], "steps": ls.LAUNCHES,
+            "steps_per_s": ls.LAUNCHES / wall,
+            "cand_per_s": len(cands) / wall, "best": r.best_name,
+            "shapes": {str(k): n for k, n in sorted(ls.SHAPES.items())},
+            "batch_stats": ex.batch_stats.as_dict(),
+            "cache": {k: after[k] - before[k] for k in after},
+            "sims": sims_bits(ex), "engine": ex.engine,
+            "spans": [(o.name, None if o.makespan_s is None
+                       else o.makespan_s.hex()) for o in r.outcomes]}
+    return runs
+
+
+def graph_sweep_row(torch, torchsim, label, cands, runs, cc, failures):
+    """:func:`graph_sweep`'s checks and its ``[graph sweep]`` line."""
+    eager, graph, warm = runs["eager"], runs["graph"], runs["graph_warm"]
+    checks = {
+        "ok_bitwise": graph["sims"] == eager["sims"] == warm["sims"]
+        and graph["spans"] == eager["spans"] == warm["spans"]
+        and len(eager["sims"]) > 0,
+        "ok_protocol": graph["batch_stats"] == eager["batch_stats"]
+        == warm["batch_stats"],
+        "ok_launches": graph["steps"] == eager["steps"] == warm["steps"] > 0
+        and graph["shapes"] == eager["shapes"] == warm["shapes"],
+        "ok_captured": graph["cache"]["captures"] >= 1
+        and graph["cache"]["replays"] >= 1,
+        "ok_warm_no_capture": warm["cache"]["captures"] == 0
+        and warm["cache"]["compiles"] == 0 and warm["cache"]["mem_hits"] >= 1,
+        "ok_no_demotion": eager["engine"] == graph["engine"] == "torch",
+    }
+    row = {"sweep": label, "candidates": len(cands), "best": graph["best"],
+           "steps": graph["steps"],
+           **{f"{name}_{key}": run[key] for name, run in runs.items()
+              for key in ("wall_s", "step_loop_s", "rest_s", "steps_per_s",
+                          "cand_per_s")},
+           "graph_cache": graph["cache"], "warm_cache": warm["cache"],
+           "lockstep_lanes": graph["batch_stats"]["lockstep_lanes"],
+           "diverged_lanes": graph["batch_stats"]["diverged_lanes"],
+           "results_compared": len(eager["sims"]),
+           "step_graphs": graph_step_times(torch, cc, torchsim.STEPS),
+           **checks}
+    phase("graph sweep", json.dumps(row))
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        failures.append(f"graph sweep {label}: failed {bad}")
+    return row
+
+
+def second_process(label, failures):
+    """The Cholesky sweep in a second Python process on the graph-sweep
+    phase's store of ``label``: no ``nvcc`` run, every runner a disk hit
+    (the store holds the libraries its entries name)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", SECOND_PROCESS, str(GRAPH_DIR / label),
+         str(ROOT / "src"), str(ROOT)],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        failures.append(f"graph sweep second process: exit "
+                        f"{out.returncode}: {out.stderr[-2000:]}")
+        return {}
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    cc = got["cc"]
+    ok = got["nvcc"] == 0 and cc["compiles"] == 0 and cc["disk_hits"] >= 1 \
+        and cc["failures"] == 0
+    row = {"sweep": f"{label}_second_process", "wall_s": wall,
+           "nvcc_builds": got["nvcc"], "rebuilds": got["rebuilds"],
+           "cache": cc, "best": got["best"], "ok_no_build_all_disk": ok}
+    phase("graph sweep", json.dumps(row))
+    if not ok:
+        failures.append(f"graph sweep second process: {row}")
+    return row
 
 
 def cholesky_ramp(ch, zynq_system, Candidate, slots):
@@ -1626,6 +1863,8 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
         "decode_steps": st.decode_steps, "decode_s": st.decode_s,
         "decode_ms_per_step": st.decode_s / st.decode_steps * 1e3,
         "decode_tok_per_s": st.decode_steps * SERVE["slots"] / st.decode_s,
+        "decode_capture_s": st.capture_s,
+        "graph_cache": eng.compile_cache.as_dict(),
         "kernel": kernel, "launches": launches,
         "shapes": {str(k): n for k, n in shapes.items()},
         "variants": variants,
@@ -1644,6 +1883,40 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
         raise SystemExit(f"serve {cfg.name}: {kernel} launches by kernel "
                          f"{variants}, expected all {want_launches} on "
                          f"{model_spec['variant']}")
+
+    # the same traffic through the eager decode step, in the same call:
+    # the same tokens, the same last-step logits
+    eager = engine.Engine(model, slots=SERVE["slots"], max_len=max_len,
+                          graphs=False)
+    for rid, pr in enumerate(prompts):
+        eager.submit(engine.Request(rid=rid, prompt=pr,
+                                    max_new=SERVE["max_new"]))
+    torch.cuda.synchronize()
+    done_e = eager.run()
+    torch.cuda.synchronize()
+    same_tokens = ({r.rid: r.out for r in done}
+                   == {r.rid: r.out for r in done_e})
+    logits_diff = float((eng.last_logits.float()
+                         - eager.last_logits.float()).abs().max())
+    se = eager.stats
+    graphs_row = {
+        "arch": cfg.name, "decode_steps": st.decode_steps,
+        "graph_decode_ms_per_step": st.decode_s / st.decode_steps * 1e3,
+        "eager_decode_ms_per_step": se.decode_s / se.decode_steps * 1e3,
+        "graph_capture_s": st.capture_s,
+        "graph_cache": eng.compile_cache.as_dict(),
+        "same_tokens": same_tokens,
+        "last_step_logits_max_abs_diff": logits_diff,
+        "ok": same_tokens and logits_diff == 0.0}
+    phase("serve graphs", json.dumps(graphs_row))
+    if not same_tokens:
+        failures.append(f"serve {cfg.name}: the captured decode step "
+                        f"served other tokens than the eager one")
+    if logits_diff != 0.0:
+        failures.append(f"serve {cfg.name}: the captured decode step's "
+                        f"last logits differ from the eager step's by "
+                        f"{logits_diff}")
+    del eager, done_e
 
     # the kernel route against the plain route, on the served weights and,
     # where the route is gated in f32, on the arch's f32 weights
@@ -1703,23 +1976,24 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
     if not worst_gap <= SELFCHECK_TOL:
         failures.append(f"serve {cfg.name}: a served token is {worst_gap} "
                         f"below its position's maximum > {SELFCHECK_TOL}")
-    summary.update(route_max_abs_diff=route_err,
+    summary.update(graphs=graphs_row, route_max_abs_diff=route_err,
                    route_f32_max_abs_diff=route_f32,
                    selfcheck_worst_gap=worst_gap,
                    selfcheck_argmax_equal=exact,
                    selfcheck_launches={str(k): n
                                        for k, n in check_launches.items()},
                    profile=profile_serve(torch, engine, model, prompts,
-                                         max_len, kernel))
+                                         max_len, kernel, eng))
     return summary
 
 
-def profile_serve(torch, engine, model, prompts, max_len, kernel):
+def profile_serve(torch, engine, model, prompts, max_len, kernel, eng):
     """Where one 512-token prefill and one batch-4 decode step spend their
     time on the card: each run once unprofiled (host wall, ending in a
     synchronise) and once under ``torch.profiler`` (device time, kernel
     count, the costliest host operations and device kernels, and the
-    device time and share of the rows whose name holds ``kernel``)."""
+    device time and share of the rows whose name holds ``kernel``); the
+    decode step also as one replay of ``eng``'s captured graph."""
     from torch.profiler import ProfilerActivity, profile
     prefill = engine.make_prefill_step(model, max_len)
     step = engine.make_serve_step(model)
@@ -1734,9 +2008,12 @@ def profile_serve(torch, engine, model, prompts, max_len, kernel):
              for layer in range(len(caches[0]))]
     toks = torch.cat(toks)
     batch = {"tokens": torch.as_tensor(prompts[0], device="cuda")[None]}
+    runner = eng.decoder(SERVE["slots"])
+    runner.load(caches, toks, SERVE["prompt_len"] + 1)
     runs = {"prefill_512": lambda: prefill(batch),
             "decode_step_b4": lambda: step(toks, cache,
-                                           SERVE["prompt_len"] + 1)}
+                                           SERVE["prompt_len"] + 1),
+            "decode_step_b4_graph": runner.step}
     out = {}
     for name, fn in runs.items():
         fn()
@@ -1823,7 +2100,8 @@ def main() -> int:
     from repro_torch.apps import cholesky as ch
     from repro_torch.apps import matmul as mm
     from repro_torch.apps import traditional as tr
-    from repro_torch.core import Explorer, a9_smp_seconds, zynq_system
+    from repro_torch.core import Explorer, a9_smp_seconds, torchsim
+    from repro_torch.core import zynq_system
     from repro_torch.core.augment import Eligibility
     from repro_torch.core.explore import Candidate
     from repro_torch.core.replay import TORCH_RTOL, rankings_equivalent
@@ -1850,15 +2128,21 @@ def main() -> int:
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
     # 2. the kernel builds, one nvcc per library, all started together
-    builds = ((ls.SOURCE, None), (bm.SOURCE, None), (bm.SOURCE, {"TILE": 128}),
-              (fa.SOURCE, None), (fa.SOURCE_WGMMA, None), (la.SOURCE, None),
-              (la.SOURCE_TC, None))
+    builds = ((ls.SOURCE, None, ls.bind), (bm.SOURCE, None, bm.bind),
+              (bm.SOURCE, {"TILE": 128}, bm.bind),
+              (fa.SOURCE, None, fa.bind_fma),
+              (fa.SOURCE_WGMMA, None, fa.bind_wgmma),
+              (la.SOURCE, None, la.bind_serial),
+              (la.SOURCE_TC, None, la.bind_subchunk))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
-        built = [f.result() for f in [pool.submit(build.load, src, defines)
-                                      for src, defines in builds]]
+        built = [f.result() for f in [
+            pool.submit(build.load, src, defines, bind=bind)
+            for src, defines, bind in builds]]
     wall = time.perf_counter() - t0
-    for src, defines in builds:
+    phase("kernel store", f"{build.BUILD_DIR}: {build.BUILDS} nvcc builds, "
+          f"{build.REBUILDS} rebuilt, keyed by {build.environment()}")
+    for src, defines, _ in builds:
         info = build.BUILD_INFO[build.label(src, defines)]
         ptxas = "; ".join(info["ptxas"].splitlines()) or "(no ptxas report)"
         phase("build", f"{build.label(src, defines)} for sm_90a: nvcc "
@@ -1896,6 +2180,7 @@ def main() -> int:
     ch_cands = cholesky_ramp(ch, zynq_system, Candidate, 8)
     libs = {}
     path_shapes = Counter()     # (P, S, B) of the sweeps' kernel launches
+    default_cache = torchsim._DEFAULT_CACHE
 
     def sweep(label, trace, reports, a9, cands, *, top_k, prune=False,
               warm_from=None):
@@ -1909,6 +2194,7 @@ def main() -> int:
                           order_library=lib)
             ls.LAUNCHES = 0
             ls.SHAPES.clear()
+            before = default_cache.as_dict()
             t = time.perf_counter()
             r = ex.explore(cands, top_k=top_k, prune=prune)
             torch.cuda.synchronize()
@@ -1917,6 +2203,9 @@ def main() -> int:
             res[engine] = (ex, r, wall, ls.LAUNCHES)
             if engine == "torch":
                 path_shapes.update(ls.SHAPES)
+                after = default_cache.as_dict()
+                graphs = {k: after[k] - before[k]
+                          for k in ("captures", "capture_s", "replays")}
         (ex_t, r_t, w_t, launches), (ex_b, r_b, w_b, host_launches) = \
             res["torch"], res["batch"]
         got = [o.name for o in r_t.ranked]
@@ -1945,6 +2234,9 @@ def main() -> int:
                "lockstep_lanes": bst["lockstep_lanes"],
                "reference_lanes": bst["reference_lanes"],
                "retired_lanes": bst["retired_lanes"],
+               "graph_captures": graphs["captures"],
+               "graph_capture_s": graphs["capture_s"],
+               "graph_replays": graphs["replays"],
                "demotions": ex_t.stats.engine_demotions, **checks}
         phase("sweep", json.dumps(row))
         bad = [k for k, v in checks.items() if not v]
@@ -1959,11 +2251,23 @@ def main() -> int:
     sweep("matmul512_200_top5_prune", mm_tr, mm_rep, mm_a9, mm_cands,
           top_k=5, prune=True)
 
+    # 5b. the step loop's captured graphs against the eager loop, bit for
+    # bit, on a compile cache with a disk tier; then a second process on
+    # that store builds nothing
+    failures = []
+    shutil.rmtree(GRAPH_DIR, ignore_errors=True)
+    graph_rows = [
+        graph_sweep(torch, Explorer, ls, "matmul512_200_warm", mm_tr,
+                    mm_rep, mm_a9, mm_cands, 5,
+                    libs[("matmul512_200_cold", "torch")], failures)[0],
+        graph_sweep(torch, Explorer, ls, "cholesky512_48_cold", ch_tr,
+                    ch_rep, ch_a9, ch_cands, 3, None, failures)[0]]
+    graph_rows.append(second_process("cholesky512_48_cold", failures))
+
     # 6. the sweep service on the card: the matmul trace's 200 candidates
     # in one request (its bs = 64 report: the trace's blocks are 64), then
     # eight concurrent Cholesky clients, the CLI's server drained by
     # SIGTERM, and the Paraver export; its launches count with the sweeps'
-    failures = []
     served = sweepd_flow(
         torch, np, ls, "cuda",
         ("sweepd_matmul512_200_torch", mm_tr,
@@ -2015,6 +2319,8 @@ def main() -> int:
         "queued_enqueue_us": top["queued_enqueue_us"],
         "queued_spin_us": top["queued_spin_us"], "group": top["group"],
         "timed_shape": top["shape"],
+        "graph_step_device_time": {row["sweep"]: row["step_graphs"]
+                                   for row in graph_rows[:2]},
         "launches_by_sweep": {**{s["sweep"]: s["launches"]
                                  for s in sweeps}, **served["launches"]},
         "by_shape": by_shape,

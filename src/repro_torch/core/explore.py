@@ -839,6 +839,26 @@ def _process_eval_chunk(ghash: str, fg: Optional[FrozenGraph],
 ENGINE_NAMES = ("reference", "fast", "batch", "torch")
 
 
+_COMPILE_CACHES: Dict[str, object] = {}
+_COMPILE_CACHES_LOCK = threading.Lock()
+
+
+def _shared_compile_cache(disk: DiskCache) -> "CompileCache":
+    """The process-global :class:`~repro_torch.core.graphcache.CompileCache`
+    for one cache root — Explorers sharing a ``cache_dir`` share captured
+    runners (the memory tier), so a warm sweep never captures again per
+    Explorer, and the root's kernel store serves later processes.
+    CompileCache is internally locked, so sharing across threads is
+    safe."""
+    from .graphcache import CompileCache
+    key = os.path.abspath(disk.root)
+    with _COMPILE_CACHES_LOCK:
+        cc = _COMPILE_CACHES.get(key)
+        if cc is None:
+            cc = _COMPILE_CACHES[key] = CompileCache(disk)
+    return cc  # type: ignore[return-value]
+
+
 def orders_disk_text(graph_token: str, policy: str,
                      ppa_token: Optional[str] = None) -> str:
     """On-disk key for one graph's order-library entry.
@@ -879,6 +899,8 @@ class Explorer:
                  device: Optional[str] = None,
                  torch_chunk: Optional[int] = None,
                  torch_megabatch: Optional[bool] = None,
+                 torch_graphs: bool = True,
+                 compile_cache: Optional["CompileCache"] = None,
                  order_library: Optional[ReplayLibrary] = None,
                  max_rescue_rounds: int = MAX_RESCUE_ROUNDS,
                  candidate_timeout: Optional[float] = None,
@@ -908,7 +930,16 @@ class Explorer:
         for the torch engine) routes each evaluation chunk's *whole* graph
         set through one lane axis
         (:func:`repro_torch.core.torchsim.simulate_torch_many`) instead of
-        one loop per graph family.
+        one loop per graph family.  The torch engine's step loop runs
+        through the runners of a compile cache
+        (:class:`~repro_torch.core.graphcache.CompileCache`; on the card a
+        captured CUDA graph per shape signature): ``compile_cache`` shares
+        an explicit one (overrides the ``cache_dir`` default); with a
+        ``cache_dir`` the Explorers of one root share one, whose disk tier
+        keeps the kernel libraries under ``<cache_dir>/kernels``; without
+        either, Explorers share torchsim's process-wide in-memory cache.
+        ``torch_graphs=False`` runs the step loop eagerly instead (the
+        other side of an A/B check on the card).
         ``processes`` > 0 fans chunks out to that many worker processes
         (exact fast/batch engines only).  ``cache_dir`` persists frozen
         graphs and schedule-free sims to disk, keyed by trace content
@@ -1008,6 +1039,13 @@ class Explorer:
         if device is not None and engine != "torch":
             raise ValueError(f"device only applies to engine='torch' "
                              f"(got engine={engine!r})")
+        if compile_cache is not None and engine != "torch":
+            raise ValueError(f"compile_cache only applies to engine='torch' "
+                             f"(got engine={engine!r})")
+        if not torch_graphs and engine != "torch":
+            raise ValueError(f"torch_graphs only applies to engine='torch' "
+                             f"(got engine={engine!r})")
+        self.torch_graphs = bool(torch_graphs)
         self.torch_megabatch = (engine == "torch") \
             if torch_megabatch is None else bool(torch_megabatch)
         self._sim_tier = "torch" if engine == "torch" else "exact"
@@ -1078,6 +1116,17 @@ class Explorer:
             self.hwspec = hwspec
             self._ppa_token = None
         self._disk = DiskCache(cache_dir) if cache_dir is not None else None
+        if compile_cache is not None:
+            self.compile_cache: Optional["CompileCache"] = compile_cache
+        elif engine == "torch" and self._disk is not None:
+            # one CompileCache per cache root, shared process-wide: a
+            # fresh per-Explorer instance would start with an empty
+            # memory tier and capture every runner again
+            self.compile_cache = _shared_compile_cache(self._disk)
+        else:
+            # None ⇒ torchsim's process-wide in-memory cache: fresh
+            # Explorers share captured runners within one process
+            self.compile_cache = None
         self.stats = CacheStats()
         self.batch_stats = BatchStats()     # parent-side batchsim telemetry
         self.order_library = order_library if order_library is not None \
@@ -1223,12 +1272,14 @@ class Explorer:
         return self.engine == "torch" and self.device.type == "cuda"
 
     def _engine_fault(self, exc: BaseException) -> None:
-        """An engine raised mid-sweep.  On the card every fault re-raises:
-        a sweep asked to run there neither moves to the host engines nor
-        hides the fault behind a warning.  Elsewhere it demotes
-        (:meth:`_demote`); the card's only demotion is the injected
-        ``fail_torch_import`` at construction."""
-        if self._on_card():
+        """An engine raised mid-sweep.  On the card every real fault
+        re-raises: a sweep asked to run there neither moves to the host
+        engines nor hides the fault behind a warning.  Elsewhere it
+        demotes (:meth:`_demote`); the card's only demotions are injected
+        faults (:class:`~repro_torch.testing.faults.InjectedFault`: the
+        compile cache's ``fail_compile``) and ``fail_torch_import`` at
+        construction."""
+        if self._on_card() and not isinstance(exc, faults.InjectedFault):
             raise exc
         self._demote(exc)
 
@@ -1862,7 +1913,9 @@ class Explorer:
                     sims = self._lockstep_family(payload, fam,
                                                  self._family_prune(fam))
                 except Exception as exc:    # noqa: BLE001 — fallback
-                    if isinstance(exc, DeviceError) or self._on_card():
+                    if isinstance(exc, DeviceError) or (
+                            self._on_card() and not isinstance(
+                                exc, faults.InjectedFault)):
                         raise       # never isolated onto the host
                     # chain exhausted mid-family: isolate (quarantines
                     # repeaters)
@@ -2101,6 +2154,7 @@ class Explorer:
             fams, self.policy, device=self.device, stats=self.batch_stats,
             library=self.order_library, max_rounds=self.max_rescue_rounds,
             prunes=prunes if any(p is not None for p in prunes) else None,
+            compile_cache=self.compile_cache, graphs=self.torch_graphs,
             **kw)
         n_total = sum(len(v) for v in pending.values()) or 1
         share = (time.perf_counter() - t0) / n_total
@@ -2173,7 +2227,9 @@ class Explorer:
                                           stats=self.batch_stats,
                                           library=self.order_library,
                                           max_rounds=self.max_rescue_rounds,
-                                          prune=prune, **kw)
+                                          prune=prune,
+                                          compile_cache=self.compile_cache,
+                                          graphs=self.torch_graphs, **kw)
                 if self.engine == "batch":
                     self._load_orders(payload)
                     if self.family_runner is not None:

@@ -41,6 +41,20 @@ step-input block with per-step validity masks, and each lane's cohort rows
 are pre-gathered on the host.  The routing/discovery protocol around it is
 :func:`repro_torch.core.replay.simulate_many`.
 
+**The compile cache.**  The JAX engine compiles its scan into one XLA
+executable per shape signature (``repro/core/jaxsim.py``, through
+``xlacache.CompileCache``).  Here each slice of lanes runs through a
+:class:`StepRunner` of :class:`~repro_torch.core.graphcache.CompileCache`,
+keyed by its shapes (:func:`_signature`): static buffers for the carried
+state and :data:`STEPS` steps of inputs, and on the card a CUDA graph of
+those steps captured once, so that one host call replays some 4,500
+kernels.  The step inputs are packed into three lane-last blocks
+(:func:`_pack`) and staged into the runner's buffers by three copies a
+replay; the task axis is padded to a multiple of :data:`STEPS` with inert
+steps, so that one capture serves every slice of a lane and slot bucket.
+Off the card the runner runs its eager body; ``graphs=False`` runs the
+loop eagerly without a runner, the other side of an A/B check.
+
 The device is never chosen here: ``device`` defaults to
 :func:`repro_torch.default_device` (the card), a missing card raises
 :class:`repro_torch.DeviceError`, and so does a kernel that fails to build
@@ -49,16 +63,23 @@ or launch.  The CPU runs the engine only when asked (``device="cpu"``).
 from __future__ import annotations
 
 import collections
+import functools
+import hashlib
 import threading
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import DeviceError, default_device, require_cuda
+from ..kernels import build as kbuild
+from ..kernels import lockstep_step as ls
 from ..kernels.lockstep_step import step_commit
 from ..testing import faults
+from . import graphcache
 from .devices import SystemConfig
+from .graphcache import CompileCache
 from .fastsim import FrozenGraph
 # TORCH_RTOL is re-exported here on purpose: it is this engine's tier.
 from .replay import (BatchStats, TORCH_RTOL, Layout,  # noqa: F401
@@ -145,38 +166,107 @@ def _set_row(state: torch.Tensor, rows: torch.Tensor,
     state.scatter_(0, rows.unsqueeze(0), vals.unsqueeze(0))
 
 
-def _run(xs: Dict[str, torch.Tensor], clocks: torch.Tensor,
-         ready: torch.Tensor, placement: torch.Tensor, busy: torch.Tensor,
-         seen: torch.Tensor, kind_pool: torch.Tensor, smp_kid: torch.Tensor,
-         eft: bool):
-    """The whole scan over ``T`` steps; the port of jaxsim's ``_runner``.
+#: Rows of the packed step inputs (:func:`_pack`): three lane-last blocks
+#: ``[T, W, B]``, one per dtype, so that a replay stages its steps in
+#: three copies.  The int64 block holds these rows, then ``own_opts``
+#: (K rows), ``par_opts`` (K) and the successors (SC); the bool block
+#: these, then ``act`` (NK); the f64 block ``own_cost`` (NK) then
+#: ``par_cost`` (NK).
+_INT_ROWS = ("r", "tb", "c", "k_first")
+_BOOL_ROWS = ("valid", "is_comp", "bad_row")
 
-    Step inputs ``xs`` are lane-aligned (``[T, B, ...]`` — each lane's
-    cohort rows pre-gathered on the host by :func:`_scan_cohorts`) and
-    per-step ``valid`` masks make the task-axis padding inert.  ``clocks``,
-    ``ready``, ``placement``, ``busy`` and ``seen`` are updated in place.
-    Returns ``(makespan, busy, seen, placement, div)``."""
-    B = clocks.shape[2]
-    dev = clocks.device
-    f64 = clocks.dtype
-    K = xs["own_opts"].shape[2]
+
+def _pack(lanes: Dict[str, np.ndarray]
+          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Lane-aligned step inputs (``[T, B, ...]``; successors ``[T, SC,
+    B]``) as the three packed blocks ``(xi, xf, xb)``."""
+    def rows(name):
+        return lanes[name].transpose(0, 2, 1)           # [T, B, W] -> [T, W, B]
+
+    xi = np.concatenate([lanes[f][:, None, :] for f in _INT_ROWS]
+                        + [rows("own_opts"), rows("par_opts"),
+                           lanes["succ"]], axis=1)
+    xf = np.concatenate([rows("own_cost"), rows("par_cost")], axis=1)
+    xb = np.concatenate([lanes[f][:, None, :] for f in _BOOL_ROWS]
+                        + [rows("act")], axis=1)
+    return xi, xf, xb
+
+
+class _State:
+    """The scan's carried state, lane-last: ``clocks [P, S, B]`` f64,
+    ``ready [rows, B]`` f64 and ``placement [rows, B]`` int32 (the last
+    row is the dummy row of padding steps), ``busy [P, B]`` f64, ``seen
+    [P, B]`` bool, and per lane ``makespan``, ``prev_rt``, ``prev_tb`` and
+    ``div``.  Every step updates it in place, so that a captured graph
+    reads and writes the same buffers at every replay.  A new state holds
+    valid values (a graph's warm-up runs on it)."""
+
+    def __init__(self, P: int, S: int, B: int, rows: int,
+                 device: torch.device):
+        f64 = torch.float64
+        self.clocks = torch.zeros((P, S, B), dtype=f64, device=device)
+        self.ready = torch.zeros((rows, B), dtype=f64, device=device)
+        self.placement = torch.full((rows, B), -1, dtype=torch.int32,
+                                    device=device)
+        self.busy = torch.zeros((P, B), dtype=f64, device=device)
+        self.seen = torch.zeros((P, B), dtype=torch.bool, device=device)
+        self.makespan = torch.zeros((B,), dtype=f64, device=device)
+        self.prev_rt = torch.full((B,), -torch.inf, dtype=f64, device=device)
+        self.prev_tb = torch.full((B,), -1, dtype=torch.int64, device=device)
+        self.div = torch.zeros((B,), dtype=torch.bool, device=device)
+
+    def reset(self, clocks: np.ndarray) -> None:
+        """A slice's initial state: ``clocks`` (0 for a lane's slots,
+        ``inf`` beyond them), nothing ready, placed, busy or seen."""
+        self.clocks.copy_(torch.from_numpy(clocks))
+        self.ready.zero_()
+        self.placement.fill_(-1)
+        self.busy.zero_()
+        self.seen.zero_()
+        self.makespan.zero_()
+        self.prev_rt.fill_(-torch.inf)
+        self.prev_tb.fill_(-1)
+        self.div.zero_()
+
+    def outputs(self) -> Tuple[np.ndarray, ...]:
+        """Host copies of ``(div, makespan, busy, seen, placement)``."""
+        return tuple(t.to("cpu", copy=True).numpy() for t in (
+            self.div, self.makespan, self.busy, self.seen, self.placement))
+
+
+def _steps(xi: torch.Tensor, xf: torch.Tensor, xb: torch.Tensor,
+           st: _State, kind_pool: torch.Tensor, smp_kid: torch.Tensor,
+           eft: bool, K: int) -> None:
+    """``xi.shape[0]`` steps of the scan on ``st``, in place; the port of
+    jaxsim's scan body.
+
+    Step inputs are the packed lane-aligned blocks of :func:`_pack` (each
+    lane's cohort rows pre-gathered on the host by :func:`_scan_cohorts`),
+    ``K`` option rows wide; per-step ``valid`` masks make the task-axis
+    padding inert.  Every operation is a PyTorch operation except the
+    commit, :func:`~repro_torch.kernels.lockstep_step.step_commit`."""
+    B = st.clocks.shape[2]
+    dev = st.clocks.device
+    f64 = st.clocks.dtype
+    NK = xf.shape[1] // 2
+    clocks, ready, placement = st.clocks, st.ready, st.placement
 
     def choose(opts, cost, rt, minc):
         """Vectorised reference `_choose_kind` over all lanes: options
         visited in annotation order, strict < on (key, pref) — the
         lowest-index winner, identical tie-breaks to the exact engines.
-        ``minc [P, B]`` is the step's hoisted earliest-free-slot
-        reduction."""
+        ``opts [K, B]``, ``cost [NK, B]``; ``minc [P, B]`` is the step's
+        hoisted earliest-free-slot reduction."""
         best_k = torch.full((B,), -1, dtype=torch.int64, device=dev)
         bv = torch.zeros((B,), dtype=f64, device=dev)
         bp = torch.zeros((B,), dtype=f64, device=dev)
         for j in range(K):                      # K is tiny
-            k = opts[:, j]
+            k = opts[j]
             kk = k.clamp(min=0)
             pi = _gather_lane(kind_pool, kk)
             valid = (k >= 0) & (pi >= 0)
             start = torch.maximum(rt, _gather_row(minc, pi.clamp(min=0)))
-            keyv = start + _gather_lane(cost, kk) if eft else start
+            keyv = start + _gather_row(cost, kk) if eft else start
             pref = (k == smp_kid).to(f64)
             better = valid & ((best_k < 0) | (keyv < bv)
                               | ((keyv == bv) & (pref < bp)))
@@ -185,60 +275,174 @@ def _run(xs: Dict[str, torch.Tensor], clocks: torch.Tensor,
             best_k = torch.where(better, k, best_k)
         return best_k
 
-    makespan = torch.zeros((B,), dtype=f64, device=dev)
-    prev_rt = torch.full((B,), -torch.inf, dtype=f64, device=dev)
-    prev_tb = torch.full((B,), -1, dtype=torch.int64, device=dev)
-    div = torch.zeros((B,), dtype=torch.bool, device=dev)
-    names = tuple(xs)
-    for step_x in zip(*(xs[k] for k in names)):
-        x = dict(zip(names, step_x))
-        valid = x["valid"]                                  # [B]
-        r = x["r"]                       # dummy row n_max on invalid steps
-        rt = _gather_row(ready, r)                          # [B]
-        tbv = x["tb"]
+    for u in range(xi.shape[0]):
+        xiu, xfu, xbu = xi[u], xf[u], xb[u]
+        r, tbv, c, k_first = xiu[0], xiu[1], xiu[2], xiu[3]
+        own_opts, par_opts = xiu[4:4 + K], xiu[4 + K:4 + 2 * K]
+        succ = xiu[4 + 2 * K:]                              # [SC, B]
+        own_cost, par_cost = xfu[:NK], xfu[NK:]
+        valid, is_comp, bad_row, act = xbu[0], xbu[1], xbu[2], xbu[3:]
+        rt = _gather_row(ready, r)      # r: dummy row on invalid steps
         # heap-key monotonicity: a lane whose popped (ready_t, tb) key
         # ever fails to strictly increase is not executing its own heap
         # order — flag it for the exact fallback (and any lane that live-
         # executes a bad row, below)
-        div |= valid & ((rt < prev_rt) | ((rt == prev_rt) & (tbv <= prev_tb)))
+        st.div |= valid & ((rt < st.prev_rt)
+                           | ((rt == st.prev_rt) & (tbv <= st.prev_tb)))
 
         # earliest-free slot per (pool, lane), shared by both choose passes
         minc = torch.amin(clocks, dim=1)                    # [P, B]
 
         # ---- conditional pass-through (per-lane mask) -------------------
-        c = x["c"]
         has_cond = (c >= 0) & valid
         cmax = c.clamp(min=0)
         pk_old = _gather_row(placement, cmax).long()        # [B]
-        chosen_p = choose(x["par_opts"], x["par_cost"], rt, minc)
+        chosen_p = choose(par_opts, par_cost, rt, minc)
         pk = torch.where(pk_old < 0, chosen_p, pk_old)
         _set_row(placement, cmax,
                  torch.where(has_cond, pk, pk_old).to(placement.dtype))
-        live = (~has_cond | _gather_lane(x["act"], pk.clamp(min=0))) & valid
+        live = (~has_cond | _gather_row(act, pk.clamp(min=0))) & valid
 
         # ---- dispatch + commit for the lanes executing the row ----------
         k_own = _gather_row(placement, r).long()
         und = k_own < 0
-        chosen_o = choose(x["own_opts"], x["own_cost"], rt, minc)
-        is_comp = x["is_comp"]
-        k = torch.where(is_comp, torch.where(und, chosen_o, k_own),
-                        x["k_first"])
+        chosen_o = choose(own_opts, own_cost, rt, minc)
+        k = torch.where(is_comp, torch.where(und, chosen_o, k_own), k_first)
         _set_row(placement, r,
                  torch.where(is_comp & live & und, k, k_own
                              ).to(placement.dtype))
-        div |= live & (x["bad_row"] | (k < 0))
+        st.div |= live & (bad_row | (k < 0))
         kk = k.clamp(min=0)
         p = _gather_lane(kind_pool, kk).clamp(min=0)        # [B]
-        base = _gather_lane(x["own_cost"], kk)              # [B]
-        end = step_commit(clocks, busy, seen, p, rt, base, live)
+        base = _gather_row(own_cost, kk)                    # [B]
+        end = step_commit(clocks, st.busy, st.seen, p, rt, base, live)
         end_eff = torch.where(live, end, torch.where(valid, rt, 0.0))
-        makespan = torch.maximum(makespan, end_eff)
-        succ = x["succ"]                                    # [SC, B]
+        torch.maximum(st.makespan, end_eff, out=st.makespan)
         ready.scatter_reduce_(0, succ, end_eff.unsqueeze(0).expand_as(succ),
                               reduce="amax", include_self=True)
-        prev_rt = torch.where(valid, rt, prev_rt)
-        prev_tb = torch.where(valid, tbv, prev_tb)
-    return makespan, busy, seen, placement, div
+        torch.where(valid, rt, st.prev_rt, out=st.prev_rt)
+        torch.where(valid, tbv, st.prev_tb, out=st.prev_tb)
+
+
+#: Steps in one replay of a captured step graph.  A matmul slice runs on
+#: the order of 10³ steps at ~140 kernels a step, so one graph of the
+#: whole scan would hold over 10⁵ nodes and be captured anew for every
+#: task count.  32 steps make a graph of ~4,500 nodes: a replay carries
+#: ~9 ms of device work at ~2 µs a kernel against some 20 µs of host work
+#: (three stage copies and the launch), and a slice pads by at most 31
+#: inert steps — under 3 % of a 10³-step matmul slice, 7 % of the
+#: 120-step Cholesky one.
+STEPS = 32
+
+
+class StepRunner:
+    """One shape signature of the scan, the runner of the compile cache
+    (:mod:`repro_torch.core.graphcache`): static buffers for a slice's
+    state and for :data:`STEPS` steps of inputs, and the steps over them —
+    on the card a captured CUDA graph, on the CPU the eager body.
+
+    :meth:`run` copies a slice's initial state in, stages and replays once
+    every :data:`STEPS` steps, credits the step-commit launches recorded at
+    capture at each replay, and copies the results out, all under the
+    runner's lock: two threads never share its buffers at once.
+
+    ``dims`` is ``(P, S, B, rows, WI, NK, K)``: pools, slots, lanes, state
+    rows, int64 block rows, kinds and options."""
+
+    def __init__(self, dims: Tuple[int, ...], device: torch.device,
+                 eft: bool, cache: CompileCache):
+        P, S, B, rows, WI, NK, K = dims
+        self.K, self.eft, self.cache = K, eft, cache
+        self.state = _State(P, S, B, rows, device)
+
+        def stage(width, dtype):
+            return torch.zeros((STEPS, width, B), dtype=dtype, device=device)
+
+        self.xi = stage(WI, torch.int64)
+        self.xf = stage(2 * NK, torch.float64)
+        self.xb = stage(len(_BOOL_ROWS) + NK, torch.bool)
+        self.kind_pool = torch.zeros((B, NK), dtype=torch.int64,
+                                     device=device)
+        self.smp_kid = torch.zeros((B,), dtype=torch.int64, device=device)
+        self.lock = threading.Lock()
+        self.graph = None
+        self.launches: collections.Counter = collections.Counter()
+        self.libraries: Tuple[Tuple[str, None], ...] = ()
+        if device.type == "cuda":
+            self.libraries = ((ls.SOURCE, None),)
+            kbuild.load(ls.SOURCE, bind=ls.bind, store=cache.kernel_store)
+            tallies = []
+
+            def body():
+                # the warm-up's launches and the capture's are not the
+                # path's; the capture's are credited at every replay
+                with ls.recording() as tally:
+                    self._body()
+                tallies.append(tally)
+
+            self.graph = graphcache.capture(body, cache)
+            self.launches = tallies[-1]
+
+    def _body(self) -> None:
+        _steps(self.xi, self.xf, self.xb, self.state, self.kind_pool,
+               self.smp_kid, self.eft, self.K)
+
+    def run(self, xi: torch.Tensor, xf: torch.Tensor, xb: torch.Tensor,
+            clocks: np.ndarray, kind_pool: torch.Tensor,
+            smp_kid: torch.Tensor) -> Tuple[np.ndarray, ...]:
+        """The slice whose packed inputs (``T`` a multiple of
+        :data:`STEPS`) and initial clocks are given; returns host copies
+        of ``(div, makespan, busy, seen, placement)``."""
+        replays = xi.shape[0] // STEPS
+        with self.lock:
+            self.state.reset(clocks)
+            self.kind_pool.copy_(kind_pool)
+            self.smp_kid.copy_(smp_kid)
+            for t0 in range(0, xi.shape[0], STEPS):
+                self.xi.copy_(xi[t0:t0 + STEPS])
+                self.xf.copy_(xf[t0:t0 + STEPS])
+                self.xb.copy_(xb[t0:t0 + STEPS])
+                if self.graph is None:
+                    self._body()
+                else:
+                    graphcache.replay(self.graph)
+            if self.graph is not None:
+                ls.credit(self.launches, replays)
+                self.cache.note_replays(replays)
+            return self.state.outputs()
+
+
+#: The compile cache of callers that name none: process-wide and in
+#: memory only, so that fresh Explorers share captured runners.
+_DEFAULT_CACHE = CompileCache()
+
+
+@functools.lru_cache(maxsize=None)
+def _code_fingerprint() -> str:
+    """Hash of the step loop's and its kernel's sources, part of every
+    runner's signature: a runner of an older step must miss."""
+    h = hashlib.sha256()
+    for path in (Path(__file__), Path(ls.__file__), kbuild.CSRC / ls.SOURCE):
+        try:
+            h.update(path.read_bytes())
+        except OSError:                 # sources unreadable: the
+            return "unhashable"         # environment key still applies
+    return h.hexdigest()[:16]
+
+
+def _signature(dims: Tuple[int, ...], device: torch.device,
+               eft: bool) -> Tuple:
+    """Shape signature of one runner — the compile-cache key body (the
+    environment half lives in CompileCache)."""
+    return (_code_fingerprint(), "step", str(device), eft, STEPS, dims)
+
+
+def _load_runner(cc: CompileCache, dims: Tuple[int, ...],
+                 device: torch.device, eft: bool) -> StepRunner:
+    """The runner for this signature: a memory hit, or one built (and
+    captured, on the card) now."""
+    return cc.load_or_compile(_signature(dims, device, eft),
+                              lambda: StepRunner(dims, device, eft, cc))
 
 
 # ---------------------------------------------------------------------------
@@ -414,15 +618,20 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
                                           Sequence[Layout],
                                           Optional[np.ndarray]]],
                   policy: str, *, chunk: int, device: torch.device,
+                  cache: Optional[CompileCache],
                   slot_bucketed: bool = False
                   ) -> List[Tuple[Dict[int, SimResult], List[int],
                                   Dict[int, float]]]:
     """Drive every lane of every ``(fg, order, layouts, cutoffs)`` cohort
-    through the shared step loop on ``device``.
+    through the shared step loop on ``device``: each slice through the
+    ``cache``'s runner of its signature (:class:`StepRunner`), or, with
+    ``cache=None``, through :func:`_steps` run eagerly on the slice.
 
     Task-axis padding layout: per-cohort step inputs (:func:`_group_xs`)
-    are stacked into ``[T_max, G, ...]`` blocks — steps beyond a cohort's
-    own length carry ``valid=False``, the dummy row id ``n_max`` and
+    are stacked into ``[T_pad, G, ...]`` blocks, ``T_pad`` the longest
+    cohort rounded up to a multiple of :data:`STEPS` (so that a runner's
+    signature does not depend on it) — steps beyond a cohort's own length
+    carry ``valid=False``, the dummy row id ``n_max`` and
     all-dummy successor lists, so they update nothing; rows/pools/options
     pad to the megabatch maxima with inert values (``-1`` options, dummy
     successors, ``inf`` clocks beyond a lane's slot count).  Lanes from
@@ -467,6 +676,7 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
     n_max = max(c["n"] for c in per)
     P_max = max(c["P"] for c in per)
     T_max = max(len(c["xs"]["r"]) for c in per)
+    T_pad = -(-T_max // STEPS) * STEPS
     K = max(c["xs"]["own_opts"].shape[1] for c in per)
     NK = max(len(c["kind_pool"]) for c in per)
     SC = max(c["xs"]["succ"].shape[1] for c in per)
@@ -482,25 +692,25 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
     _mega_memo: List[Optional[Dict[str, np.ndarray]]] = [None]
 
     def _mega() -> Dict[str, np.ndarray]:
-        """The ``[T_max, G, ...]`` task-axis-padded step-input stack, built
+        """The ``[T_pad, G, ...]`` task-axis-padded step-input stack, built
         lazily: a warm repeat sweep whose slices all hit the device cache
         never stacks it at all."""
         if _mega_memo[0] is not None:
             return _mega_memo[0]
         mega = {
-            "valid": np.zeros((T_max, G), dtype=bool),
-            "r": np.full((T_max, G), n_max, dtype=np.int64),
-            "tb": np.zeros((T_max, G), dtype=np.int64),
-            "c": np.full((T_max, G), -1, dtype=np.int64),
-            "is_comp": np.zeros((T_max, G), dtype=bool),
-            "k_first": np.zeros((T_max, G), dtype=np.int64),
-            "own_opts": np.full((T_max, G, K), -1, dtype=np.int64),
-            "own_cost": np.zeros((T_max, G, NK), dtype=np.float64),
-            "par_opts": np.full((T_max, G, K), -1, dtype=np.int64),
-            "par_cost": np.zeros((T_max, G, NK), dtype=np.float64),
-            "act": np.zeros((T_max, G, NK), dtype=bool),
-            "bad_row": np.zeros((T_max, G), dtype=bool),
-            "succ": np.full((T_max, SC, G), n_max, dtype=np.int64),
+            "valid": np.zeros((T_pad, G), dtype=bool),
+            "r": np.full((T_pad, G), n_max, dtype=np.int64),
+            "tb": np.zeros((T_pad, G), dtype=np.int64),
+            "c": np.full((T_pad, G), -1, dtype=np.int64),
+            "is_comp": np.zeros((T_pad, G), dtype=bool),
+            "k_first": np.zeros((T_pad, G), dtype=np.int64),
+            "own_opts": np.full((T_pad, G, K), -1, dtype=np.int64),
+            "own_cost": np.zeros((T_pad, G, NK), dtype=np.float64),
+            "par_opts": np.full((T_pad, G, K), -1, dtype=np.int64),
+            "par_cost": np.zeros((T_pad, G, NK), dtype=np.float64),
+            "act": np.zeros((T_pad, G, NK), dtype=bool),
+            "bad_row": np.zeros((T_pad, G), dtype=bool),
+            "succ": np.full((T_pad, SC, G), n_max, dtype=np.int64),
         }
         for gi, c in enumerate(per):
             xs = c["xs"]
@@ -529,7 +739,7 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
     base_key = (str(device),
                 tuple((c["fg"].content_hash(), tuple(c["xs"]["r"]),
                        tuple(c["kind_pool"])) for c in per),
-                (T_max, n_max, P_max, K, NK, SC),
+                (T_pad, n_max, P_max, K, NK, SC),
                 kind_pool_m.tobytes(), smp_kid_m.tobytes())
 
     lanes_flat = [(gi, pos) for gi, c in enumerate(per)
@@ -572,8 +782,9 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
                   for lo in range(0, len(lanes_flat), step)]
 
     def _lane_aligned(g_np: np.ndarray) -> Tuple:
-        """Step inputs gathered per lane (``[T, B, ...]``; successors
-        ``[T, SC, B]``) on ``device``, memoised per cohort-index vector."""
+        """Step inputs gathered per lane and packed (:func:`_pack`) on
+        ``device``, with each lane's pool map and SMP kind, memoised per
+        cohort-index vector."""
         key = (base_key, g_np.tobytes())
         with _CACHE_LOCK:
             hit = _DEV_XS_CACHE.get(key)
@@ -581,12 +792,10 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
                 _DEV_XS_CACHE.move_to_end(key)
                 return hit
         mega = _mega()
-        xs_d = {}
-        for k, v in mega.items():
-            lanes = v[:, :, g_np] if k == "succ" else v[:, g_np]
-            xs_d[k] = torch.from_numpy(
-                np.ascontiguousarray(lanes)).to(device)
-        hit = (xs_d, torch.from_numpy(kind_pool_m[g_np]).to(device),
+        lanes = {k: v[:, :, g_np] if k == "succ" else v[:, g_np]
+                 for k, v in mega.items()}
+        hit = (*(torch.from_numpy(b).to(device) for b in _pack(lanes)),
+               torch.from_numpy(kind_pool_m[g_np]).to(device),
                torch.from_numpy(smp_kid_m[g_np]).to(device))
         with _CACHE_LOCK:
             if key not in _DEV_XS_CACHE \
@@ -606,19 +815,18 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
             for p, cnt in enumerate(per[gi]["lane_counts"][pos]):
                 clocks[p, :cnt, li] = 0.0
         try:
-            xs_d, kp_d, sk_d = _lane_aligned(g_np)
-            makespan, busy, seen, placement, div = _run(
-                xs_d, torch.from_numpy(clocks).to(device),
-                torch.zeros((n_max + 1, B), dtype=torch.float64,
-                            device=device),
-                torch.full((n_max + 1, B), -1, dtype=torch.int32,
-                           device=device),
-                torch.zeros((P_max, B), dtype=torch.float64, device=device),
-                torch.zeros((P_max, B), dtype=torch.bool, device=device),
-                kp_d, sk_d, eft)
-            div_np = div.cpu().numpy()
-            mk_np, busy_np = makespan.cpu().numpy(), busy.cpu().numpy()
-            seen_np, place_np = seen.cpu().numpy(), placement.cpu().numpy()
+            xi_d, xf_d, xb_d, kp_d, sk_d = _lane_aligned(g_np)
+            if cache is None:
+                st = _State(P_max, S_sl, B, n_max + 1, device)
+                st.reset(clocks)
+                _steps(xi_d, xf_d, xb_d, st, kp_d, sk_d, eft, K)
+                out = st.outputs()
+            else:
+                runner = _load_runner(cache, (P_max, S_sl, B, n_max + 1,
+                                              xi_d.shape[1], NK, K),
+                                      device, eft)
+                out = runner.run(xi_d, xf_d, xb_d, clocks, kp_d, sk_d)
+            div_np, mk_np, busy_np, seen_np, place_np = out
         except _CARD_ERRORS as exc:
             raise DeviceError(f"the device failed in the torch step loop "
                               f"on {device}: {exc}") from exc
@@ -660,6 +868,15 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
 # ---------------------------------------------------------------------------
 
 
+def _cache_for(compile_cache: Optional[CompileCache],
+               graphs: bool) -> Optional[CompileCache]:
+    """The cache a sweep's slices go through: None (eager) when
+    ``graphs`` is off, else ``compile_cache`` or the process-wide one."""
+    if not graphs:
+        return None
+    return _DEFAULT_CACHE if compile_cache is None else compile_cache
+
+
 def simulate_torch(fg: FrozenGraph, systems: Sequence[SystemConfig],
                    policy: str = "availability", *,
                    device: DeviceLike = None,
@@ -669,7 +886,9 @@ def simulate_torch(fg: FrozenGraph, systems: Sequence[SystemConfig],
                    library: Optional[ReplayLibrary] = None,
                    max_rounds: int = MAX_RESCUE_ROUNDS,
                    rescue_min: int = RESCUE_MIN,
-                   prune: Optional[PruneContext] = None):
+                   prune: Optional[PruneContext] = None,
+                   compile_cache: Optional[CompileCache] = None,
+                   graphs: bool = True):
     """Schedule-free :class:`SimResult` per system, in input order.
 
     The torch tier of :func:`repro_torch.core.batchsim.simulate_batch`:
@@ -684,15 +903,23 @@ def simulate_torch(fg: FrozenGraph, systems: Sequence[SystemConfig],
     ``prune`` enables lane retirement
     (:class:`~repro_torch.core.replay.PruneContext`): lanes whose makespan
     exceeds the incumbent cutoff, pre-inflated by the engine's tolerance,
-    come back as :class:`~repro_torch.core.replay.Retired` markers."""
+    come back as :class:`~repro_torch.core.replay.Retired` markers.
+
+    The step loop runs through runners of the compile cache
+    (:class:`~repro_torch.core.graphcache.CompileCache`): ``compile_cache``
+    names one (like ``simulate_jax``'s), else the process-wide in-memory
+    cache serves.  On the card a runner replays a captured CUDA graph.
+    ``graphs=False`` runs the loop eagerly instead, bypassing the cache
+    (an A/B check's other side)."""
     dev = resolve_device(device)
     require_torch()
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk!r}")
+    cache = _cache_for(compile_cache, graphs)
 
     def lockstep(fg, order, layouts, policy, cutoffs=None):
         (triple,) = _scan_cohorts([(fg, order, layouts, cutoffs)], policy,
-                                  chunk=chunk, device=dev)
+                                  chunk=chunk, device=dev, cache=cache)
         return triple
 
     return simulate_grouped(fg, systems, policy, min_lockstep=min_lockstep,
@@ -711,7 +938,9 @@ def simulate_torch_many(items: Sequence[Tuple[FrozenGraph,
                         library: Optional[ReplayLibrary] = None,
                         max_rounds: int = MAX_RESCUE_ROUNDS,
                         prunes: Optional[Sequence[Optional[PruneContext]]]
-                        = None) -> List[List[SimResult]]:
+                        = None,
+                        compile_cache: Optional[CompileCache] = None,
+                        graphs: bool = True) -> List[List[SimResult]]:
     """Multi-graph megabatch: every ``(graph, systems)`` family of a sweep
     through one shared lane axis.
 
@@ -720,16 +949,18 @@ def simulate_torch_many(items: Sequence[Tuple[FrozenGraph,
     :func:`repro_torch.core.replay.simulate_many` — but heterogeneous
     graphs share the lane axis (task-axis padding, host-side lane-aligned
     pre-gather, slot-bucketed slices).  ``chunk`` defaults to
-    :data:`MEGABATCH_CHUNK`."""
+    :data:`MEGABATCH_CHUNK`; ``compile_cache`` and ``graphs`` as
+    :func:`simulate_torch`'s."""
     dev = resolve_device(device)
     require_torch()
     chunk = MEGABATCH_CHUNK if chunk is None else chunk
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk!r}")
+    cache = _cache_for(compile_cache, graphs)
 
     def lockstep_many(cohorts):
         return _scan_cohorts(cohorts, policy, chunk=chunk, device=dev,
-                             slot_bucketed=True)
+                             cache=cache, slot_bucketed=True)
 
     return simulate_many(items, policy, lockstep_many_fn=lockstep_many,
                          min_lockstep=min_lockstep, stats=stats,

@@ -99,7 +99,7 @@ def tiles_library(library: Optional[ctypes.CDLL] = None) -> ctypes.CDLL:
     if library is not None:
         return bind(library)
     if _CACHED is None:
-        _CACHED = bind(build.load(SOURCE))
+        _CACHED = build.load(SOURCE, bind=bind)
     return _CACHED
 
 

@@ -89,16 +89,26 @@ def _bind(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
     return lib
 
 
+def bind_fma(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``flash_attention.cu``, bound."""
+    return _bind(lib, "flash_attention")
+
+
+def bind_wgmma(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``flash_attention_wgmma.cu``, bound."""
+    return _bind(lib, "flash_attention_wgmma")
+
+
 def library() -> ctypes.CDLL:
     """The built ``flash_attention.cu`` with its entry points' argument
     types declared."""
-    return _bind(build.load(SOURCE), "flash_attention")
+    return build.load(SOURCE, bind=bind_fma)
 
 
 def wgmma_library() -> ctypes.CDLL:
     """The built ``flash_attention_wgmma.cu`` with its entry points'
     argument types declared."""
-    return _bind(build.load(SOURCE_WGMMA), "flash_attention_wgmma")
+    return build.load(SOURCE_WGMMA, bind=bind_wgmma)
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor,

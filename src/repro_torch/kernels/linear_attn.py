@@ -133,14 +133,24 @@ def bind(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
     return lib
 
 
+def bind_serial(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``linear_attn.cu``, bound."""
+    return bind(lib, "linear_attn")
+
+
+def bind_subchunk(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``linear_attn_tc.cu``, bound."""
+    return bind(lib, "linear_attn_tc")
+
+
 def library(variant: str = "serial") -> ctypes.CDLL:
     """The bound build of ``variant``'s source, built by the first call."""
     lib = _CACHED.get(variant)
     if lib is None:
         if variant == "subchunk":
-            lib = bind(build.load(SOURCE_TC), "linear_attn_tc")
+            lib = build.load(SOURCE_TC, bind=bind_subchunk)
         else:
-            lib = bind(build.load(SOURCE), "linear_attn")
+            lib = build.load(SOURCE, bind=bind_serial)
         _CACHED[variant] = lib
     return lib
 

@@ -27,11 +27,12 @@ block.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import struct
 import threading
 from collections import Counter
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
@@ -40,7 +41,9 @@ from . import build
 from .block_matmul import current_stream, on_card
 
 #: Kernel launches since the last reset: one per CUDA call, none for the
-#: plain version.  Callers reset it to 0 before a run they want to count.
+#: plain version; a captured graph's launches count at each replay
+#: (:func:`recording`).  Callers reset it to 0 before a run they want to
+#: count.
 LAUNCHES = 0
 
 #: The same launches by ``(P, S, B)`` shape; cleared with ``LAUNCHES``.
@@ -49,6 +52,9 @@ SHAPES: Counter = Counter()
 #: Makes each launch's update of ``LAUNCHES`` and ``SHAPES`` one step for
 #: threads that launch at once.
 COUNT_LOCK = threading.Lock()
+
+#: The tally of the thread's :func:`recording` block, if one is open.
+_TALLY = threading.local()
 
 SOURCE = "lockstep_step.cu"
 
@@ -136,7 +142,7 @@ def step_library() -> ctypes.CDLL:
     first call and held here."""
     global _CACHED
     if _CACHED is None:
-        _CACHED = bind(build.load(SOURCE))
+        _CACHED = build.load(SOURCE, bind=bind)
     return _CACHED
 
 
@@ -198,6 +204,34 @@ def takes(clocks, busy, seen, p, rt, base, live) -> bool:
             and 1 <= S < 2 ** 31 and B < MAX_LANES)
 
 
+@contextlib.contextmanager
+def recording() -> Iterator[Counter]:
+    """Launches this thread makes inside the block are tallied by shape in
+    the yielded Counter instead of :data:`LAUNCHES` and :data:`SHAPES`.
+
+    A CUDA graph capture runs the wrapper's Python body once, and the
+    kernel then runs at every replay: the graph's runner records the
+    capture's launches so, and credits them (:func:`credit`) at every
+    replay."""
+    prev = getattr(_TALLY, "shapes", None)
+    tally: Counter = Counter()
+    _TALLY.shapes = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.shapes = prev
+
+
+def credit(shapes: Counter, times: int = 1) -> None:
+    """Count ``times`` runs of the launches ``shapes`` (a
+    :func:`recording` tally) in :data:`LAUNCHES` and :data:`SHAPES`."""
+    global LAUNCHES
+    with COUNT_LOCK:
+        LAUNCHES += times * sum(shapes.values())
+        for shape, n in shapes.items():
+            SHAPES[shape] += times * n
+
+
 def step_commit(clocks: torch.Tensor, busy: torch.Tensor, seen: torch.Tensor,
                 p: torch.Tensor, rt: torch.Tensor, base: torch.Tensor,
                 live: torch.Tensor) -> torch.Tensor:
@@ -223,6 +257,10 @@ def step_commit(clocks: torch.Tensor, busy: torch.Tensor, seen: torch.Tensor,
         msg = lib.step_commit_error_string(rc).decode(errors="replace")
         raise DeviceError(f"step_commit kernel launch failed: {msg} "
                           f"(cudaError {rc}) at P={P} S={S} B={B}")
+    tally = getattr(_TALLY, "shapes", None)
+    if tally is not None:
+        tally[P, S, B] += 1
+        return end
     with COUNT_LOCK:
         LAUNCHES += 1
         SHAPES[P, S, B] += 1

@@ -15,7 +15,7 @@ PyTorch: the JAX package runs it as an einsum too, outside any kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -111,12 +111,13 @@ def attention_kernel(q, k, v, *, causal=True, window=0, cap=0.0, offset=0):
     return out.reshape(b, h, t, dh).transpose(1, 2)
 
 
-def attention_decode(q, k_cache, v_cache, *, length: int, window=0,
-                     cap=0.0):
+def attention_decode(q, k_cache, v_cache, *,
+                     length: Union[int, torch.Tensor], window=0, cap=0.0):
     """One-token decode: q (B, 1, H, Dh) vs cache (B, S, Hkv, Dh).
 
     ``length`` — number of valid cache positions (the new token is at
-    ``length - 1``)."""
+    ``length - 1``), a Python int or a 0-d tensor on the cache's device
+    (the mask is then built on the device)."""
     b, _, h, dh = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     group = h // hkv
@@ -163,14 +164,18 @@ class Attention(nn.Module):
                 rope_theta: float = 1e4, causal: bool = True,
                 window: int = 0, cap: float = 0.0, impl: str = "kernel",
                 kv_cache: Optional[Cache] = None,
-                cache_length: Optional[int] = None, use_rope: bool = True
+                cache_length: Union[int, torch.Tensor, None] = None,
+                use_rope: bool = True
                 ) -> Tuple[torch.Tensor, Cache]:
         """Returns ``(output, cache)``.
 
         Prefill: ``kv_cache=None`` runs q against this segment's own k/v
         and returns them as a fresh cache ``{k, v}``.  Decode: ``kv_cache``
         given and ``x`` is ``(B, t, d)``; the new k/v are written in place
-        into the cache at ``cache_length - t``, and the cache returned."""
+        into the cache at ``cache_length - t``, and the cache returned.
+        ``cache_length`` may be a device tensor: decode reads nothing on
+        the host, so that a decode step can be captured in a CUDA
+        graph."""
         b, t, _ = x.shape
         q = self.wq(x).reshape(b, t, self.n_heads, self.head_dim)
         k = self.wk(x).reshape(b, t, self.n_kv, self.head_dim)
@@ -186,12 +191,12 @@ class Attention(nn.Module):
             out = IMPLS[impl](q, k, v, causal=causal, window=window, cap=cap)
             new_cache = {"k": k, "v": v}
         else:
-            idx = int(cache_length) - t
-            kv_cache["k"][:, idx:idx + t] = k
-            kv_cache["v"][:, idx:idx + t] = v
+            length = torch.as_tensor(cache_length, device=x.device)
+            idx = length - t + torch.arange(t, device=x.device)
+            kv_cache["k"].index_copy_(1, idx, k.to(kv_cache["k"].dtype))
+            kv_cache["v"].index_copy_(1, idx, v.to(kv_cache["v"].dtype))
             out = attention_decode(q, kv_cache["k"], kv_cache["v"],
-                                   length=int(cache_length), window=window,
-                                   cap=cap)
+                                   length=length, window=window, cap=cap)
             new_cache = kv_cache
         out = out.reshape(b, t, self.n_heads * self.head_dim)
         return self.wo(out), new_cache

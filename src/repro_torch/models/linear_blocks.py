@@ -23,7 +23,7 @@ Mamba2 (zamba2's block) is still to port.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -173,12 +173,12 @@ class RWKV6(nn.Module):
     def forward(self, x: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[State] = None,
-                cache_length: Optional[int] = None
+                cache_length: Union[int, torch.Tensor, None] = None
                 ) -> Tuple[torch.Tensor, State]:
         """Returns ``(x, state)``.  Prefill (``cache`` None, or more than
         one token) starts from a zero state and returns a fresh one;
         decode (``cache`` given, one token) continues ``cache`` and updates
-        the dict in place.  ``positions`` and ``cache_length`` are not
+        its tensors in place.  ``positions`` and ``cache_length`` are not
         used: the state carries no positions."""
         b, t, d = x.shape
         hd = self.head_dim
@@ -225,7 +225,10 @@ class RWKV6(nn.Module):
         new_state = {"wkv": wkv, "shift1": xn[:, -1, :],
                      "shift2": xn2[:, -1, :]}
         if decoding:
-            cache.update(new_state)
+            # into the state's own buffers, so that a decode step captured
+            # in a CUDA graph advances the buffers it was captured on
+            for name, value in new_state.items():
+                cache[name].copy_(value)
             return x, cache
         return x, new_state
 

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -179,7 +179,7 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Cache] = None,
-                cache_length: Optional[int] = None
+                cache_length: Union[int, torch.Tensor, None] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         cfg, spec = self.cfg, self.spec
         h, new_cache = self.attn(
@@ -251,8 +251,9 @@ class Transformer(nn.Module):
 
 def _scale_embeddings(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.embed_scale:     # the factor rounded to the weights' type first
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype,
-                             device=x.device)
+        # (a host scalar: no copy to the device, so that a decode step
+        # can be captured in a CUDA graph)
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype))
     return x
 
 
@@ -326,14 +327,18 @@ def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
 
 
 def decode_step(model: Transformer, tokens: torch.Tensor, cache: List[Cache],
-                length: int) -> Tuple[torch.Tensor, List[Cache]]:
+                length: Union[int, torch.Tensor]
+                ) -> Tuple[torch.Tensor, List[Cache]]:
     """One serving step: ``tokens (B, 1)`` against a cache whose first
     ``length`` positions are valid (an attention layer writes the new
     token, in place, at ``length - 1``; an RWKV6 layer advances its state
-    in place).  Returns ``(logits (B, 1, V), cache)``."""
+    in place).  Returns ``(logits (B, 1, V), cache)``.  ``length`` may be
+    a 0-d device tensor: the step then reads nothing on the host, which is
+    what lets the serve engine capture it in a CUDA graph."""
     x = _scale_embeddings(model.cfg, model.embed(tokens).to(model.cfg.dtype))
     b, t, _ = x.shape
-    positions = torch.full((b, t), int(length) - 1, device=x.device)
+    length = torch.as_tensor(length, device=x.device)
+    positions = (length - 1).reshape(1, 1).expand(b, t)
     for layer, c in zip(model.layers, cache):
         x, _ = layer(x, positions, c, length)
     return _logits(model, x), cache

@@ -271,12 +271,13 @@ class SweepService:
         self.coalescer = Coalescer(
             coalesce_window, library=self.library,
             load_fn=self._running)
-        # torch sweeps take the engine one at a time: a step loop is a
-        # Python loop of ~140 small launches a step, and threads that
+        # torch sweeps take the engine one at a time: threads that
         # interleave step loops hand the interpreter lock over at every
-        # launch, which costs far more than the loops themselves
-        # (tools/sweepd_concurrency.py).  An admitted torch request waits
-        # here within its budget; the wait counts as queue time.
+        # launch (tools/sweepd_concurrency.py), and every replay of the
+        # step loop's captured graphs (shared by the requests' Explorers
+        # through the compile cache) stays under this lock.  An admitted
+        # torch request waits here within its budget; the wait counts as
+        # queue time.
         self._torch_lock = threading.Lock()
 
     def _running(self) -> int:

@@ -53,6 +53,7 @@ delay_chunk    worker, chunk entry; arg = seconds (def. 0.5)  sleep
 corrupt_cache  DiskCache.put; payload written corrupted       bad entry
 delay_put      DiskCache.put, pre-rename; arg = seconds       sleep
 fail_torch_import torchsim.require_torch                     raise
+fail_compile   graphcache.CompileCache.load_or_compile        raise
 fail_lockstep  batchsim._run_lockstep entry                   raise
 ============== ============================================== ==========
 
@@ -77,7 +78,13 @@ ENV_TOKEN = "REPRO_FAULTS_TOKEN"
 
 #: Site names production code may fire; unknown sites in a spec fail fast.
 SITES = ("kill_worker", "kill_candidate", "delay_chunk", "corrupt_cache",
-         "delay_put", "fail_torch_import", "fail_lockstep")
+         "delay_put", "fail_torch_import", "fail_compile", "fail_lockstep")
+
+
+class InjectedFault(RuntimeError):
+    """What a raising site throws: an engine fault on demand.  The
+    Explorer demotes on it even on the card, where a real fault of the
+    torch engine re-raises."""
 
 
 class _Rule:

@@ -296,6 +296,9 @@ def test_bad_tensor_for_the_kernel_fails_the_sweep_on_the_card(monkeypatch,
                                          p.to(torch.int32), *rest)
 
     monkeypatch.setattr(torchsim, "step_commit", int32_pools)
+    # the wrapper runs when a step graph is captured (a graph captured
+    # earlier in the process replays without it): an empty compile cache
+    monkeypatch.setattr(torchsim, "_DEFAULT_CACHE", torchsim.CompileCache())
     tr, rep = synth.synth_trace(24), synth.synth_reports()
     ex = Explorer(tr, rep, engine="torch", device="cuda",
                   torch_megabatch=megabatch)
@@ -315,6 +318,8 @@ def test_any_engine_fault_on_the_card_raises_and_never_demotes(monkeypatch,
         raise RuntimeError("injected lockstep bug")
 
     monkeypatch.setattr(torchsim, "step_commit", broken)
+    # as above: the fault is raised where a step graph is captured
+    monkeypatch.setattr(torchsim, "_DEFAULT_CACHE", torchsim.CompileCache())
     tr, rep = synth.synth_trace(24), synth.synth_reports()
     ex = Explorer(tr, rep, engine="torch", device="cuda",
                   torch_megabatch=megabatch)

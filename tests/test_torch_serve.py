@@ -358,3 +358,113 @@ def test_bf16_engine_on_the_card_goes_through_wgmma(arch):
         picked = pos.gather(1, torch.tensor(r.out, device="cuda")[:, None])
         assert torch.all(pos.amax(1) - picked[:, 0] <= BF16_SELFCHECK_TOL), \
             r.rid
+
+
+# ---------------------------------------------------------------------------
+# decode with the cache length on the device, and the captured step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("lengths", sorted(PROMPT_LENGTHS))
+def test_decode_with_a_device_tensor_length_serves_the_jax_tokens(
+        arch, lengths, jx):
+    """The decode loop written out with the cache length as a 0-d tensor
+    that the loop advances in place (what the captured step does) serves
+    the JAX engine's tokens, up to a near-tie (``TIE_TOL``); and one step
+    with the length as a tensor gives bit for bit the logits of the same
+    step with the length as an int."""
+    jax, jnp, jconfigs, JT, jengine = jx
+    jcfg = jconfigs.get_smoke(arch)
+    params = JT.init(jcfg, jax.random.PRNGKey(2))
+    cfg = configs.get_smoke(arch)
+    model = T.Transformer(cfg, device="cpu")
+    model.load_state_dict(import_lm_params(
+        cfg, jax.tree.map(np.asarray, params)))
+    prompt_list = prompts(cfg.vocab, PROMPT_LENGTHS[lengths], seed=4)
+    max_new, slots = 5, len(prompt_list)
+    max_len = max(PROMPT_LENGTHS[lengths]) + max_new + 1
+    traced = jax_engine_logits(jx, jcfg, params, prompt_list, max_new, slots,
+                               max_len)
+
+    prefill = engine.make_prefill_step(model, max_len)
+    caches, toks = [], []
+    for pr in prompt_list:
+        tok, cache = prefill({"tokens": torch.from_numpy(pr)[None]})
+        caches.append(cache)
+        toks.append(tok)
+    cache = [{name: torch.cat([c[layer][name] for c in caches])
+              for name in caches[0][layer]} for layer in range(cfg.n_layers)]
+    toks = torch.cat(toks)
+    length = torch.tensor(max(PROMPT_LENGTHS[lengths]) + 1)
+    as_int = [{k: v.clone() for k, v in c.items()} for c in cache]
+    want, _ = T.decode_step(model, toks, as_int, int(length))
+    served = [[int(t)] for t in toks[:, 0]]
+    for step in range(max_new - 1):
+        logits, cache = T.decode_step(model, toks, cache, length)
+        if step == 0:
+            assert logits.numpy().tobytes() == want.numpy().tobytes()
+            assert all(torch.equal(a[k], b[k]) for a, b in zip(cache, as_int)
+                       for k in a)
+        toks = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        length.add_(1)
+        for i, t in enumerate(toks[:, 0].tolist()):
+            served[i].append(t)
+    for rid, got in enumerate(served):
+        for i, (tok, (jtok, jlogits)) in enumerate(zip(got, traced[rid])):
+            if tok == jtok:
+                continue
+            gap = top_two_gap(jlogits)
+            assert gap < TIE_TOL, (arch, rid, i, tok, jtok, gap)
+            warnings.warn(f"{arch} request {rid} token {i}: port {tok}, JAX "
+                          f"{jtok} at a near-tie (top-two gap {gap})")
+            break
+
+
+def test_engine_keeps_decode_runners_per_batch_size():
+    """Five requests on two slots decode in batches of 2, 2 and 1: two
+    runners (the last batch gets its own, never padded), one memory hit,
+    the capture time apart from ``decode_s``, and the tokens of the eager
+    step (``graphs=False``, no runner cached) exactly."""
+    cfg = configs.get_smoke("qwen3-0.6b")
+    model = T.Transformer(cfg, device="cpu")
+    out = {}
+    for graphs in (True, False):
+        eng = engine.Engine(model, slots=2, max_len=24, graphs=graphs)
+        for rid, pr in enumerate(prompts(cfg.vocab, (9, 14, 6, 11, 3))):
+            eng.submit(engine.Request(rid=rid, prompt=pr, max_new=5))
+        out[graphs] = {r.rid: r.out for r in eng.run()}
+        cc = eng.compile_cache.as_dict()
+        if graphs:
+            assert cc["compiles"] == 2 and cc["mem_hits"] == 1
+        else:
+            assert cc["compiles"] == 0 and cc["mem_hits"] == 0
+        assert cc["captures"] == 0                   # CPU: the eager body
+        assert eng.stats.capture_s >= 0.0 and eng.stats.decode_steps == 12
+    assert out[True] == out[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+def test_graph_decode_serves_the_eager_tokens_on_the_card(arch):
+    """On the card the captured decode step serves the eager step's tokens
+    exactly, and its last-step logits within 1e-4 (f32: cuBLAS may pick
+    another algorithm under capture, which reorders sums); one capture a
+    batch size, replays one a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_smoke(arch)
+    model = T.Transformer(cfg, device="cuda")
+    got = {}
+    for graphs in (True, False):
+        eng = engine.Engine(model, slots=2, max_len=40, graphs=graphs)
+        for rid, pr in enumerate(prompts(cfg.vocab, (12, 12, 20), seed=5)):
+            eng.submit(engine.Request(rid=rid, prompt=pr, max_new=6))
+        tokens = {r.rid: r.out for r in eng.run()}
+        last = eng.last_logits.float().cpu()
+        got[graphs] = (tokens, last, eng.compile_cache.as_dict())
+    assert got[True][0] == got[False][0]
+    assert (got[True][1] - got[False][1]).abs().max() <= 1e-4
+    cc = got[True][2]
+    assert cc["captures"] == 2 and cc["replays"] == 2 * 5  # 2 rounds

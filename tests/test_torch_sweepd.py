@@ -1028,6 +1028,10 @@ class FailingLaunches:
 def test_failed_kernel_launch_on_the_card_answers_500(monkeypatch):
     needs_card()
     monkeypatch.setattr(lockstep_step, "_CACHED", FailingLaunches())
+    # the wrapper launches when a step graph is captured (a graph captured
+    # earlier in the process replays without it): start from an empty
+    # compile cache, so that the sweep captures and its launch fails
+    monkeypatch.setattr(torchsim, "_DEFAULT_CACHE", torchsim.CompileCache())
     svc = SweepService(device="cuda", breaker_threshold=1,
                        coalesce_window=0.0)
     status, doc = svc.submit(body(trace="synth:40", engine="torch"))

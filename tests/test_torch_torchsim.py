@@ -32,6 +32,7 @@ from repro.testing import synth as ref_synth
 from repro_torch import DeviceError
 from repro_torch.core import devices, fastsim, replay, taskgraph, trace
 from repro_torch.core import torchsim
+from repro_torch.kernels import lockstep_step
 from repro_torch.testing import synth
 
 #: Same tier as ``JAX_RTOL``; f64 end to end.
@@ -477,3 +478,268 @@ def test_threads_sharing_the_engine_caches_get_their_serial_results(
     assert not errors, errors
     for i, runs in enumerate(got):
         assert runs == [serial[i]] * 2, i
+
+
+# ---------------------------------------------------------------------------
+# the U-step body and the compile cache
+# ---------------------------------------------------------------------------
+
+
+def legacy_run(xs, clocks, ready, placement, busy, seen, kind_pool, smp_kid,
+               eft):
+    """The step loop as it stood before the compile cache: the whole scan
+    over ``T`` steps, one dict entry per step input.
+
+    Step inputs ``xs`` are lane-aligned (``[T, B, ...]`` — each lane's
+    cohort rows pre-gathered on the host by :func:`_scan_cohorts`) and
+    per-step ``valid`` masks make the task-axis padding inert.  ``clocks``,
+    ``ready``, ``placement``, ``busy`` and ``seen`` are updated in place.
+    Returns ``(makespan, busy, seen, placement, div)``."""
+    B = clocks.shape[2]
+    dev = clocks.device
+    f64 = clocks.dtype
+    K = xs["own_opts"].shape[2]
+
+    def choose(opts, cost, rt, minc):
+        """Vectorised reference `_choose_kind` over all lanes: options
+        visited in annotation order, strict < on (key, pref) — the
+        lowest-index winner, identical tie-breaks to the exact engines.
+        ``minc [P, B]`` is the step's hoisted earliest-free-slot
+        reduction."""
+        best_k = torch.full((B,), -1, dtype=torch.int64, device=dev)
+        bv = torch.zeros((B,), dtype=f64, device=dev)
+        bp = torch.zeros((B,), dtype=f64, device=dev)
+        for j in range(K):                      # K is tiny
+            k = opts[:, j]
+            kk = k.clamp(min=0)
+            pi = torchsim._gather_lane(kind_pool, kk)
+            valid = (k >= 0) & (pi >= 0)
+            start = torch.maximum(rt, torchsim._gather_row(minc, pi.clamp(min=0)))
+            keyv = start + torchsim._gather_lane(cost, kk) if eft else start
+            pref = (k == smp_kid).to(f64)
+            better = valid & ((best_k < 0) | (keyv < bv)
+                              | ((keyv == bv) & (pref < bp)))
+            bv = torch.where(better, keyv, bv)
+            bp = torch.where(better, pref, bp)
+            best_k = torch.where(better, k, best_k)
+        return best_k
+
+    makespan = torch.zeros((B,), dtype=f64, device=dev)
+    prev_rt = torch.full((B,), -torch.inf, dtype=f64, device=dev)
+    prev_tb = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    div = torch.zeros((B,), dtype=torch.bool, device=dev)
+    names = tuple(xs)
+    for step_x in zip(*(xs[k] for k in names)):
+        x = dict(zip(names, step_x))
+        valid = x["valid"]                                  # [B]
+        r = x["r"]                       # dummy row n_max on invalid steps
+        rt = torchsim._gather_row(ready, r)                          # [B]
+        tbv = x["tb"]
+        # heap-key monotonicity: a lane whose popped (ready_t, tb) key
+        # ever fails to strictly increase is not executing its own heap
+        # order — flag it for the exact fallback (and any lane that live-
+        # executes a bad row, below)
+        div |= valid & ((rt < prev_rt) | ((rt == prev_rt) & (tbv <= prev_tb)))
+
+        # earliest-free slot per (pool, lane), shared by both choose passes
+        minc = torch.amin(clocks, dim=1)                    # [P, B]
+
+        # ---- conditional pass-through (per-lane mask) -------------------
+        c = x["c"]
+        has_cond = (c >= 0) & valid
+        cmax = c.clamp(min=0)
+        pk_old = torchsim._gather_row(placement, cmax).long()        # [B]
+        chosen_p = choose(x["par_opts"], x["par_cost"], rt, minc)
+        pk = torch.where(pk_old < 0, chosen_p, pk_old)
+        torchsim._set_row(placement, cmax,
+                 torch.where(has_cond, pk, pk_old).to(placement.dtype))
+        live = (~has_cond | torchsim._gather_lane(x["act"], pk.clamp(min=0))) & valid
+
+        # ---- dispatch + commit for the lanes executing the row ----------
+        k_own = torchsim._gather_row(placement, r).long()
+        und = k_own < 0
+        chosen_o = choose(x["own_opts"], x["own_cost"], rt, minc)
+        is_comp = x["is_comp"]
+        k = torch.where(is_comp, torch.where(und, chosen_o, k_own),
+                        x["k_first"])
+        torchsim._set_row(placement, r,
+                 torch.where(is_comp & live & und, k, k_own
+                             ).to(placement.dtype))
+        div |= live & (x["bad_row"] | (k < 0))
+        kk = k.clamp(min=0)
+        p = torchsim._gather_lane(kind_pool, kk).clamp(min=0)        # [B]
+        base = torchsim._gather_lane(x["own_cost"], kk)              # [B]
+        end = lockstep_step.step_commit(clocks, busy, seen, p, rt, base, live)
+        end_eff = torch.where(live, end, torch.where(valid, rt, 0.0))
+        makespan = torch.maximum(makespan, end_eff)
+        succ = x["succ"]                                    # [SC, B]
+        ready.scatter_reduce_(0, succ, end_eff.unsqueeze(0).expand_as(succ),
+                              reduce="amax", include_self=True)
+        prev_rt = torch.where(valid, rt, prev_rt)
+        prev_tb = torch.where(valid, tbv, prev_tb)
+    return makespan, busy, seen, placement, div
+
+
+def lane_inputs(fg, systems, T, policy):
+    """One cohort's step inputs, lane-aligned over ``systems``, cut to
+    its first ``T`` steps: the old layout (``[T, B, ...]``, successors
+    ``[T, SC, B]``) with ``valid`` set, the initial clocks, each lane's
+    pool map and SMP kind, and the dummy row ``fg.n``."""
+    order = []
+    fastsim.simulate_fast(fg, systems[0], policy, order_out=order)
+    assert len(order) >= T
+    layouts = [fastsim.pool_layout(fg.kinds, s) for s in systems]
+    kind_pool = layouts[0][2]
+    xs = torchsim._group_xs(fg, order, kind_pool)
+    B = len(systems)
+    lanes = {k: np.repeat(v[:T, None], B, axis=1) for k, v in xs.items()
+             if k != "succ"}
+    lanes["succ"] = np.repeat(xs["succ"][:T, :, None], B, axis=2)
+    lanes["valid"] = np.ones((T, B), dtype=bool)
+    S = max(max(lay[1]) for lay in layouts)
+    clocks = np.full((len(layouts[0][0]), S, B), np.inf)
+    for li, lay in enumerate(layouts):
+        for p, cnt in enumerate(lay[1]):
+            clocks[p, :cnt, li] = 0.0
+    kinds = fg.kinds
+    smp = kinds.index("smp") if "smp" in kinds else -1
+    return (lanes, clocks, np.tile(np.asarray(kind_pool), (B, 1)),
+            np.full((B,), smp), fg.n)
+
+
+def inert_padding(lanes, T_pad, dummy):
+    """``lanes`` padded to ``T_pad`` steps the way ``_scan_cohorts`` pads
+    the task axis: invalid steps on the dummy row, no options, dummy
+    successors."""
+    T = lanes["r"].shape[0]
+    fill = {"valid": False, "r": dummy, "c": -1, "own_opts": -1,
+            "par_opts": -1, "succ": dummy}
+    out = {}
+    for k, v in lanes.items():
+        pad = np.full((T_pad - T,) + v.shape[1:], fill.get(k, 0),
+                      dtype=v.dtype)
+        out[k] = np.concatenate([v, pad])
+    return out
+
+
+def bits(*arrays):
+    return [np.ascontiguousarray(a).tobytes() for a in arrays]
+
+
+@pytest.mark.parametrize("T", [5, torchsim.STEPS, 45])
+@pytest.mark.parametrize("policy", ["availability", "eft"])
+def test_step_body_is_bitwise_the_old_step_loop(T, policy):
+    """The packed U-step body — through a runner's static buffers, padded
+    to a multiple of ``STEPS`` with inert steps, and run eagerly on the
+    unpadded slice — gives bit for bit what the old step loop gives on the
+    same inputs, with ``T`` below, equal to and not a multiple of
+    ``STEPS``."""
+    _, fg = both_frozen(40, True)
+    _, systems = zynq_pair(range(1, 9))
+    lanes, clocks, kind_pool, smp_kid, dummy = lane_inputs(
+        fg, systems, T, policy)
+    eft = policy == "eft"
+    P, S, B = clocks.shape
+    rows = dummy + 1
+    K, NK = lanes["own_opts"].shape[2], lanes["own_cost"].shape[2]
+    t = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in lanes.items()}
+    mk, busy, seen, place, div = legacy_run(
+        t, torch.from_numpy(clocks.copy()),
+        torch.zeros((rows, B), dtype=torch.float64),
+        torch.full((rows, B), -1, dtype=torch.int32),
+        torch.zeros((P, B), dtype=torch.float64),
+        torch.zeros((P, B), dtype=torch.bool),
+        torch.from_numpy(kind_pool), torch.from_numpy(smp_kid), eft)
+    want = bits(div, mk, busy, seen, place)
+
+    kp, sk = torch.from_numpy(kind_pool), torch.from_numpy(smp_kid)
+    T_pad = -(-T // torchsim.STEPS) * torchsim.STEPS
+    blocks = [torch.from_numpy(b) for b in torchsim._pack(
+        inert_padding(lanes, T_pad, dummy))]
+    runner = torchsim.StepRunner((P, S, B, rows, blocks[0].shape[1], NK, K),
+                                 torch.device("cpu"), eft,
+                                 torchsim.CompileCache())
+    assert runner.graph is None and runner.libraries == ()
+    assert bits(*runner.run(*blocks, clocks, kp, sk)) == want
+    assert bits(*runner.run(*blocks, clocks, kp, sk)) == want   # reused
+
+    st = torchsim._State(P, S, B, rows, torch.device("cpu"))
+    st.reset(clocks)
+    torchsim._steps(*(torch.from_numpy(b) for b in torchsim._pack(lanes)),
+                    st, kp, sk, eft, K)
+    assert bits(*st.outputs()) == want
+
+
+def test_repeat_sweep_through_a_shared_cache_captures_nothing_new(jaxsim):
+    """``simulate_torch(..., compile_cache=cc)`` twice on the same shapes:
+    no new compile and at least one memory hit (as
+    ``tests/test_megabatch.py``'s compile-cache test); the results within
+    the tier of ``batch`` and rankings equivalent to ``simulate_jax``'s;
+    the eager loop (``graphs=False``) bit for bit the runners'."""
+    from repro_torch.core import batchsim
+    fg_ref, fg = both_frozen(24, True)
+    ref_systems, systems = zynq_pair(range(1, 13))
+    cc = torchsim.CompileCache()
+    first = torchsim.simulate_torch(fg, systems, device="cpu",
+                                    min_lockstep=2, compile_cache=cc)
+    compiles = cc.as_dict()["compiles"]
+    assert compiles >= 1
+    again = torchsim.simulate_torch(fg, systems, device="cpu",
+                                    min_lockstep=2, compile_cache=cc)
+    assert cc.as_dict()["compiles"] == compiles
+    assert cc.as_dict()["mem_hits"] >= 1
+    assert [(s.makespan, s.placements) for s in again] == \
+        [(s.makespan, s.placements) for s in first]
+    eager = torchsim.simulate_torch(fg, systems, device="cpu",
+                                    min_lockstep=2, graphs=False)
+    assert [(s.makespan, s.busy, s.placements) for s in eager] == \
+        [(s.makespan, s.busy, s.placements) for s in first]
+    batch = batchsim.simulate_batch(fg, systems, "availability",
+                                    min_lockstep=2)
+    for g, r in zip(first, batch):
+        assert g.placements == r.placements
+        assert replay.makespans_close(g.makespan, r.makespan,
+                                      torchsim.TORCH_RTOL)
+    jax_sims = jaxsim.simulate_jax(fg_ref, ref_systems, "availability",
+                                   min_lockstep=2)
+    assert_tier(first, jax_sims, ref_systems)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("many", [False, True])
+def test_graph_sweep_is_bitwise_the_eager_sweep_on_the_card(many):
+    """On the card the captured step graphs give the eager loop's results
+    bit for bit (the same kernels in the same order, f64), with the same
+    step-commit launches, counted at each replay; a repeat sweep captures
+    nothing new."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import lockstep_step
+    _, fg = both_frozen(40, True)
+    _, systems = zynq_pair(range(1, 25))
+
+    def sweep(**kw):
+        lockstep_step.LAUNCHES = 0
+        lockstep_step.SHAPES.clear()
+        stats = replay.BatchStats()
+        if many:
+            got = torchsim.simulate_torch_many([(fg, systems)], device="cuda",
+                                               min_lockstep=2, stats=stats,
+                                               **kw)[0]
+        else:
+            got = torchsim.simulate_torch(fg, systems, device="cuda",
+                                          min_lockstep=2, stats=stats, **kw)
+        return ([(s.makespan, s.busy, s.placements) for s in got],
+                stats.as_dict(), lockstep_step.LAUNCHES,
+                dict(lockstep_step.SHAPES))
+
+    cc = torchsim.CompileCache()
+    eager = sweep(graphs=False)
+    graph = sweep(compile_cache=cc)
+    assert graph == eager
+    assert eager[2] > 0
+    captures = cc.as_dict()["captures"]
+    assert captures >= 1 and cc.as_dict()["replays"] >= 1
+    assert sweep(compile_cache=cc) == eager
+    assert cc.as_dict()["captures"] == captures

@@ -15,7 +15,10 @@ from as many threads at once, once for each mode:
 
 Each mode gets a fresh service and one warm-up request first (not
 counted), so the kernel build, the CUDA context and the first graph are
-paid outside the window.  A mode's line gives its wall, candidates per
+paid outside the window.  The sweeps run the step loop as replays of
+captured CUDA graphs (the process-wide compile cache of
+``repro_torch.core.torchsim``, captured by the first warm-up): requests
+share a runner of one shape signature, one at a time (its lock).  A mode's line gives its wall, candidates per
 second, each request's ``sweep_s`` and ``queue_s`` and the step-commit
 launches in the window; every answer must be a 200 with the same best.
 
