@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's five paths on the card and holds every kernel on them
+Drives the port's six paths on the card and holds every kernel on them
 against its plain PyTorch version:
 
 * the co-design sweep (``repro_torch``: trace -> augmented task graph ->
@@ -30,7 +30,13 @@ against its plain PyTorch version:
   parallel, the decay factored at sub-chunks of 16, bf16 products on
   tensor cores) at dk = dv = 64 and chunk 16/32/64, ``csrc/linear_attn.cu``
   (chunks one after another) for every other call; and the plain
-  per-token recurrence on every decode step.
+  per-token recurrence on every decode step;
+* zamba2 serving (the same ``Engine``) on zamba2-1.2b at its published
+  full width, in bf16 from a seeded ``torch.Generator``: 38 Mamba2 layers,
+  each prefill's linear attention in f32 through ``linear_attn_tc.cu``
+  (64 heads of 64, d_state 64, zamba2's decays, u = 0), and one
+  weight-shared attention block at six sites through the ``wgmma`` flash
+  kernel (32 heads of 64, no GQA grouping).
 
 Phases, one line each or more:
 
@@ -58,7 +64,13 @@ Phases, one line each or more:
    f32 w, a padded length through ``ops.linear_attn`` (T = 300), strong
    decay (w <= 1e-6), Mamba2's scalar decay with u = 0, and in f32, all
    on the sub-chunked kernel, and a chunk of 7 at (3, 42, 16, 20) on the
-   serial one, each call on the kernel ``kernel_for`` names;
+   serial one, each call on the kernel ``kernel_for`` names; and at
+   zamba2-1.2b's path shapes: ``flash_attention`` at (32, 32, 512, 512,
+   64) bf16 causal on ``wgmma`` (``zamba2_path``), ``linear_attn`` at
+   (64, 512, 64, 64) chunk 64 in f32 with u = 0 and zamba2's decay
+   spectrum (``exp(-softplus(z) · linspace(1, 16, 64)[row % 64])``, held
+   at the strong-decay tolerance, ``mamba2_path``) on the sub-chunked
+   kernel;
 5. four sweeps, each torch sweep through the step loop's captured CUDA
    graphs (the compile cache's runners, ``repro_torch.core.graphcache``):
    ``trace_matmul(512, 64)`` with a 200-candidate slot ×
@@ -136,7 +148,13 @@ Phases, one line each or more:
     against ``attn_impl="chunked"`` (printed on the served bf16 weights,
     gated on the arch's f32 weights from the same seed: see
     ``ROUTE_ATOL``) and the self-check's forward padded to 576 by
-    ``ops.linear_attn``;
+    ``ops.linear_attn``; then the same for zamba2-1.2b (the rwkv6 model
+    freed first), with both kernels' counts set to 0 just before the
+    served run and read just after (304 ``linear_attn`` launches at
+    (64, 512, 64, 64) chunk 64 f32, all sub-chunked; 48 flash launches
+    at (32, 32, 512, 512, 64) bf16, all ``wgmma``), the kernel route
+    against ``attn_impl="chunked"`` gated as rwkv6's is, and each
+    kernel's share of a prefill's device time;
 13. ``flash_attention`` at the path shape by CUDA events, per wrapper
     call and per bare launch of the ``wgmma`` kernel, beside the bare
     launch of the FMA kernel (the earlier design, its output held to the
@@ -151,8 +169,10 @@ Phases, one line each or more:
     the plain version first), beside its plain version and its bound (no
     single PyTorch call computes it), and again at the f32 case of the
     same shape, which is what ``kernel_for``'s route for f32 rests on;
+    both kernels the same way at zamba2-1.2b's path shapes;
 14. a ``kernels`` JSON line (launches on the paths, error against the
-    plain version, times and bound at the commonest path shape) and
+    plain version, times and bound at the commonest path shape, and for
+    the two attention kernels a row a serve path's shape) and
     candidates/s lines.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card,
@@ -204,6 +224,11 @@ FLASH_TOL = {"float32": 2e-4, "bfloat16": 3e-2}     # rtol = atol
 #: prompt, ``(BH, BKV, T, S, D)`` in bf16, causal.
 FLASH_PATH = (16, 8, 512, 512, 128)
 
+#: zamba2-1.2b's flash launch: its shared attention block's prefill of one
+#: 512-token prompt, 32 heads over 32 (no GQA grouping), D 64, bf16,
+#: causal, on the ``wgmma`` kernel.
+ZAMBA2_FLASH_PATH = (32, 32, 512, 512, 64)
+
 #: The flash kernels' further bf16 checks, beyond ``flash_cases``: label,
 #: ``(BH, BKV, T, S, D)``, window, softcap (causal).  D 96 is the FMA
 #: kernel's: its bf16 build is held to the plain version there.
@@ -220,6 +245,12 @@ ROUTE_CASES = (
 LINEAR_PATH = (32, 512, 64, 64)
 LINEAR_CHUNK = 64
 
+#: zamba2-1.2b's linear-attention launch: a Mamba2 layer's prefill of one
+#: 512-token prompt, 64 heads of 64 with d_state 64, chunk 64, every
+#: operand f32 (``v = dt·x`` is f32), u = 0, zamba2's decay spectrum; on
+#: the sub-chunked kernel.
+MAMBA2_PATH = (64, 512, 64, 64)
+
 #: Tolerances (rtol = atol) of ``linear_attn`` against its plain version:
 #: ``tests/test_kernels.py``'s 2e-4 in f32 and 1e-3 under strong decay;
 #: bf16 outputs at 1e-2, above 2**-7 (one bf16 ulp relative: two
@@ -230,18 +261,28 @@ LINEAR_TOL = {"float32": 2e-4, "strong": 1e-3, "bfloat16": 1e-2}
 #: The serve phases' traffic: requests, prompt length, new tokens, slots.
 SERVE = {"requests": 8, "prompt_len": 512, "max_new": 32, "slots": 4}
 
-#: The archs served at full width with that traffic: the kernel every
-#: prefill must go through (its wrapper's launch key and path shape key),
-#: the plain route the kernel route is held to, and the weights' type of
-#: the model that route check is gated on.
+#: The archs served at full width with that traffic: the kernels every
+#: prefill must go through (each by its wrapper's launch key, with its
+#: path shape key, the kernel ``kernel_for`` routes it to, and its
+#: launches a prefill: one a layer, or one a shared site), the plain route
+#: the kernel route is held to, and the weights' type of the model that
+#: route check is gated on.
 SERVE_MODELS = (
-    {"arch": "qwen3-0.6b", "kernel": "flash_attention",
-     "path_key": (*FLASH_PATH, "torch.bfloat16"), "plain_impl": "naive",
-     "route_dtype": "bfloat16", "variant": "wgmma"},
-    {"arch": "rwkv6-1.6b", "kernel": "linear_attn",
-     "path_key": (*LINEAR_PATH, LINEAR_CHUNK, "torch.bfloat16"),
-     "plain_impl": "chunked", "route_dtype": "float32",
-     "variant": "subchunk"},
+    {"arch": "qwen3-0.6b", "plain_impl": "naive", "route_dtype": "bfloat16",
+     "kernels": ({"kernel": "flash_attention",
+                  "path_key": (*FLASH_PATH, "torch.bfloat16"),
+                  "variant": "wgmma", "per": "n_layers"},)},
+    {"arch": "rwkv6-1.6b", "plain_impl": "chunked", "route_dtype": "float32",
+     "kernels": ({"kernel": "linear_attn",
+                  "path_key": (*LINEAR_PATH, LINEAR_CHUNK, "torch.bfloat16"),
+                  "variant": "subchunk", "per": "n_layers"},)},
+    {"arch": "zamba2-1.2b", "plain_impl": "chunked", "route_dtype": "float32",
+     "kernels": ({"kernel": "linear_attn",
+                  "path_key": (*MAMBA2_PATH, LINEAR_CHUNK, "torch.float32"),
+                  "variant": "subchunk", "per": "n_layers"},
+                 {"kernel": "flash_attention",
+                  "path_key": (*ZAMBA2_FLASH_PATH, "torch.bfloat16"),
+                  "variant": "wgmma", "per": "n_shared_sites"})},
 )
 
 #: Limits of the serve phase, on logits (f32 after the unembedding): the
@@ -252,7 +293,7 @@ SERVE_MODELS = (
 #: bf16 routes differ by the model's own rounding noise (its plain route
 #: against itself at half the chunk moves the logits by 0.19), so its
 #: route is gated on the same arch with f32 weights, where every pair of
-#: routes agrees within 4.1e-5 (``tools/rwkv6_route_noise.py``); its bf16
+#: routes agrees within 4.1e-5 (``tools/route_noise.py``); its bf16
 #: difference is printed, not gated.
 ROUTE_ATOL = {"bfloat16": 0.1, "float32": 1e-3}
 SELFCHECK_TOL = 0.1
@@ -1026,6 +1067,7 @@ def flash_cases(torch, np, fa, ops):
         ("padded", (16, 8, 300, 300, 128), "bfloat16", 0, 0.0, True),
         ("gemma2_local", (8, 4, 512, 512, 256), "bfloat16", 256, 50.0, False),
         ("f32", FLASH_PATH, "float32", 0, 0.0, False),
+        ("zamba2_path", ZAMBA2_FLASH_PATH, "bfloat16", 0, 0.0, False),
     ]
     cases = []
     for i, (label, (bh, bkv, t, s, d), dtype, window, cap, padded) \
@@ -1044,23 +1086,29 @@ def flash_cases(torch, np, fa, ops):
     return cases
 
 
-def check_flash(torch, ref, cases):
-    """Each case's kernel against the plain version; exits on any
-    disagreement.  Returns ``{label: max abs error}``."""
+def check_flash(torch, fa, ref, cases):
+    """Each case's kernel against the plain version, on the kernel
+    ``kernel_for`` names; exits on any disagreement or another kernel.
+    Returns ``{label: max abs error}``."""
     errs = {}
     for case in cases:
+        fa.VARIANTS.clear()
         got = case["run"]()
+        routes = dict(fa.VARIANTS)
         want = ref.attention(case["q"], case["k"], case["v"], **case["kw"])
         torch.cuda.synchronize()
         tol = FLASH_TOL[case["dtype"]]
         err = float((got.float() - want.float()).abs().max())
-        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
-                                 atol=tol)) and got.dtype == want.dtype
+        route = fa.kernel_for(case["q"].dtype, case["shape"][4])
+        ok = (bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol)) and got.dtype == want.dtype
+              and routes == {route: 1})
         errs[case["label"]] = err
         phase("flash==plain", f"{case['label']} (BH,BKV,T,S,D)="
               f"{case['shape']} {case['dtype']} window={case['window']} "
               f"softcap={case['softcap']} via "
-              f"{'ops.attention' if case['padded'] else 'flash_attention'}: "
+              f"{'ops.attention' if case['padded'] else 'flash_attention'}, "
+              f"kernels {routes}: "
               f"max_abs_err={err} within rtol=atol={tol}: {ok}")
         if not ok:
             raise SystemExit(f"flash_attention disagrees with its plain "
@@ -1278,8 +1326,11 @@ def linear_inputs(torch, np, seed, shape, dtype, *, decay="rwkv",
     0.5, u at 0.3 (zeros when ``bonus`` is false), one head per row.
     ``decay``: ``"rwkv"`` is ``exp(-exp(z))``, ``"strong"`` the same with
     ``z`` at 3 and capped at 1e-6, ``"scalar"`` one ``sigmoid(z)`` per
-    step broadcast over dk (Mamba2's form).  r, k, v, u in ``dtype``, w
-    in f32."""
+    step broadcast over dk (Mamba2's form), ``"zamba2"`` zamba2-1.2b's
+    spectrum: row ``bh`` decays by ``exp(-softplus(z) · linspace(1, 16,
+    64)[bh % 64])`` a step (``dt`` standard normal, ``dt_bias = 0``,
+    ``a_log = log(linspace(1, 16, 64))``), broadcast over dk.  r, k, v, u
+    in ``dtype``, w in f32."""
     bh, t, dk, dv = shape
     rng = np.random.default_rng(seed)
     r = rng.standard_normal((bh, t, dk))
@@ -1288,6 +1339,11 @@ def linear_inputs(torch, np, seed, shape, dtype, *, decay="rwkv",
     if decay == "scalar":
         w = np.broadcast_to(1 / (1 + np.exp(-rng.standard_normal(
             (bh, t, 1)))), (bh, t, dk)).copy()
+    elif decay == "zamba2":
+        rate = np.linspace(1.0, 16.0, 64)[np.arange(bh) % 64]
+        dt = np.logaddexp(0.0, rng.standard_normal((bh, t, 1)))
+        w = np.broadcast_to(np.exp(-dt * rate[:, None, None]),
+                            (bh, t, dk)).copy()
     else:
         z = rng.standard_normal((bh, t, dk))
         w = np.exp(-np.exp(z * (3.0 if decay == "strong" else 1.0)))
@@ -1314,6 +1370,8 @@ def linear_cases(torch, np, la, ops):
          LINEAR_CHUNK),
         ("scalar_decay_u0", LINEAR_PATH, "float32", "scalar", False, False,
          LINEAR_CHUNK),
+        ("mamba2_path", MAMBA2_PATH, "float32", "zamba2", False, False,
+         LINEAR_CHUNK),
         ("f32", LINEAR_PATH, "float32", "rwkv", True, False, LINEAR_CHUNK),
         ("odd_chunk", (3, 42, 16, 20), "float32", "rwkv", True, False, 7),
     ]
@@ -1326,13 +1384,14 @@ def linear_cases(torch, np, la, ops):
             r, k, v, w, u, chunk=c)) if padded
                else (lambda r=r, k=k, v=v, w=w, u=u, c=chunk:
                      la.linear_attention_state(r, k, v, w, u, chunk=c)))
-        tol = LINEAR_TOL["strong" if decay == "strong" else dtype]
+        strong = decay in ("strong", "zamba2")
+        tol = LINEAR_TOL["strong" if strong else dtype]
         cases.append({"label": label, "shape": list(shape), "dtype": dtype,
                       "decay": decay, "padded": padded, "chunk": chunk,
                       "route": la.kernel_for(getattr(torch, dtype), shape[2],
                                              shape[3], chunk),
                       "inputs": (r, k, v, w, u), "run": run, "tol": tol,
-                      "state_tol": LINEAR_TOL["strong" if decay == "strong"
+                      "state_tol": LINEAR_TOL["strong" if strong
                                               else "float32"]})
     return cases
 
@@ -1360,10 +1419,13 @@ def check_linear(torch, la, ref, cases):
         errs[case["label"]] = err
         via = ("ops.linear_attn" if case["padded"]
                else "linear_attention_state")
+        w = case["inputs"][3]
         phase("linear==plain", f"{case['label']} (BH,T,dk,dv)="
               f"{case['shape']} {case['dtype']} r/k/v/u, f32 w, decay "
-              f"{case['decay']}, chunk {case['chunk']} via {via}, kernels "
-              f"{routes}: "
+              f"{case['decay']} (w from {float(w.min()):.3g} to "
+              f"{float(w.max()):.3g}, {int((w < 1e-30).sum())} below the "
+              f"kernels' 1e-30 clamp, {int((w == 0).sum())} zero), chunk "
+              f"{case['chunk']} via {via}, kernels {routes}: "
               f"max_abs_err={err} (outputs up to "
               f"{float(want.float().abs().max()):.3f}) within rtol=atol="
               f"{tol}, final state max_abs_err={serr} within {stol}: {ok}")
@@ -1805,18 +1867,31 @@ def sweepd_flow(torch, np, ls, device, mm_case, ch_case, one_shot,
     return out
 
 
-def serve_flow(torch, np, configs, T, engine, counters, model_spec,
+def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
                failures):
     """Serve ``SERVE``'s traffic with ``model_spec``'s arch on the card at
-    full width; returns a summary with the launch counts of its kernel in
-    the served run (``counters``: the wrapper module, whose ``LAUNCHES``
-    and ``SHAPES`` are set to 0 just before the run and read just after).
-    Exits if a request is short or the launch counts are off; a kernel
-    route that disagrees with the plain route, or a failed self-check, is
-    appended to ``failures`` (the script fails at its end) and the phase
-    goes on, so that one run measures everything."""
+    full width; returns a summary with the launch counts of its kernels in
+    the served run (``wrappers``: each kernel's wrapper module by launch
+    key, whose ``LAUNCHES``, ``SHAPES`` and ``VARIANTS`` are set to 0 just
+    before the run and read just after).  Exits if a request is short or
+    the launch counts are off; a kernel route that disagrees with the
+    plain route, or a failed self-check, is appended to ``failures`` (the
+    script fails at its end) and the phase goes on, so that one run
+    measures everything."""
     import dataclasses
-    kernel = model_spec["kernel"]
+    specs = model_spec["kernels"]
+    kernels = [k["kernel"] for k in specs]
+    mods = [wrappers[k] for k in kernels]
+
+    def clear():
+        for mod in mods:
+            for counter in (mod.LAUNCHES, mod.SHAPES, mod.VARIANTS):
+                counter.clear()
+
+    def shapes_of(mod):
+        return {tuple(str(x) if isinstance(x, torch.dtype) else x
+                      for x in key): n for key, n in mod.SHAPES.items()}
+
     cfg = configs.get_config(model_spec["arch"])
     t0 = time.perf_counter()
     model = T.Transformer(cfg, device="cuda",
@@ -1836,22 +1911,16 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
                                   max_new=SERVE["max_new"]))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    variants = getattr(counters, "VARIANTS", Counter())
-    counters.LAUNCHES.clear()
-    counters.SHAPES.clear()
-    variants.clear()
+    clear()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counters.LAUNCHES[kernel]
-    shapes = {tuple(str(x) if isinstance(x, torch.dtype) else x
-                    for x in key): n for key, n in counters.SHAPES.items()}
-    variants = dict(variants)
+    launches = {k: mod.LAUNCHES[k] for k, mod in zip(kernels, mods)}
+    shapes = {k: shapes_of(mod) for k, mod in zip(kernels, mods)}
+    variants = {k: dict(mod.VARIANTS) for k, mod in zip(kernels, mods)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = eng.stats
-    path_key = model_spec["path_key"]
-    want_launches = SERVE["requests"] * cfg.n_layers
     served = sum(len(r.out) for r in done)
     summary = {
         "arch": cfg.name, "params": model.param_count(),
@@ -1865,8 +1934,9 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
         "decode_tok_per_s": st.decode_steps * SERVE["slots"] / st.decode_s,
         "decode_capture_s": st.capture_s,
         "graph_cache": eng.compile_cache.as_dict(),
-        "kernel": kernel, "launches": launches,
-        "shapes": {str(k): n for k, n in shapes.items()},
+        "kernels": kernels, "launches": launches,
+        "shapes": {k: {str(key): n for key, n in by.items()}
+                   for k, by in shapes.items()},
         "variants": variants,
         "peak_mem_gb": peak_gb}
     phase("serve", json.dumps(summary))
@@ -1874,15 +1944,17 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
             len(r.out) != SERVE["max_new"] for r in done):
         raise SystemExit(f"serve {cfg.name}: a request was not served in "
                          f"full")
-    if launches != want_launches or shapes.get(path_key) != want_launches:
-        raise SystemExit(f"serve {cfg.name}: {launches} {kernel} launches "
-                         f"({shapes}), expected {want_launches} at "
-                         f"{path_key}")
-    if model_spec["variant"] and variants != {model_spec["variant"]:
-                                              want_launches}:
-        raise SystemExit(f"serve {cfg.name}: {kernel} launches by kernel "
-                         f"{variants}, expected all {want_launches} on "
-                         f"{model_spec['variant']}")
+    for spec in specs:
+        kernel, path_key = spec["kernel"], spec["path_key"]
+        want = SERVE["requests"] * getattr(cfg, spec["per"])
+        if launches[kernel] != want or shapes[kernel].get(path_key) != want:
+            raise SystemExit(f"serve {cfg.name}: {launches[kernel]} {kernel} "
+                             f"launches ({shapes[kernel]}), expected {want} "
+                             f"at {path_key}")
+        if variants[kernel] != {spec["variant"]: want}:
+            raise SystemExit(f"serve {cfg.name}: {kernel} launches by kernel "
+                             f"{variants[kernel]}, expected all {want} on "
+                             f"{spec['variant']}")
 
     # the same traffic through the eager decode step, in the same call:
     # the same tokens, the same last-step logits
@@ -1950,8 +2022,7 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
                         f"({route_dtype} weights)")
 
     # examples/serve_e2e.py's self-check, one teacher-forced forward each
-    counters.LAUNCHES.clear()
-    counters.SHAPES.clear()
+    clear()
     worst_gap, exact = 0.0, 0
     for r in done:
         seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
@@ -1962,17 +2033,18 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
         gaps = pos.amax(1) - picked[:, 0]
         worst_gap = max(worst_gap, float(gaps.max()))
         exact += int((gaps == 0).sum())
-    check_launches = dict(counters.SHAPES)
+    check_launches = {k: shapes_of(mod) for k, mod in zip(kernels, mods)}
     t_fwd = SERVE["prompt_len"] + SERVE["max_new"] - 1
     phase("serve self-check", f"{cfg.name}: teacher-forced forward "
-          f"(T={t_fwd}, padded by kernels.ops; {kernel} launches "
+          f"(T={t_fwd}, padded by kernels.ops; launches "
           f"{check_launches}): {exact}/{served} served tokens are the "
           f"forward's argmax, the worst is {worst_gap} below its "
           f"position's maximum, within {SELFCHECK_TOL}: "
           f"{worst_gap <= SELFCHECK_TOL}")
-    if not check_launches:
+    missing = [k for k, by in check_launches.items() if not by]
+    if missing:
         raise SystemExit(f"serve {cfg.name}: the self-check's forward "
-                         f"launched no {kernel}")
+                         f"launched no {', '.join(missing)}")
     if not worst_gap <= SELFCHECK_TOL:
         failures.append(f"serve {cfg.name}: a served token is {worst_gap} "
                         f"below its position's maximum > {SELFCHECK_TOL}")
@@ -1980,20 +2052,22 @@ def serve_flow(torch, np, configs, T, engine, counters, model_spec,
                    route_f32_max_abs_diff=route_f32,
                    selfcheck_worst_gap=worst_gap,
                    selfcheck_argmax_equal=exact,
-                   selfcheck_launches={str(k): n
-                                       for k, n in check_launches.items()},
+                   selfcheck_launches={
+                       k: {str(key): n for key, n in by.items()}
+                       for k, by in check_launches.items()},
                    profile=profile_serve(torch, engine, model, prompts,
-                                         max_len, kernel, eng))
+                                         max_len, kernels, eng))
     return summary
 
 
-def profile_serve(torch, engine, model, prompts, max_len, kernel, eng):
+def profile_serve(torch, engine, model, prompts, max_len, kernels, eng):
     """Where one 512-token prefill and one batch-4 decode step spend their
     time on the card: each run once unprofiled (host wall, ending in a
     synchronise) and once under ``torch.profiler`` (device time, kernel
     count, the costliest host operations and device kernels, and the
-    device time and share of the rows whose name holds ``kernel``); the
-    decode step also as one replay of ``eng``'s captured graph."""
+    device time and share of the rows whose name holds each of
+    ``kernels``, and of all of them); the decode step also as one replay
+    of ``eng``'s captured graph."""
     from torch.profiler import ProfilerActivity, profile
     prefill = engine.make_prefill_step(model, max_len)
     step = engine.make_serve_step(model)
@@ -2031,12 +2105,15 @@ def profile_serve(torch, engine, model, prompts, max_len, kernel, eng):
         device_s = sum(e.self_device_time_total for e in dev) * 1e-6
         top_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]
         top_dev = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-        mine = sum(e.self_device_time_total for e in dev
-                   if kernel in e.key) * 1e-6
+        by_kernel = {k: sum(e.self_device_time_total for e in dev
+                            if k in e.key) * 1e-6 for k in kernels}
+        mine = sum(by_kernel.values())
         out[name] = {
             "wall_s": wall, "device_s": device_s,
             "device_busy_share": device_s / wall,
             "kernel_device_s": mine, "kernel_device_share": mine / device_s,
+            "kernel_device_share_by_kernel": {
+                k: t / device_s for k, t in by_kernel.items()},
             "kernels": sum(e.count for e in dev),
             "top_host_ops": [[e.key, e.count, e.self_cpu_time_total * 1e-6]
                              for e in top_host],
@@ -2046,6 +2123,18 @@ def profile_serve(torch, engine, model, prompts, max_len, kernel, eng):
         phase("serve profile", json.dumps({"arch": model.cfg.name,
                                            name: out[name]}))
     return out
+
+
+def path_row(row, served, kernel):
+    """A timed row of ``kernel`` at one serve path's shape for the
+    ``kernels`` line: its times, bound and library call, and the served
+    run's launches of ``kernel`` and share of a prefill's device time."""
+    keys = ("shape", "dtype", "ms", "kernel_only_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "device_us", "queued_us")
+    return {"arch": served["arch"], "launches": served["launches"][kernel],
+            "prefill_device_share": served["profile"]["prefill_512"][
+                "kernel_device_share_by_kernel"][kernel],
+            **{key: row[key] for key in keys}}
 
 
 def tile_kernel_rows(rows, fig6, chol):
@@ -2163,7 +2252,7 @@ def main() -> int:
     cases = tile_cases(torch, np, ref, bm, ct, lib128)
     tile_errs = check_tiles(torch, cases)
     fcases = flash_cases(torch, np, fa, ops)
-    flash_errs = check_flash(torch, ref, fcases)
+    flash_errs = check_flash(torch, fa, ref, fcases)
     route_errs = check_routes(torch, np, fa, ref)
     lcases = linear_cases(torch, np, la, ops)
     linear_errs = check_linear(torch, la, ref, lcases)
@@ -2345,27 +2434,37 @@ def main() -> int:
     # 11. the tile kernels' times at the path shapes
     rows = time_tiles(torch, cases, tile_errs)
 
-    # 12. the LM serve path at full width, qwen3-0.6b then rwkv6-1.6b (the
-    # first model freed before the second is built); each kernel's counts
-    # of its served run
-    serve = serve_flow(torch, np, configs, T, engine, fa, SERVE_MODELS[0],
-                       failures)
-    gc.collect()
-    torch.cuda.empty_cache()
-    serve_rwkv = serve_flow(torch, np, configs, T, engine, la,
-                            SERVE_MODELS[1], failures)
-    gc.collect()
-    torch.cuda.empty_cache()
+    # 12. the LM serve path at full width, qwen3-0.6b, rwkv6-1.6b, then
+    # zamba2-1.2b (each model freed before the next is built); each
+    # kernel's counts of its served run
+    wrappers = {"flash_attention": fa, "linear_attn": la}
+
+    def served(spec):
+        out = serve_flow(torch, np, configs, T, engine, wrappers, spec,
+                         failures)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    serve, serve_rwkv, serve_zamba = [served(spec) for spec in SERVE_MODELS]
 
     # 13. the flash and linear-attention kernels' times at the path shapes
     frow = time_flash(torch, F, fa, ref, fcases[0])
+    frow_z = time_flash(torch, F, fa, ref, next(
+        c for c in fcases if c["label"] == "zamba2_path"))
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": serve["launches"],
-        "launches_by_kernel": serve["variants"],
+        "launches": serve["launches"]["flash_attention"]
+        + serve_zamba["launches"]["flash_attention"],
+        "launches_by_path": {
+            "qwen3-0.6b": serve["launches"]["flash_attention"],
+            "zamba2-1.2b": serve_zamba["launches"]["flash_attention"]},
+        "launches_by_kernel": {
+            "qwen3-0.6b": serve["variants"]["flash_attention"],
+            "zamba2-1.2b": serve_zamba["variants"]["flash_attention"]},
         "max_abs_err": flash_errs["path"],
         "ms": frow["ms"], "plain_ms": frow["plain_ms"],
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
@@ -2381,19 +2480,30 @@ def main() -> int:
         "wgmma_ptxas": ptxas_summary(wg_info["ptxas"]),
         "timed_shape": frow["shape"], "timed_dtype": frow["dtype"],
         "library_call": frow["library_call"],
-        "launches_by_shape": serve["shapes"],
+        "launches_by_shape": {**serve["shapes"]["flash_attention"],
+                              **serve_zamba["shapes"]["flash_attention"]},
         "max_abs_err_by_case": {**flash_errs, **route_errs},
+        "path_shapes": [path_row(frow, serve, "flash_attention"),
+                        path_row(frow_z, serve_zamba, "flash_attention")],
     }
     lrow = time_linear(torch, la, ref, lcases[0])
     lrow32 = time_linear(torch, la, ref,
                          next(c for c in lcases if c["label"] == "f32"))
+    lrow_z = time_linear(torch, la, ref, next(
+        c for c in lcases if c["label"] == "mamba2_path"))
     linear = {
         "name": "linear_attn", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/linear_attn_tc.cu",
         "serial_source": "src/repro_torch/kernels/csrc/linear_attn.cu",
         "replaces": "src/repro/kernels/linear_attn.py:84",
-        "launches": serve_rwkv["launches"],
-        "launches_by_kernel": serve_rwkv["variants"],
+        "launches": serve_rwkv["launches"]["linear_attn"]
+        + serve_zamba["launches"]["linear_attn"],
+        "launches_by_path": {
+            "rwkv6-1.6b": serve_rwkv["launches"]["linear_attn"],
+            "zamba2-1.2b": serve_zamba["launches"]["linear_attn"]},
+        "launches_by_kernel": {
+            "rwkv6-1.6b": serve_rwkv["variants"]["linear_attn"],
+            "zamba2-1.2b": serve_zamba["variants"]["linear_attn"]},
         "max_abs_err": linear_errs["path"],
         "ms": lrow["ms"], "plain_ms": lrow["plain_ms"],
         "bound_ms": lrow["bound_ms"], "bound_by": lrow["bound_by"],
@@ -2408,8 +2518,11 @@ def main() -> int:
             "kernel_device_share"],
         "timed_shape": lrow["shape"], "timed_dtype": lrow["dtype"],
         "chunk": LINEAR_CHUNK, "library_call": None,
-        "launches_by_shape": serve_rwkv["shapes"],
+        "launches_by_shape": {**serve_rwkv["shapes"]["linear_attn"],
+                              **serve_zamba["shapes"]["linear_attn"]},
         "max_abs_err_by_case": linear_errs,
+        "path_shapes": [path_row(lrow, serve_rwkv, "linear_attn"),
+                        path_row(lrow_z, serve_zamba, "linear_attn")],
         "f32_timed": {key: lrow32[key] for key in (
             "route", "ms", "kernel_only_ms", "serial_kernel_only_ms",
             "plain_ms", "bound_ms", "bound_by", "device_us", "queued_us",

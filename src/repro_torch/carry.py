@@ -87,9 +87,12 @@ def import_lm_params(cfg: ModelConfig,
 
     ``params`` is ``repro.models.transformer.init(cfg, key)`` with its
     leaves as numpy arrays: ``embed``, ``final_norm``, optional
-    ``lm_head``, and ``blocks{i}``, whose leaves are stacked over the
-    periods.  Period ``p`` of ``blocks{i}`` becomes layer
-    ``p * len(cfg.pattern) + i``.  Load the result with
+    ``lm_head``, optional ``shared`` (zamba2's one attention block,
+    un-stacked, which becomes the ``shared`` module), and ``blocks{i}``,
+    whose leaves are stacked over the periods.  Period ``p`` of
+    ``blocks{i}`` becomes layer ``p * len(cfg.pattern) + i``.  Each leaf
+    keeps its type (Mamba2's f32 ``a_log``, ``dt_bias`` and ``d_skip``
+    in a bf16 model).  Load the result with
     ``Transformer(cfg).load_state_dict``."""
     n_pat = len(cfg.pattern)
     state: Dict[str, torch.Tensor] = {}

@@ -1,8 +1,8 @@
 # Architecture configs of the port (one module per arch, copied from the
 # JAX package's configs): `get_config("<id>")` returns the published
 # full-size ModelConfig, `get_smoke("<id>")` a reduced one of the same
-# family for CPU tests.  The port carries the four dense attention archs
-# and rwkv6-1.6b; the others wait for their blocks (ROADMAP).
+# family for CPU tests.  The port carries the four dense attention archs,
+# rwkv6-1.6b and zamba2-1.2b; the others wait for their blocks (ROADMAP).
 from .registry import (SHAPES, Arch, Shape, arch_ids, get_arch, get_config,
                        get_smoke, runnable, smoke_batch)
 
@@ -15,7 +15,7 @@ def _load_all() -> None:
         return
     _LOADED = True
     from . import (gemma2_2b, qwen3_0_6b, qwen3_4b, qwen15_4b,  # noqa: F401
-                   rwkv6_1_6b)
+                   rwkv6_1_6b, zamba2_1_2b)
 
 
 __all__ = ["SHAPES", "Arch", "Shape", "arch_ids", "get_arch", "get_config",

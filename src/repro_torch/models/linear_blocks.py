@@ -1,25 +1,33 @@
-"""Attention-free blocks: RWKV6 ("Finch") time and channel mix.
+"""Attention-free blocks: RWKV6 ("Finch") time and channel mix, and
+Mamba2 (SSD), zamba2's backbone.
 
-The JAX package's ``repro/models/linear_blocks.py``, RWKV6 part.  Its core
-is decayed linear attention,
+The JAX package's ``repro/models/linear_blocks.py``.  Both blocks share
+one core, decayed linear attention,
 
     o_t = r_t S_{t-1} + ((r_t ⊙ u)·k_t) v_t
     S_t = diag(w_t) S_{t-1} + kᵀ_t v_t
 
-with a per-channel data-dependent decay ``w``.  Prefill routes on the
-model's ``attn_impl``, the field that routes attention too:
+with a per-channel data-dependent decay ``w`` (RWKV6) or one decay a
+step and head broadcast over the state's rows, with ``u = 0`` (Mamba2:
+``r = C``, ``k = B``, ``v = dt·x``).  Prefill routes on the model's
+``attn_impl``, the field that routes attention too:
 
 * ``"kernel"`` (the port's default) —
   :func:`repro_torch.kernels.ops.linear_attn`: the hand-written Hopper
-  kernel (``csrc/linear_attn.cu``) for CUDA tensors, the exact per-step
-  recurrence for CPU tensors;
+  kernels (``csrc/linear_attn_tc.cu``, ``csrc/linear_attn.cu``) for CUDA
+  tensors, the exact per-step recurrence for CPU tensors;
 * ``"chunked"`` or ``"naive"`` — :func:`linear_attention_chunked`, the
   JAX package's pure-jnp production path in plain PyTorch (a loop over
   chunks, the same closed form as the kernel).
 
+Mamba2's operands reach the kernel in f32: its ``v = dt·x`` is f32 in
+the JAX package (a bf16 ``x`` times an f32 ``dt``), and ``r``/``k`` are
+lifted to f32 to match, which is exact; the output is cast to the
+model's type, as ``linear_attention_chunked`` casts to ``r``'s.
+
 Decode carries the ``(dk, dv)`` state explicitly through
-:func:`linear_attention_decode`, plain PyTorch as in the JAX package.
-Mamba2 (zamba2's block) is still to port.
+:func:`linear_attention_decode`, plain PyTorch as in the JAX package,
+and updates the state's tensors in place.
 """
 from __future__ import annotations
 
@@ -242,3 +250,133 @@ def rwkv6_state_init(batch: int, d: int, head_dim: int = 64, *,
                                dtype=torch.float32, device=device),
             "shift1": torch.zeros((batch, d), dtype=dtype, device=device),
             "shift2": torch.zeros((batch, d), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ---------------------------------------------------------------------------
+
+def _causal_conv(x: torch.Tensor, kernel: torch.Tensor,
+                 cache: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d.  ``x (B, T, C)``, ``kernel (W, C)``;
+    ``cache (B, W-1, C)`` supplies the inputs before ``x`` (zeros when it
+    is None).  Returns ``(y, new cache)``, the cache being the last
+    ``W-1`` inputs.  The taps are summed in the JAX package's order and
+    type (``x``'s times the kernel's)."""
+    w = kernel.shape[0]
+    if cache is None:
+        pad = torch.zeros((x.shape[0], w - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = cache.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                           # (B, T+W-1, C)
+    y = sum(xp[:, i:i + x.shape[1], :] * kernel[i] for i in range(w))
+    return y, xp[:, -(w - 1):, :]
+
+
+class Mamba2(nn.Module):
+    """One Mamba2 layer (``mamba2_init`` / ``mamba2_block``).  Its
+    attributes are the JAX parameter keys (``ln, in_proj, conv, a_log,
+    dt_bias, d_skip, out_norm, out_proj``); ``a_log``, ``dt_bias`` and
+    ``d_skip`` are f32 whatever the model's type, as in the JAX package.
+
+    ``impl`` routes prefill's linear attention as :class:`RWKV6`'s does.
+    On a CUDA tensor a call the kernel refuses raises
+    :class:`repro_torch.DeviceError`; nothing falls back to the chunked
+    form."""
+
+    def __init__(self, d: int, *, d_state: int = 64, expand: int = 2,
+                 head_dim: int = 64, conv_width: int = 4, chunk: int = 64,
+                 impl: str = "kernel", dtype, device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        d_inner = expand * d
+        h = d_inner // head_dim
+        self.d_state, self.d_inner, self.head_dim = d_state, d_inner, head_dim
+        self.chunk, self.impl = chunk, impl
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        f32 = torch.float32
+        self.ln = RMSNorm(d, dtype=dtype, device=device)
+        # in_proj -> [z (d_inner), x (d_inner), B (d_state), C (d_state),
+        # dt (h)]
+        self.in_proj = Dense(d, 2 * d_inner + 2 * d_state + h, **kw)
+        self.conv = _param(
+            (conv_width, d_inner + 2 * d_state), dtype, device,
+            lambda t: nn.init.normal_(t, 0.0, 1.0,
+                                      generator=generator).mul_(0.1))
+        self.a_log = _param((h,), f32, device, lambda t: t.copy_(torch.log(
+            torch.linspace(1.0, 16.0, h, device=t.device))))
+        self.dt_bias = _param((h,), f32, device, nn.init.zeros_)
+        self.d_skip = _param((h,), f32, device, nn.init.ones_)
+        self.out_norm = RMSNorm(d_inner, dtype=dtype, device=device)
+        self.out_proj = Dense(d_inner, d, **kw)
+
+    def forward(self, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[State] = None,
+                cache_length: Union[int, torch.Tensor, None] = None
+                ) -> Tuple[torch.Tensor, State]:
+        """Returns ``(x, state)``, as :meth:`RWKV6.forward`: prefill
+        (``cache`` None, or more than one token) starts from a zero state
+        and returns a fresh ``{ssm, conv}``; decode (one token) continues
+        ``cache`` and updates its tensors in place."""
+        b, t, _ = x.shape
+        d_inner, ds, hd = self.d_inner, self.d_state, self.head_dim
+        h = d_inner // hd
+        decoding = cache is not None and t == 1
+
+        zxbcdt = self.in_proj(self.ln(x))
+        z, xin, bc, dt = torch.split(zxbcdt, [d_inner, d_inner, 2 * ds, h],
+                                     dim=-1)
+        conv_out, conv_cache = _causal_conv(
+            torch.cat([xin, bc], dim=-1), self.conv,
+            cache["conv"] if decoding else None)
+        conv_out = F.silu(conv_out)
+        xs, b_in, c_in = torch.split(conv_out, [d_inner, ds, ds], dim=-1)
+
+        dt_f = F.softplus(dt.float() + self.dt_bias)              # (B,T,h)
+        a = torch.exp(-dt_f * torch.exp(self.a_log))              # (B,T,h)
+        xh = xs.reshape(b, t, h, hd)
+        # r = C, k = B (shared across heads), v = dt·x; one decay a head
+        rt = c_in.float()[:, None].expand(b, h, t, ds)
+        kt = b_in.float()[:, None].expand(b, h, t, ds)
+        vt = (xh * dt_f[..., None]).transpose(1, 2)               # f32
+        wt = a.transpose(1, 2)[..., None].expand(b, h, t, ds)
+        u0 = torch.zeros((h, ds), dtype=torch.float32, device=x.device)
+        if decoding:
+            o1, ssm = linear_attention_decode(
+                rt[:, :, 0], kt[:, :, 0], vt[:, :, 0], wt[:, :, 0], u0,
+                cache["ssm"])
+            y = o1[:, None]                                      # (B,1,h,hd)
+        else:
+            attend = (linear_attention_kernel if self.impl == "kernel"
+                      else linear_attention_chunked)
+            o, ssm = attend(rt, kt, vt, wt, u0, chunk=min(self.chunk, t))
+            y = o.transpose(1, 2)                                # (B,T,h,hd)
+        y = y.to(c_in.dtype) + xh * self.d_skip.to(xh.dtype)[None, None, :,
+                                                              None]
+        y = y.reshape(b, t, d_inner)
+        y = self.out_norm(y) * F.silu(z)
+        out = x + self.out_proj(y)
+        if decoding:
+            # into the state's own buffers (a captured decode step
+            # advances the buffers it was captured on)
+            cache["ssm"].copy_(ssm)
+            cache["conv"].copy_(conv_cache)
+            return out, cache
+        return out, {"ssm": ssm, "conv": conv_cache}
+
+
+def mamba2_state_init(batch: int, d: int, *, d_state: int = 64,
+                      expand: int = 2, head_dim: int = 64,
+                      conv_width: int = 4, dtype=torch.float32,
+                      device=None) -> State:
+    """A zero decode state: ``ssm (B, h, d_state, head_dim)`` f32 and
+    ``conv (B, conv_width - 1, expand·d + 2·d_state)`` in ``dtype``."""
+    d_inner = expand * d
+    h = d_inner // head_dim
+    return {"ssm": torch.zeros((batch, h, d_state, head_dim),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, conv_width - 1, d_inner + 2 * d_state),
+                                dtype=dtype, device=device)}

@@ -1,28 +1,35 @@
-"""Model assembly for the dense attention LMs and RWKV6, and their serving
-paths.
+"""Model assembly for the dense attention LMs, RWKV6 and zamba2 (Mamba2
+with a weight-shared attention block), and their serving paths.
 
 :class:`ModelConfig` and :class:`BlockSpec` are the JAX package's
 (``repro/models/transformer.py``), field for field, so its config modules
 copy verbatim; two defaults differ: ``param_dtype`` is
 ``torch.bfloat16``, and ``attn_impl`` is ``"kernel"`` — the flash kernel
-for attention and the linear-attention kernel for RWKV6's prefill (the
-JAX package's own accelerator hot paths); on a CPU tensor that route
-runs the kernels' plain versions.
+for attention and the linear-attention kernel for the prefill of RWKV6
+and Mamba2 (the JAX package's own accelerator hot paths); on a CPU
+tensor that route runs the kernels' plain versions.
 
 :class:`Transformer` holds the layers in a ``ModuleList`` in layer order:
 layer ``period * len(pattern) + i`` is the JAX package's stacked
-``blocks{i}[period]``.  :func:`forward`, :func:`prefill`,
-:func:`decode_step` and :func:`init_cache` are the train and serving
-paths of ``transformer.py:513-586``, taking the model where the JAX
-functions take ``(cfg, params)``.  A cache is a list with one dict per
-layer: ``{k, v}`` ``(B, max_len, Hkv, hd)`` for an attention layer,
-``{wkv, shift1, shift2}`` for an RWKV6 layer; decode updates it in
-place.
+``blocks{i}[period]``.  With ``shared_every`` (zamba2) it also holds one
+``shared`` attention block, applied after every segment of
+``shared_every`` layers that :meth:`ModelConfig.segments` marks, with
+the same weights at each of its ``n_shared_sites`` sites
+(``_walk_stack``).  :func:`forward`, :func:`prefill`, :func:`decode_step`
+and :func:`init_cache` are the train and serving paths of
+``transformer.py:513-586``, taking the model where the JAX functions
+take ``(cfg, params)``.
 
-This slice carries the dense attention blocks (``kind="attn"``) and
-RWKV6 (``kind="rwkv6"``); MoE, Mamba2, zamba2's shared block,
-encoder-decoder and patch-token configs raise ``NotImplementedError``
-when a model is built.
+A cache is a list of dicts: entry ``n < n_layers`` is layer ``n``'s —
+``{k, v}`` ``(B, max_len, Hkv, hd)`` for an attention layer, ``{wkv,
+shift1, shift2}`` for RWKV6, ``{ssm, conv}`` for Mamba2 — and entry
+``n_layers + s`` is shared site ``s``'s ``{k, v}`` (the JAX package's
+``cache["shared"][s]``).  Decode updates every entry in place.
+
+This slice carries the dense attention blocks (``kind="attn"``), RWKV6
+(``kind="rwkv6"``), Mamba2 (``kind="mamba2"``) and the shared block;
+MoE, encoder-decoder and patch-token configs raise
+``NotImplementedError`` when a model is built.
 """
 from __future__ import annotations
 
@@ -36,10 +43,16 @@ from torch import nn
 from .attention import Attention, Cache
 from .layers import (MLP, Dense, Embedding, RMSNorm, resolve_device,
                      resolve_dtype, softcap)
-from .linear_blocks import RWKV6, rwkv6_state_init
+from .linear_blocks import (RWKV6, Mamba2, mamba2_state_init,
+                            rwkv6_state_init)
 
 #: The block kinds this slice builds.
-PORTED_KINDS = ("attn", "rwkv6")
+PORTED_KINDS = ("attn", "rwkv6", "mamba2")
+
+#: Mamba2's head width: the JAX package's ``mamba2_init`` /
+#: ``mamba2_block`` default, which its model never overrides (so it is not
+#: ``cfg.hd``).
+MAMBA2_HEAD_DIM = 64
 
 # --------------------------------------------------------------------------
 # Configuration
@@ -120,6 +133,27 @@ class ModelConfig:
         return self.n_layers // len(self.pattern)
 
     @property
+    def n_shared_sites(self) -> int:
+        return self.n_layers // self.shared_every if self.shared_every else 0
+
+    def segments(self) -> List[Tuple[int, int, bool]]:
+        """Stack walk plan: ``[(period_start, period_end, shared_after)]``."""
+        if not self.shared_every:
+            return [(0, self.n_periods, False)]
+        if self.shared_every % len(self.pattern):
+            raise ValueError(f"{self.name}: shared_every {self.shared_every} "
+                             f"not a multiple of pattern length "
+                             f"{len(self.pattern)}")
+        seg_p = self.shared_every // len(self.pattern)
+        out: List[Tuple[int, int, bool]] = []
+        start = 0
+        while start < self.n_periods:
+            end = min(start + seg_p, self.n_periods)
+            out.append((start, end, end - start == seg_p))
+            start = end
+        return out
+
+    @property
     def dtype(self) -> torch.dtype:
         return resolve_dtype(self.param_dtype)
 
@@ -133,18 +167,16 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice leaves out."""
     left_out = [f"{s.kind} blocks" for s in cfg.pattern
                 if s.kind not in PORTED_KINDS]
-    if cfg.shared_every:
-        left_out.append("zamba2's shared block (shared_every)")
     if cfg.encoder_layers:
         left_out.append("the encoder-decoder stack (encoder_layers)")
     if cfg.patch_tokens:
         left_out.append("patch-token frontends (patch_tokens)")
     if left_out:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention and RWKV6 "
-            f"models only; "
+            f"{cfg.name}: the port serves dense attention, RWKV6 and "
+            f"zamba2 models only; "
             f"{', '.join(sorted(set(left_out)))} are still to port "
-            f"(ROADMAP 'Open items', items 1.6–1.11)")
+            f"(ROADMAP 'Open items', items 1.7–1.11)")
 
 
 # --------------------------------------------------------------------------
@@ -202,12 +234,18 @@ def _layer(cfg: ModelConfig, spec: BlockSpec, *, device,
         return RWKV6(cfg.d_model, cfg.d_ff, cfg.rwkv_head_dim,
                      chunk=cfg.scan_chunk, impl=cfg.attn_impl,
                      dtype=cfg.dtype, device=device, generator=generator)
+    if spec.kind == "mamba2":
+        return Mamba2(cfg.d_model, d_state=cfg.ssm_state,
+                      expand=cfg.ssm_expand, head_dim=MAMBA2_HEAD_DIM,
+                      chunk=cfg.scan_chunk, impl=cfg.attn_impl,
+                      dtype=cfg.dtype, device=device, generator=generator)
     return Block(cfg, spec, device=device, generator=generator)
 
 
 class Transformer(nn.Module):
-    """Embedding, the layers in layer order, the final norm and the head
-    (tied to the embedding unless ``tie_embeddings`` is false).
+    """Embedding, the layers in layer order, the final norm, the head
+    (tied to the embedding unless ``tie_embeddings`` is false) and, with
+    ``shared_every``, the ``shared`` attention block (else None).
 
     Weights are drawn from ``generator`` (a ``torch.Generator`` on
     ``device``; seed 0 when none is given) in construction order; on the
@@ -231,6 +269,8 @@ class Transformer(nn.Module):
             for n in range(cfg.n_periods * len(cfg.pattern)))
         self.lm_head = (None if cfg.tie_embeddings else
                         Dense(cfg.d_model, cfg.vocab, dtype=cfg.dtype, **kw))
+        self.shared = (Block(cfg, BlockSpec(kind="attn"), **kw)
+                       if cfg.shared_every else None)
 
     @property
     def device(self) -> torch.device:
@@ -274,55 +314,84 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, device=device)[None, :].expand(b, t)
 
 
+def _walk(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
+          cache: Optional[List[Cache]] = None,
+          length: Union[int, torch.Tensor, None] = None
+          ) -> Tuple[torch.Tensor, List[Cache]]:
+    """Apply the stack as ``_walk_stack`` does: the layers segment by
+    segment (:meth:`ModelConfig.segments`), the shared block after each
+    segment whose ``shared_after`` is true.  Without ``cache`` every layer
+    starts fresh; with it (decode) each continues its entry in place.
+    Returns ``(x, caches)`` in the cache layout of the module docstring."""
+    cfg = model.cfg
+    n_pat = len(cfg.pattern)
+    layer_caches: List[Cache] = []
+    site_caches: List[Cache] = []
+    for p0, p1, shared_after in cfg.segments():
+        for n in range(p0 * n_pat, p1 * n_pat):
+            c = None if cache is None else cache[n]
+            x, c = model.layers[n](x, positions, c, length)
+            layer_caches.append(c)
+        if shared_after:
+            c = (None if cache is None
+                 else cache[cfg.n_layers + len(site_caches)])
+            x, c = model.shared(x, positions, c, length)
+            site_caches.append(c)
+    return x, layer_caches + site_caches
+
+
 def forward(model: Transformer, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns ``(logits (B, T, V) f32, aux)``;
     ``aux`` (the MoE loss in the JAX package) is 0 for the ported
     models."""
     x = _embed_inputs(model, batch)
-    positions = _positions(x.shape[0], x.shape[1], x.device)
-    for layer in model.layers:
-        x, _ = layer(x, positions)
+    x, _ = _walk(model, x, _positions(x.shape[0], x.shape[1], x.device))
     return _logits(model, x), torch.zeros((), device=x.device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> List[Cache]:
-    """Zeroed decode cache, one dict per layer: ``{k, v}``, each
-    ``(batch, max_len, n_kv, hd)`` in the weights' type, for attention;
-    :func:`~.linear_blocks.rwkv6_state_init` for RWKV6."""
+    """Zeroed decode cache in the layout of the module docstring:
+    ``{k, v}``, each ``(batch, max_len, n_kv, hd)`` in the weights' type,
+    for attention layers and shared sites;
+    :func:`~.linear_blocks.rwkv6_state_init` for RWKV6 and
+    :func:`~.linear_blocks.mamba2_state_init` for Mamba2."""
     device = resolve_device(device)
     shape = (batch, max_len, cfg.n_kv, cfg.hd)
+
+    def kv() -> Cache:
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
     cache = []
     for n in range(cfg.n_periods * len(cfg.pattern)):
-        if cfg.pattern[n % len(cfg.pattern)].kind == "rwkv6":
+        kind = cfg.pattern[n % len(cfg.pattern)].kind
+        if kind == "rwkv6":
             cache.append(rwkv6_state_init(batch, cfg.d_model,
                                           cfg.rwkv_head_dim, dtype=cfg.dtype,
                                           device=device))
+        elif kind == "mamba2":
+            cache.append(mamba2_state_init(
+                batch, cfg.d_model, d_state=cfg.ssm_state,
+                expand=cfg.ssm_expand, head_dim=MAMBA2_HEAD_DIM,
+                dtype=cfg.dtype, device=device))
         else:
-            cache.append({"k": torch.zeros(shape, dtype=cfg.dtype,
-                                           device=device),
-                          "v": torch.zeros(shape, dtype=cfg.dtype,
-                                           device=device)})
-    return cache
+            cache.append(kv())
+    return cache + [kv() for _ in range(cfg.n_shared_sites)]
 
 
 def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
             max_len: int) -> Tuple[torch.Tensor, List[Cache]]:
     """Run the full prompt; return ``(last-position logits (B, 1, V),
-    cache)`` with each attention layer's k/v zero-padded to ``max_len``
-    and each RWKV6 layer's state as it stands after the prompt."""
+    cache)`` with the k/v of each attention layer and shared site
+    zero-padded to ``max_len`` (``pad_kv``) and each recurrent layer's
+    state as it stands after the prompt."""
     x = _embed_inputs(model, batch)
     b, t, _ = x.shape
-    positions = _positions(b, t, x.device)
-    cache = []
-    for layer in model.layers:
-        x, c = layer(x, positions)
-        if isinstance(layer, Block):
-            c = {name: torch.nn.functional.pad(c[name],
-                                               (0, 0, 0, 0, 0, max_len - t))
-                 for name in ("k", "v")}
-        cache.append(c)
+    x, cache = _walk(model, x, _positions(b, t, x.device))
+    cache = [{name: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, max_len - t))
+              for name, a in c.items()} if "k" in c else c for c in cache]
     return _logits(model, x[:, -1:]), cache
 
 
@@ -330,15 +399,14 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: List[Cache],
                 length: Union[int, torch.Tensor]
                 ) -> Tuple[torch.Tensor, List[Cache]]:
     """One serving step: ``tokens (B, 1)`` against a cache whose first
-    ``length`` positions are valid (an attention layer writes the new
-    token, in place, at ``length - 1``; an RWKV6 layer advances its state
-    in place).  Returns ``(logits (B, 1, V), cache)``.  ``length`` may be
+    ``length`` positions are valid (an attention layer or shared site
+    writes the new token, in place, at ``length - 1``; an RWKV6 or Mamba2
+    layer advances its state in place).  Returns ``(logits (B, 1, V), cache)``.  ``length`` may be
     a 0-d device tensor: the step then reads nothing on the host, which is
     what lets the serve engine capture it in a CUDA graph."""
     x = _scale_embeddings(model.cfg, model.embed(tokens).to(model.cfg.dtype))
     b, t, _ = x.shape
     length = torch.as_tensor(length, device=x.device)
     positions = (length - 1).reshape(1, 1).expand(b, t)
-    for layer, c in zip(model.layers, cache):
-        x, _ = layer(x, positions, c, length)
+    x, _ = _walk(model, x, positions, cache, length)
     return _logits(model, x), cache

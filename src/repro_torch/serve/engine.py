@@ -4,19 +4,21 @@ The JAX package's engine (``repro/serve/engine.py``) on the port's model:
 ``make_serve_step``/``make_prefill_step`` return the step functions, with
 greedy ``argmax`` on the device; :class:`Engine` is the host-side loop,
 with the same batching — each request prefilled alone, every entry of the
-slots' caches concatenated on the batch axis (k/v of attention layers,
-the states of RWKV6 layers), and the slots decoded in lock-step from
-``max(prompt lengths) + 1``.  With prompts of unequal length the shorter
-ones therefore attend to zero keys and decode at shifted positions, as in
-the JAX package (ROADMAP §3); an RWKV6 state carries no positions, so its
-requests decode as if alone.
+slots' caches concatenated on the batch axis (k/v of attention layers and
+of zamba2's shared sites, the states of RWKV6 and Mamba2 layers), and the
+slots decoded in lock-step from ``max(prompt lengths) + 1``.  With
+prompts of unequal length the shorter ones therefore attend to zero keys
+and decode at shifted positions, as in the JAX package (ROADMAP §3); an
+RWKV6 state carries no positions, so its requests decode as if alone.
 
 The decode step is the counterpart of the JAX engine's ``jax.jit(
 make_serve_step(cfg))``: a :class:`DecodeRunner` held in a
 :class:`~repro_torch.core.graphcache.CompileCache` under the signature
 (model, config, batch, ``max_len``, dtype, device).  On the card it is a
 captured CUDA graph over static buffers — the tokens ``(B, 1)`` int32,
-every layer's cache, and the cache length as a 0-d device tensor, which
+every entry of the cache (each layer's and each shared site's, as
+:func:`~repro_torch.models.transformer.init_cache` lays them out), and
+the cache length as a 0-d device tensor, which
 the graph advances itself, so that a step copies nothing to the device.
 Each batch's prefilled caches are copied into the static cache once.  A
 last batch with fewer requests than slots gets a capture of its own batch
@@ -64,7 +66,7 @@ def make_serve_step(model: T.Transformer
 
 class DecodeRunner:
     """The decode step of one (model, batch, ``max_len``) over static
-    buffers: ``tokens (B, 1)`` int32, ``cache`` (every layer's, as
+    buffers: ``tokens (B, 1)`` int32, ``cache`` (every entry, as
     :func:`~repro_torch.models.transformer.init_cache` makes it) and
     ``length`` (0-d int64).  A step writes the next tokens into
     ``tokens``, its logits into ``logits`` and advances ``length``; on the
@@ -103,9 +105,9 @@ class DecodeRunner:
              length: int) -> None:
         """A batch's prefilled caches (one per request, batch axis 0),
         its first tokens and its cache length, copied in."""
-        for layer, static in enumerate(self.cache):
+        for entry, static in enumerate(self.cache):
             for name, buf in static.items():
-                torch.cat([c[layer][name] for c in caches], out=buf)
+                torch.cat([c[entry][name] for c in caches], out=buf)
         self.tokens.copy_(tokens)
         self.length.fill_(length)
 

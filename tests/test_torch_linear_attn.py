@@ -11,7 +11,8 @@ models' ``"chunked"`` route runs) — are held to
 ``repro.kernels.ref.linear_attention(_state)`` and to the Pallas kernel
 itself (``repro.kernels.ops.linear_attn(..., interpret=True)``) with
 ``tests/test_kernels.py``'s tolerances: 2e-4 in f32, 1e-3 under strong
-decay, 5e-4 over its shape sweep.  RWKV6's mixed types (bf16 r/k/v and
+decay (and under zamba2's decay spectrum, where some steps underflow to
+w = 0), 5e-4 over its shape sweep.  RWKV6's mixed types (bf16 r/k/v and
 bonus, f32 decay) are held to the JAX package's chunked form at 1e-2 on
 the bf16 output (above 2**-7, one bf16 ulp relative) and 2e-4 on the f32
 state.  The ``ValueError`` contract is checked beside the JAX kernel's.
@@ -25,7 +26,9 @@ held to the JAX package's oracle and Pallas kernel at the tolerances
 above, under RWKV6's, strong and scalar decay; one bf16 rounding in its
 place misses them, which is why the kernel splits.  ``kernel_for``'s
 routing rule and the card route's packed arguments (through a stub
-library) are checked on the CPU too.
+library) are checked on the CPU too, and a Mamba2 layer's prefill on
+that route: one f32 launch, and a refused launch raises with no
+fallback to the chunked form.
 
 The kernels run only on a card (``-m gpu``): they are held to their plain
 version there at ``chip_smoke.py``'s cases and at chunks 16 and 32, with
@@ -78,6 +81,23 @@ def scalar_decay_inputs(seed, bh, t, dk, dv):
     a = 1 / (1 + np.exp(-rng.standard_normal((bh, t, 1))))
     w = np.broadcast_to(a, (bh, t, dk))
     u = np.zeros((1, dk))
+    return [np.ascontiguousarray(x, dtype=np.float32)
+            for x in (r, k, v, w, u)]
+
+
+def zamba2_decay_inputs(seed, bh, heads, t, dk, dv, *, spread=1.0):
+    """Mamba2's form with zamba2's decay spectrum: row ``bh`` (head ``bh %
+    heads``) decays by ``exp(-softplus(spread·z) · linspace(1, 16,
+    heads)[head])`` a step, broadcast over dk (``a_log = log(linspace(1,
+    16, h))``, ``dt_bias = 0``, ``dt`` standard normal); no bonus."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((bh, t, dk)) * 0.5
+    k = rng.standard_normal((bh, t, dk)) * 0.5
+    v = rng.standard_normal((bh, t, dv)) * 0.5
+    rate = np.linspace(1.0, 16.0, heads)[np.arange(bh) % heads]
+    dt = np.logaddexp(0.0, spread * rng.standard_normal((bh, t, 1)))
+    w = np.broadcast_to(np.exp(-dt * rate[:, None, None]), (bh, t, dk))
+    u = np.zeros((heads, dk))
     return [np.ascontiguousarray(x, dtype=np.float32)
             for x in (r, k, v, w, u)]
 
@@ -203,6 +223,26 @@ def test_scalar_decay_mamba_mode_matches_pallas_kernel(jx):
     for port in (got, chunked):
         np.testing.assert_allclose(as_f32(port), as_f32(want), rtol=2e-4,
                                    atol=2e-4)
+
+
+def test_zamba2_decay_spectrum_matches_pallas_kernel(jx):
+    """zamba2's per-head decays, the last heads losing e^-16 and more a
+    step and some steps underflowing to w = 0 in f32 (the kernels clamp
+    at 1e-30 as the Pallas kernel does): the port's plain routes against
+    the Pallas kernel in interpret mode at the strong-decay tolerance."""
+    jnp, jops, jref, _, _ = jx
+    arrays = zamba2_decay_inputs(8, 8, 4, 64, 16, 32, spread=3.0)
+    assert (arrays[3] == 0).any() and (arrays[3] > 0.5).any()
+    got = ops.linear_attn(*to_torch(arrays), chunk=16)
+    chunked, _ = port_version("chunked", *to_torch(arrays), 16, 4)
+    want = jops.linear_attn(*to_jax(jnp, arrays), chunk=16, interpret=True)
+    assert np.isfinite(as_f32(got)).all()
+    for port in (got, chunked):
+        np.testing.assert_allclose(as_f32(port), as_f32(want), rtol=1e-3,
+                                   atol=1e-3)
+    np.testing.assert_allclose(
+        as_f32(got), as_f32(jref.linear_attention(*to_jax(jnp, arrays))),
+        rtol=1e-3, atol=1e-3)
 
 
 # ------------------------------------------ RWKV6's mixed types (CPU) ---
@@ -493,6 +533,35 @@ def test_card_route_passes_the_packed_argument_block(shape, chunk, variant,
                              chunk) == bh * (t // chunk) * 4160
 
 
+@pytest.mark.parametrize("rc", [0, 1])
+def test_mamba2_prefill_reaches_the_kernel_in_f32_and_never_falls_back(
+        rc, card_route, monkeypatch, launches):
+    """A bf16 Mamba2 layer (one head of 64, d_state 64) sends its prefill
+    down the card route as one launch of the sub-chunked kernel with
+    every operand f32 (its ``v = dt·x`` is f32, so ``r`` and ``k`` are
+    lifted); a launch the kernel refuses raises ``DeviceError`` out of the
+    layer, and the chunked form is never run in its place."""
+    monkeypatch.setitem(la._CACHED, "subchunk", la.bind(
+        StubLibrary("linear_attn_tc", rc=rc), "linear_attn_tc"))
+    monkeypatch.setattr(LB, "linear_attention_chunked", lambda *a, **k:
+                        pytest.fail("fell back to the chunked form"))
+    layer = LB.Mamba2(32, d_state=64, impl="kernel", dtype=torch.bfloat16,
+                      device="cpu", generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 64, 32, generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16)
+    if rc:
+        with pytest.raises(DeviceError, match="launch failed"):
+            layer(x)
+        assert not launches
+        return
+    out, state = layer(x)
+    (args,) = la._CACHED["subchunk"].calls
+    assert args[9:] == (2, 64, 64, 64, 1, 64, 0, 0, 0)
+    assert out.dtype == torch.bfloat16 and state["ssm"].dtype == torch.float32
+    assert launches["linear_attn"] == 1
+    assert la.SHAPES == {(2, 64, 64, 64, 64, torch.float32): 1}
+
+
 def test_scratch_is_sized_by_the_library():
     """The sub-chunked kernel's scratch is the size its build states
     (read once, when bound), not a copy of its formula."""
@@ -599,12 +668,14 @@ def card():
 #: ``chip_smoke.py``'s cases: (label, (BH, T, dk, dv), dtype of r/k/v/u,
 #: decay, via ops.linear_attn).  rwkv6-1.6b's prefill of a 512-token
 #: prompt, a padded length, strong decay, Mamba2's scalar decay with no
-#: bonus, and f32 throughout; then a small odd chunk with a ragged dv.
+#: bonus, zamba2-1.2b's prefill (64 heads, its decay spectrum, f32), and
+#: f32 throughout; then a small odd chunk with a ragged dv.
 CARD_CASES = [
     ("path", (32, 512, 64, 64), "bfloat16", "rwkv", False, 64),
     ("padded", (32, 300, 64, 64), "bfloat16", "rwkv", True, 64),
     ("strong_decay", (32, 512, 64, 64), "float32", "strong", False, 64),
     ("scalar_decay_u0", (32, 512, 64, 64), "float32", "scalar", False, 64),
+    ("mamba2_path", (64, 512, 64, 64), "float32", "zamba2", False, 64),
     ("f32", (32, 512, 64, 64), "float32", "rwkv", False, 64),
     ("odd_chunk", (3, 42, 16, 20), "float32", "rwkv", False, 7),
     ("chunk16", (32, 512, 64, 64), "bfloat16", "rwkv", False, 16),
@@ -619,6 +690,8 @@ def card_inputs(seed, shape, dtype, decay):
     bh, t, dk, dv = shape
     if decay == "scalar":
         arrays = scalar_decay_inputs(seed, bh, t, dk, dv)
+    elif decay == "zamba2":
+        arrays = zamba2_decay_inputs(seed, bh, 64, t, dk, dv)
     else:
         arrays = lin_inputs(seed, bh, bh, t, dk, dv,
                             decay_strength=3.0 if decay == "strong" else 1.0)
@@ -644,9 +717,9 @@ def test_kernel_matches_plain_version_on_the_card(case, launches):
     assert la.VARIANTS == {la.kernel_for(r.dtype, shape[2], shape[3],
                                          chunk): 1}
     want, want_state = ref.linear_attention_state(r, k, v, w, u)
-    tol = 1e-2 if dtype == "bfloat16" else (1e-3 if decay == "strong"
-                                             else 2e-4)
-    stol = 1e-3 if decay == "strong" else 2e-4
+    strong = decay in ("strong", "zamba2")
+    tol = 1e-2 if dtype == "bfloat16" else (1e-3 if strong else 2e-4)
+    stol = 1e-3 if strong else 2e-4
     assert got.dtype == r.dtype and got.shape == v.shape
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -24,8 +24,18 @@ plain version on the CPU, and ``"chunked"``).  In bf16 its logits reach
 runs of the same forward differ by up to 0.053 on them; the port is held
 at rtol 2e-2 and atol 0.1 there (measured: within 0.07).
 
+zamba2 (``zamba2-1.2b``'s smoke config: five Mamba2 layers and the
+weight-shared attention block at two sites) is held as RWKV6 is: the
+causal conv and one Mamba2 layer (prefill output and final
+``{ssm, conv}``, then four decode steps) against ``mamba2_block``, and
+the model's ``forward``, ``prefill`` and ``decode_step`` (logits and
+every cache entry, each Mamba2 state and each shared site's k/v) in f32
+at rtol/atol 1e-4 through both prefill routes, and in bf16 at RWKV6's
+bf16 tolerance (measured: within 0.032 on logits up to 0.66).
+
 The full-width configs are checked for structure only, on the ``meta``
-device: the port's parameter count equals the JAX package's.
+device: the port's parameter count equals the JAX package's, and the
+port's stack walk visits JAX's segment plan.
 """
 import dataclasses
 import functools
@@ -35,15 +45,17 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.carry import import_lm_params
+from repro_torch.carry import _flatten, import_lm_params
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 DENSE = ("qwen3-0.6b", "qwen3-4b", "qwen1.5-4b", "gemma2-2b")
-FULL_PARAMS = {"qwen3-0.6b": 596_049_920, "rwkv6-1.6b": 1_678_313_472}
+FULL_PARAMS = {"qwen3-0.6b": 596_049_920, "rwkv6-1.6b": 1_678_313_472,
+               "zamba2-1.2b": 1_104_777_344}
 RWKV = "rwkv6-1.6b"
+ZAMBA = "zamba2-1.2b"
 
 
 @pytest.fixture(scope="module")
@@ -322,16 +334,21 @@ def test_naive_chunked_and_kernel_routes_agree():
 
 # ----------------------------------------------------------------- RWKV6 ---
 
-def rwkv_pair(dtype="float32", impl="kernel", seed=0):
-    """``pair`` for rwkv6-1.6b-smoke with the port's prefill route
-    ``impl`` (the JAX package's RWKV6 ignores ``attn_impl``)."""
-    jcfg, params, model = pair(RWKV, dtype, seed=seed)
+def model_pair(arch, dtype="float32", impl="kernel", seed=0):
+    """``pair`` with the port's prefill route ``impl`` (the JAX package's
+    recurrent blocks ignore ``attn_impl``)."""
+    jcfg, params, model = pair(arch, dtype, seed=seed)
     if impl != model.cfg.attn_impl:
         m = T.Transformer(dataclasses.replace(model.cfg, attn_impl=impl),
                           device="cpu")
         m.load_state_dict(model.state_dict())
         model = m
     return jcfg, params, model
+
+
+def rwkv_pair(dtype="float32", impl="kernel", seed=0):
+    """``model_pair`` for rwkv6-1.6b-smoke."""
+    return model_pair(RWKV, dtype, impl, seed)
 
 
 @pytest.mark.parametrize("impl", ["kernel", "chunked"])
@@ -454,9 +471,280 @@ def test_rwkv6_weights_follow_the_jax_initialisers():
     assert 0.05 < float(layer.bonus.std()) < 0.2
 
 
+# ------------------------------------------------ Mamba2 and zamba2 ---
+
+def mamba2_pair(jx, impl="kernel"):
+    """The JAX package's Mamba2 parameters (numpy) at the zamba2 smoke
+    widths (d 64, d_state 16, 2 heads of 64) and the port's layer with
+    them."""
+    from repro_torch.models.linear_blocks import Mamba2
+    jax, _, _, _, _, _ = jx
+    from repro.models import linear_blocks as JLB
+    p = jax.tree.map(np.asarray, JLB.mamba2_init(jax.random.PRNGKey(3), 64,
+                                                 d_state=16))
+    layer = Mamba2(64, d_state=16, chunk=16, impl=impl, dtype=torch.float32,
+                   device="cpu", generator=None)
+    layer.load_state_dict({name: torch.from_numpy(np.array(a))
+                           for name, a in _flatten(p, "").items()},
+                          strict=True)
+    return JLB, p, layer
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_causal_conv_matches_jax(cached, jx):
+    from repro_torch.models.linear_blocks import _causal_conv
+    _, jnp, _, _, _, _ = jx
+    from repro.models import linear_blocks as JLB
+    x, kernel = normal(20, 2, 7, 12), normal(21, 4, 12)
+    cache = normal(22, 2, 3, 12) if cached else None
+    got, got_cache = _causal_conv(
+        torch.from_numpy(x), torch.from_numpy(kernel),
+        None if cache is None else torch.from_numpy(cache))
+    want, want_cache = JLB._causal_conv(
+        jnp.asarray(x), jnp.asarray(kernel),
+        None if cache is None else jnp.asarray(cache))
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(f32(got_cache), f32(want_cache))
+    np.testing.assert_array_equal(f32(got_cache), x[:, -3:])
+
+
+@pytest.mark.parametrize("impl", ["kernel", "chunked"])
+def test_mamba2_prefill_and_decode_match_jax(impl, jx):
+    """One layer: prefill (``state=None``) output and final ``{ssm,
+    conv}``, then four decode steps from that state, each output and
+    state."""
+    jax, jnp, _, _, _, _ = jx
+    JLB, p, layer = mamba2_pair(jx, impl)
+    jp = jax.tree.map(jnp.asarray, p)
+    x = normal(23, 2, 25, 64)               # 25 = a chunk of 16 + 9
+    kw = dict(d_state=16, chunk=16)
+    got, state = layer(torch.from_numpy(x[:, :21]))
+    want, jstate = JLB.mamba2_block(jp, jnp.asarray(x[:, :21]), **kw)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4)
+    assert sorted(state) == ["conv", "ssm"]
+    assert tuple(state["ssm"].shape) == (2, 2, 16, 64)
+    assert state["ssm"].dtype == torch.float32
+    for name in state:
+        np.testing.assert_allclose(f32(state[name]), f32(jstate[name]),
+                                   rtol=1e-4, atol=1e-4)
+    buffers = dict(state)
+    for i in range(21, 25):
+        got, state = layer(torch.from_numpy(x[:, i:i + 1]), None, state)
+        want, jstate = JLB.mamba2_block(jp, jnp.asarray(x[:, i:i + 1]),
+                                        state=jstate, **kw)
+        assert all(state[name] is buffers[name] for name in buffers)
+        np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"decode at {i}")
+        for name in state:
+            np.testing.assert_allclose(f32(state[name]), f32(jstate[name]),
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "chunked"])
+def test_zamba2_forward_matches_jax(impl, jx):
+    jax, jnp, _, _, _, JT = jx
+    jcfg, params, model = model_pair(ZAMBA, impl=impl)
+    assert model.layers[0].impl == impl and model.shared is not None
+    toks = tokens(jcfg, 11, 2, 40)           # 40 = 2 chunks of 16 + 8
+    got, aux = T.forward(model, {"tokens": torch.from_numpy(toks)})
+    want, _ = JT.forward(jcfg, jax.tree.map(jnp.asarray, params),
+                         {"tokens": jnp.asarray(toks)})
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4)
+
+
+def assert_zamba2_cache_matches(cfg, cache, jcache, tol):
+    """Every entry of the port's cache against JAX's tree: layer ``n``'s
+    ``{ssm, conv}`` against ``blocks0[n]``, site ``s``'s ``{k, v}``
+    against ``shared[s]``."""
+    assert len(cache) == cfg.n_layers + cfg.n_shared_sites
+    for n in range(cfg.n_layers):
+        assert sorted(cache[n]) == ["conv", "ssm"]
+        for name in ("ssm", "conv"):
+            np.testing.assert_allclose(
+                f32(cache[n][name]), f32(jcache["blocks0"][name][n]),
+                rtol=tol, atol=tol, err_msg=f"layer {n} {name}")
+    for s in range(cfg.n_shared_sites):
+        for name in ("k", "v"):
+            jc = jcache["shared"][name][s]
+            assert tuple(cache[cfg.n_layers + s][name].shape) == jc.shape
+            np.testing.assert_allclose(
+                f32(cache[cfg.n_layers + s][name]), f32(jc), rtol=tol,
+                atol=tol, err_msg=f"site {s} {name}")
+
+
+@pytest.mark.parametrize("impl", ["kernel", "chunked"])
+def test_zamba2_prefill_and_decode_match_jax(impl, jx):
+    jax, jnp, _, _, _, JT = jx
+    jcfg, params, model = model_pair(ZAMBA, impl=impl)
+    jparams = jax.tree.map(jnp.asarray, params)
+    toks = tokens(jcfg, 12, 2, 21)
+    max_len = 24
+    got, cache = T.prefill(model, {"tokens": torch.from_numpy(toks[:, :17])},
+                           max_len)
+    want, jcache = JT.prefill(jcfg, jparams,
+                              {"tokens": jnp.asarray(toks[:, :17])}, max_len)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4)
+    assert_zamba2_cache_matches(model.cfg, cache, jcache, 1e-4)
+    for i in range(17, 21):
+        tok = toks[:, i:i + 1]
+        got, cache = T.decode_step(model, torch.from_numpy(tok), cache, i + 1)
+        want, jcache = JT.decode_step(jcfg, jparams, jnp.asarray(tok), jcache,
+                                      jnp.int32(i + 1))
+        np.testing.assert_allclose(f32(got), f32(want), rtol=1e-4, atol=1e-4,
+                                   err_msg=f"zamba2: decode at {i}")
+        assert_zamba2_cache_matches(model.cfg, cache, jcache, 1e-4)
+
+
+def test_zamba2_bf16_forward_and_decode_match_jax(jx):
+    """At ``test_rwkv6_bf16_forward_and_decode_match_jax``'s tolerance;
+    the Mamba2 layers keep ``a_log``, ``dt_bias`` and ``d_skip`` in f32."""
+    jax, jnp, _, _, _, JT = jx
+    jcfg, params, model = model_pair(ZAMBA, dtype="bfloat16")
+    layer = model.layers[0]
+    assert layer.in_proj.w.dtype == torch.bfloat16
+    assert {layer.a_log.dtype, layer.dt_bias.dtype,
+            layer.d_skip.dtype} == {torch.float32}
+    jparams = jax.tree.map(jnp.asarray, params)
+    toks = tokens(jcfg, 13, 2, 24)
+    got, _ = T.forward(model, {"tokens": torch.from_numpy(toks)})
+    want, _ = JT.forward(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2e-2, atol=0.1)
+    _, cache = T.prefill(model, {"tokens": torch.from_numpy(toks[:, :21])},
+                         24)
+    _, jcache = JT.prefill(jcfg, jparams,
+                           {"tokens": jnp.asarray(toks[:, :21])}, 24)
+    assert cache[0]["conv"].dtype == torch.bfloat16
+    assert cache[0]["ssm"].dtype == torch.float32
+    for i in range(21, 24):
+        tok = toks[:, i:i + 1]
+        got, cache = T.decode_step(model, torch.from_numpy(tok), cache, i + 1)
+        want, jcache = JT.decode_step(jcfg, jparams, jnp.asarray(tok), jcache,
+                                      jnp.int32(i + 1))
+        np.testing.assert_allclose(f32(got), f32(want), rtol=2e-2, atol=0.1)
+
+
+def test_zamba2_decoding_from_an_empty_cache_matches_forward():
+    """Token by token from ``init_cache`` (zero Mamba2 states, zero site
+    caches), the logits are the full forward's."""
+    _, _, model = model_pair(ZAMBA)
+    cfg = model.cfg
+    batch = configs.smoke_batch(cfg, batch=2, seq=12, train=False, seed=6,
+                                device="cpu")
+    full, _ = T.forward(model, batch)
+    cache = T.init_cache(cfg, 2, 12, device="cpu")
+    assert len(cache) == cfg.n_layers + cfg.n_shared_sites
+    assert [sorted(c) for c in cache] == (
+        [["conv", "ssm"]] * cfg.n_layers + [["k", "v"]] * cfg.n_shared_sites)
+    for i in range(12):
+        got, cache = T.decode_step(model, batch["tokens"][:, i:i + 1], cache,
+                                   i + 1)
+        torch.testing.assert_close(got[:, 0], full[:, i], rtol=1e-5,
+                                   atol=1e-5)
+
+
+class Recorder(torch.nn.Module):
+    """A stand-in layer that logs its name when applied and returns its
+    input and a cache naming it."""
+
+    def __init__(self, name, log):
+        super().__init__()
+        self.name, self.log = name, log
+
+    def forward(self, x, positions, cache=None, length=None):
+        self.log.append(self.name)
+        return x, {"from": self.name}
+
+
+@pytest.mark.parametrize("which", ["smoke", "full"])
+def test_walk_visits_the_jax_segment_plan(which, jx):
+    """The walk applies the layers and the shared block in the order of
+    JAX's ``segments()``, and returns the caches as layers then sites."""
+    _, _, jconfigs, _, _, _ = jx
+    get = configs.get_smoke if which == "smoke" else configs.get_config
+    jget = jconfigs.get_smoke if which == "smoke" else jconfigs.get_config
+    cfg, jcfg = get(ZAMBA), jget(ZAMBA)
+    assert cfg.segments() == jcfg.segments()
+    assert cfg.n_shared_sites == jcfg.n_shared_sites
+    want = []
+    for p0, p1, shared_after in jcfg.segments():
+        want += [f"layer{n}" for n in range(p0, p1)]
+        want += ["shared"] if shared_after else []
+    model = T.Transformer(cfg, device="meta")
+    log = []
+    model.layers = torch.nn.ModuleList(Recorder(f"layer{n}", log)
+                                       for n in range(cfg.n_layers))
+    model.shared = Recorder("shared", log)
+    x = torch.zeros(1, 3, 4)
+    out, cache = T._walk(model, x, torch.zeros(1, 3, dtype=torch.long))
+    assert out is x and log == want
+    assert want.count("shared") == cfg.n_shared_sites
+    assert [c["from"] for c in cache] == (
+        [f"layer{n}" for n in range(cfg.n_layers)]
+        + ["shared"] * cfg.n_shared_sites)
+
+
+def test_mamba2_weights_follow_the_jax_initialisers(jx):
+    """``mamba2_init``'s shapes and types in a bf16 model (``a_log``,
+    ``dt_bias``, ``d_skip`` f32), ``a_log = log(linspace(1, 16, h))``,
+    ``dt_bias`` 0, ``d_skip`` 1, the conv at 0.1, and the shared block's
+    names and shapes; head width 64 whatever ``cfg.hd``."""
+    jax, _, jconfigs, _, _, JT = jx
+    jcfg = jconfigs.get_config(ZAMBA)
+    shapes = jax.eval_shape(lambda: JT.init(jcfg, jax.random.PRNGKey(0)))
+    model = T.Transformer(configs.get_config(ZAMBA), device="meta")
+    state = model.state_dict()
+    for name, leaf in _flatten(shapes["blocks0"], "").items():
+        got = state[f"layers.0.{name}"]
+        assert tuple(got.shape) == leaf.shape[1:], name
+        assert str(got.dtype).split(".")[-1] == str(leaf.dtype), name
+    for name, leaf in _flatten(shapes["shared"], "").items():
+        assert tuple(state[f"shared.{name}"].shape) == leaf.shape, name
+    smoke = dataclasses.replace(configs.get_smoke(ZAMBA),
+                                param_dtype="bfloat16")
+    assert smoke.hd == 16
+    layer = T.Transformer(smoke, device="cpu",
+                          generator=torch.Generator().manual_seed(1)
+                          ).layers[0]
+    assert layer.head_dim == 64 and tuple(layer.a_log.shape) == (2,)
+    jl = JT.init(dataclasses.replace(jconfigs.get_smoke(ZAMBA),
+                                     param_dtype="bfloat16"),
+                 jax.random.PRNGKey(0))["blocks0"]
+    np.testing.assert_allclose(f32(layer.a_log), f32(jl["a_log"][0]),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.all(layer.dt_bias == 0) and torch.all(layer.d_skip == 1)
+    assert 0.05 < float(layer.conv.float().std()) < 0.2
+    assert layer.conv.dtype == torch.bfloat16
+
+
+def test_import_lm_params_loads_zamba2_strictly_keeping_types(jx):
+    """JAX's stacked ``blocks0`` goes to the per-layer modules and the
+    un-stacked ``shared`` tree to the shared block; every leaf keeps its
+    type (f32 ``a_log``/``dt_bias``/``d_skip`` in a bf16 model)."""
+    jax, _, jconfigs, _, _, JT = jx
+    jcfg = dataclasses.replace(jconfigs.get_smoke(ZAMBA),
+                               param_dtype="bfloat16")
+    params = jax.tree.map(np.asarray, JT.init(jcfg, jax.random.PRNGKey(4)))
+    cfg = dataclasses.replace(configs.get_smoke(ZAMBA),
+                              param_dtype="bfloat16")
+    imported = import_lm_params(cfg, params)
+    model = T.Transformer(cfg, device="cpu")
+    model.load_state_dict(imported, strict=True)
+    state = model.state_dict()
+    assert imported.keys() == state.keys()
+    assert all(imported[k].dtype == state[k].dtype for k in state)
+    assert imported["layers.4.a_log"].dtype == torch.float32
+    assert imported["shared.attn.wq.w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        f32(state["layers.3.in_proj.w"]),
+        f32(params["blocks0"]["in_proj"]["w"][3]))
+    np.testing.assert_array_equal(f32(state["shared.mlp.down.w"]),
+                                  f32(params["shared"]["mlp"]["down"]["w"]))
+
+
 # ------------------------------------------------- full-width structure ---
 
-@pytest.mark.parametrize("arch", DENSE + (RWKV,))
+@pytest.mark.parametrize("arch", DENSE + (RWKV, ZAMBA))
 def test_full_param_count_on_meta_matches_jax(arch, jx):
     _, _, jconfigs, _, _, _ = jx
     cfg = configs.get_config(arch)
@@ -477,8 +765,6 @@ def test_default_route_is_the_kernel_and_default_device_the_card():
 
 @pytest.mark.parametrize("change", [
     {"pattern": (T.BlockSpec(kind="moe_attn"),), "n_experts": 4, "top_k": 2},
-    {"pattern": (T.BlockSpec(kind="mamba2"),)},
-    {"shared_every": 2},
     {"encoder_layers": 2},
     {"patch_tokens": 4},
 ])
@@ -489,9 +775,9 @@ def test_left_out_families_raise_not_implemented(change):
 
 
 def test_unported_arch_is_a_key_error():
-    assert set(configs.arch_ids()) == set(DENSE) | {RWKV}
+    assert set(configs.arch_ids()) == set(DENSE) | {RWKV, ZAMBA}
     with pytest.raises(KeyError, match="not ported"):
-        configs.get_config("zamba2-1.2b")
+        configs.get_config("mixtral-8x22b")
 
 
 def test_weights_come_from_the_generator():

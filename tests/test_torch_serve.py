@@ -2,8 +2,8 @@
 
 The same weights (``repro_torch.carry.import_lm_params``) and the same
 numpy prompts go through ``repro.serve.engine.Engine`` and the port's
-``Engine`` on the CPU (the dense archs and RWKV6), with prompts of equal
-and of unequal length.  The
+``Engine`` on the CPU (the dense archs, RWKV6 and zamba2), with prompts of
+equal and of unequal length.  The
 served tokens must be equal, except that a token may differ where the JAX
 step's two largest logits are closer than ``TIE_TOL`` (the port's and the
 JAX package's logits agree to 1e-4, ``tests/test_torch_models.py``); such
@@ -88,7 +88,8 @@ def top_two_gap(logits):
     return float(b - a)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "rwkv6-1.6b",
+                                  "zamba2-1.2b"])
 @pytest.mark.parametrize("lengths", sorted(PROMPT_LENGTHS))
 def test_engine_serves_the_jax_engines_tokens(arch, lengths, jx):
     jax, jnp, jconfigs, JT, jengine = jx
@@ -237,6 +238,18 @@ def test_launcher_serves_rwkv6_on_the_cpu():
     assert "served 3 requests, 9 tokens" in text
 
 
+def test_launcher_serves_zamba2_on_the_cpu():
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = launch_serve.main(["--device", "cpu", "--requests", "3",
+                                "--prompt-len", "5", "--max-new", "3",
+                                "--slots", "2", "--arch", "zamba2-1.2b"])
+    text = buf.getvalue()
+    assert rc == 0
+    assert "arch=zamba2-1.2b-smoke device=cpu attn_impl=kernel" in text
+    assert "served 3 requests, 9 tokens" in text
+
+
 def test_engine_on_the_card_needs_a_card(monkeypatch):
     from repro_torch import DeviceError
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -257,20 +270,29 @@ def test_bf16_engine_serves_whole_requests():
                for r in done)
 
 
-#: Each arch's prefill kernel on the card: (wrapper module, launch key).
-CARD_KERNELS = {"qwen3-0.6b": (fa, "flash_attention"),
-                "gemma2-2b": (fa, "flash_attention"),
-                "rwkv6-1.6b": (la, "linear_attn")}
+def card_kernels(cfg):
+    """The kernels a prefill of ``cfg`` launches on the card: (wrapper
+    module, launch key, launches a prefill) — flash attention once an
+    attention layer or shared site, linear attention once a recurrent
+    layer."""
+    if cfg.pattern[0].kind == "attn":
+        return [(fa, "flash_attention", cfg.n_layers)]
+    out = [(la, "linear_attn", cfg.n_layers)]
+    if cfg.n_shared_sites:
+        out.append((fa, "flash_attention", cfg.n_shared_sites))
+    return out
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "rwkv6-1.6b",
+                                  "zamba2-1.2b"])
 def test_engine_on_the_card(arch):
     """The smoke config on the card: the forward's logits are the CPU's
     (f32, TF32 off, rtol/atol 1e-4), every prefill goes through the arch's
-    kernel (flash attention, or linear attention for RWKV6), and each
-    served token is its position's greedy token in a teacher-forced
-    forward on the card (within 1e-4)."""
+    kernels (flash attention; linear attention for RWKV6; both for zamba2,
+    Mamba2 layers and shared sites), and each served token is its
+    position's greedy token in a teacher-forced forward on the card
+    (within 1e-4)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -286,13 +308,15 @@ def test_engine_on_the_card(arch):
     eng = engine.Engine(card, slots=2, max_len=32)
     for rid, pr in enumerate(prompts(cfg.vocab, (12,) * 3, seed=5)):
         eng.submit(engine.Request(rid=rid, prompt=pr, max_new=6))
-    counters, key = CARD_KERNELS[arch]
-    counters.LAUNCHES.clear()
+    kernels = card_kernels(cfg)
+    for counters, _, _ in kernels:
+        counters.LAUNCHES.clear()
     fa.VARIANTS.clear()
     done = eng.run()
-    assert counters.LAUNCHES[key] == 3 * cfg.n_layers
-    if counters is fa:                       # f32 smoke heads: FMA kernel
-        assert fa.VARIANTS == {"fma": 3 * cfg.n_layers}
+    for counters, key, per_prefill in kernels:
+        assert counters.LAUNCHES[key] == 3 * per_prefill
+        if counters is fa:                   # f32 smoke heads: FMA kernel
+            assert fa.VARIANTS == {"fma": 3 * per_prefill}
     for r in done:
         seq = np.concatenate([r.prompt, r.out[:-1]]).astype(np.int32)
         logits, _ = T.forward(card, {"tokens": torch.from_numpy(seq)[None]
@@ -365,7 +389,7 @@ def test_bf16_engine_on_the_card_goes_through_wgmma(arch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "zamba2-1.2b"])
 @pytest.mark.parametrize("lengths", sorted(PROMPT_LENGTHS))
 def test_decode_with_a_device_tensor_length_serves_the_jax_tokens(
         arch, lengths, jx):
@@ -393,8 +417,9 @@ def test_decode_with_a_device_tensor_length_serves_the_jax_tokens(
         tok, cache = prefill({"tokens": torch.from_numpy(pr)[None]})
         caches.append(cache)
         toks.append(tok)
-    cache = [{name: torch.cat([c[layer][name] for c in caches])
-              for name in caches[0][layer]} for layer in range(cfg.n_layers)]
+    cache = [{name: torch.cat([c[entry][name] for c in caches])
+              for name in caches[0][entry]}
+             for entry in range(len(caches[0]))]
     toks = torch.cat(toks)
     length = torch.tensor(max(PROMPT_LENGTHS[lengths]) + 1)
     as_int = [{k: v.clone() for k, v in c.items()} for c in cache]
@@ -445,7 +470,7 @@ def test_engine_keeps_decode_runners_per_batch_size():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "zamba2-1.2b"])
 def test_graph_decode_serves_the_eager_tokens_on_the_card(arch):
     """On the card the captured decode step serves the eager step's tokens
     exactly, and its last-step logits within 1e-4 (f32: cuBLAS may pick

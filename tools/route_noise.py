@@ -1,29 +1,33 @@
 #!/usr/bin/env python3
-"""How far rwkv6-1.6b's last-position prefill logits move between routes
-that compute the same function, at full width on one CUDA card.
+"""How far a recurrent arch's last-position prefill logits move between
+routes that compute the same function, at full width on one CUDA card.
 
-Builds rwkv6-1.6b at its published widths from ``torch.Generator`` seed 0
-(as ``chip_smoke.py`` does), prefills the same eight 512-token prompts,
-and reports the max abs difference of the last-position logits between:
+Builds ``--arch`` (rwkv6-1.6b by default, or zamba2-1.2b) at its
+published widths from ``torch.Generator`` seed 0 (as ``chip_smoke.py``
+does), prefills the same eight 512-token prompts, and reports the max
+abs difference of the last-position logits between:
 
-* the kernel route (``attn_impl="kernel"``, ``csrc/linear_attn.cu``) and
-  the plain closed form (``attn_impl="chunked"``), in bf16 and in f32;
+* the kernel route (``attn_impl="kernel"``: the linear-attention kernels,
+  and for zamba2's shared block the flash kernel) and the plain closed
+  form (``attn_impl="chunked"``), in bf16 and in f32;
 * the plain closed form at chunk 64 and at chunk 32 (the same arithmetic
   summed in another order: the rounding noise of the bf16 model itself);
-* per layer, the hidden state's max abs difference between the kernel and
-  chunked routes, in bf16, for the first prompt;
+* per layer (and per shared site), the hidden state's max abs difference
+  between the kernel and chunked routes, in bf16, for the first prompt;
 * ``chip_smoke.py``'s self-check (eight requests served through
   ``Engine(slots=4)``, 32 new tokens each, then a teacher-forced forward
   over each served sequence) with the forward through either route;
 
-and the kernel against its plain version at the path shape with the
-model's own decays (``w = exp(-exp(-4 + 0.01 z))``, ~0.98 a step).
+and, for rwkv6-1.6b, the kernel against its plain version at the path
+shape with the model's own decays (``w = exp(-exp(-4 + 0.01 z))``, ~0.98
+a step).
 
-Run: ``python3 tools/rwkv6_route_noise.py`` (needs a card; prints one
-JSON line per measurement).
+Run: ``python3 tools/route_noise.py [--arch zamba2-1.2b]`` (needs a card;
+prints one JSON line per measurement).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import sys
@@ -59,29 +63,37 @@ def routes(T, cfg, state, prompts, pairs):
 
 
 def layer_divergence(T, cfg, state, prompt):
-    """Per layer, the max abs difference of the hidden state between the
-    kernel and chunked routes, and its max magnitude."""
+    """Per layer and shared site, in the order the stack applies them, the
+    max abs difference of the hidden state after it between the kernel
+    and chunked routes, and its max magnitude."""
     import torch
     hidden = {}
     for impl in ("kernel", "chunked"):
         m = T.Transformer(dataclasses.replace(cfg, attn_impl=impl),
                           device="meta")
         m.load_state_dict(state, assign=True)
-        x = T._embed_inputs(m, {"tokens": torch.as_tensor(
-            prompt, device="cuda")[None]})
         outs = []
-        for layer in m.layers:
-            x, _ = layer(x)
-            outs.append(x.float())
+        blocks = list(m.layers) + ([m.shared] if m.shared is not None
+                                   else [])
+        hooks = [b.register_forward_hook(
+            lambda mod, args, out: outs.append(out[0].float()))
+            for b in blocks]
+        T.forward(m, {"tokens": torch.as_tensor(prompt, device="cuda")[None]})
+        for h in hooks:
+            h.remove()
         hidden[impl] = outs
     return [[float((a - b).abs().max()), float(b.abs().max())]
             for a, b in zip(hidden["kernel"], hidden["chunked"])]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="rwkv6-1.6b",
+                    choices=("rwkv6-1.6b", "zamba2-1.2b"))
+    arch = ap.parse_args(argv).arch
     import torch
     if not torch.cuda.is_available():
-        print("rwkv6_route_noise: no CUDA device", file=sys.stderr)
+        print("route_noise: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -92,20 +104,22 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, 65_536, size=(512,), dtype=np.int32)
+    vocab = configs.get_config(arch).vocab
+    prompts = [rng.integers(0, vocab, size=(512,), dtype=np.int32)
                for _ in range(8)]
     pairs = ((("kernel", 64), ("chunked", 64)),
              (("chunked", 64), ("chunked", 32)),
              (("kernel", 64), ("kernel", 32)))
     for dtype in ("bfloat16", "float32"):
-        cfg = dataclasses.replace(configs.get_config("rwkv6-1.6b"),
+        cfg = dataclasses.replace(configs.get_config(arch),
                                   param_dtype=dtype)
         model = T.Transformer(cfg, device="cuda",
                               generator=torch.Generator("cuda")
                               .manual_seed(0))
         state = model.state_dict()
         diffs, scale = routes(T, cfg, state, prompts, pairs)
-        print(json.dumps({"dtype": dtype, "logits_max_abs_diff": diffs,
+        print(json.dumps({"arch": arch, "dtype": dtype,
+                          "logits_max_abs_diff": diffs,
                           "logits_up_to": scale}), flush=True)
         if dtype == "bfloat16":
             print(json.dumps({"dtype": dtype, "layer_hidden_diff_and_max":
@@ -117,7 +131,7 @@ def main() -> int:
     # served tokens (kernel prefill, recurrence decode) against a
     # teacher-forced forward through each route, bf16
     from repro_torch.serve import engine
-    cfg = configs.get_config("rwkv6-1.6b")
+    cfg = configs.get_config(arch)
     model = T.Transformer(cfg, device="cuda",
                           generator=torch.Generator("cuda").manual_seed(0))
     eng = engine.Engine(model, slots=4, max_len=512 + 32 + 1)
@@ -146,6 +160,9 @@ def main() -> int:
               flush=True)
     del model, m, eng
     torch.cuda.empty_cache()
+    if arch != "rwkv6-1.6b":
+        print(json.dumps({"card": torch.cuda.get_device_name(0)}))
+        return 0
 
     # the kernel against its plain version with the model's decays
     g = np.random.default_rng(1)
