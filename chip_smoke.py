@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Drives the port's six paths on the card and holds every kernel on them
+Drives the port's paths on the card and holds every kernel on them
 against its plain PyTorch version:
 
 * the co-design sweep (``repro_torch``: trace -> augmented task graph ->
@@ -36,7 +36,18 @@ against its plain PyTorch version:
   each prefill's linear attention in f32 through ``linear_attn_tc.cu``
   (64 heads of 64, d_state 64, zamba2's decays, u = 0), and one
   weight-shared attention block at six sites through the ``wgmma`` flash
-  kernel (32 heads of 64, no GQA grouping).
+  kernel (32 heads of 64, no GQA grouping);
+* MoE serving (the same ``Engine``) on mixtral-8x22b at its published
+  width (d 6144, 48 heads over 8, ff 16384, 8 experts, top 2, vocab
+  32,768) cut to 4 of its 56 layers, in bf16 from a seeded
+  ``torch.Generator``: every prefill's attention (GQA 6:1, window 4096)
+  through the ``wgmma`` flash kernel, the routed experts in f32 as in
+  the JAX package;
+* the estimator's cost model on the card: ``TorchCostModel``'s
+  prediction (counted on ``meta`` tensors) of qwen3-0.6b's and mixtral's
+  prefill and decode step set against their measured device time, and
+  the step estimator (``core/steptask.py``) from probes at 1 and 2
+  mixtral layers set against the measured 4-layer prefill.
 
 Phases, one line each or more:
 
@@ -66,7 +77,10 @@ Phases, one line each or more:
    on the sub-chunked kernel, and a chunk of 7 at (3, 42, 16, 20) on the
    serial one, each call on the kernel ``kernel_for`` names; and at
    zamba2-1.2b's path shapes: ``flash_attention`` at (32, 32, 512, 512,
-   64) bf16 causal on ``wgmma`` (``zamba2_path``), ``linear_attn`` at
+   64) bf16 causal on ``wgmma`` (``zamba2_path``); mixtral-8x22b's:
+   ``flash_attention`` at (48, 8, 512, 512, 128) bf16 causal with window
+   4096 (``mixtral_path``) and at (6, 1, 4608, 4608, 128) where the
+   window bites (``mixtral_window``), both on ``wgmma``; ``linear_attn`` at
    (64, 512, 64, 64) chunk 64 in f32 with u = 0 and zamba2's decay
    spectrum (``exp(-softplus(z) · linspace(1, 16, 64)[row % 64])``, held
    at the strong-decay tolerance, ``mamba2_path``) on the sub-chunked
@@ -154,7 +168,23 @@ Phases, one line each or more:
     (64, 512, 64, 64) chunk 64 f32, all sub-chunked; 48 flash launches
     at (32, 32, 512, 512, 64) bf16, all ``wgmma``), the kernel route
     against ``attn_impl="chunked"`` gated as rwkv6's is, and each
-    kernel's share of a prefill's device time;
+    kernel's share of a prefill's device time; then the same for
+    mixtral-8x22b at 4 layers (the zamba2 model freed first), with the
+    flash counts set to 0 just before the served run and read just after
+    (32 launches at (48, 8, 512, 512, 128) bf16, all ``wgmma``), the
+    kernel route against ``attn_impl="naive"`` gated on f32 weights (the
+    f32 attention runs the FMA kernel) at 1e-3, and the MoE's share of a
+    prefill's device time (``[serve moe]``: one layer's ``moe_apply``
+    under ``torch.profiler``, times 4); each serve phase's seconds;
+12b. ``[cost model]``: a bf16 and an f32 ``torch.matmul`` at 8192^3 give
+    the sustained fractions of the peaks; ``TorchCostModel`` at those
+    fractions counts qwen3-0.6b's and mixtral's 512-token prefill and
+    batch-4 decode step on ``meta`` and prints each prediction against the
+    device time measured in phase 12 (not gated); ``[step estimate]``:
+    probe records of mixtral at 1 and 2 layers counted on meta,
+    ``estimate_step`` at 4 layers against the measured prefill and at 56
+    (the published depth), at the ``H100`` record's bf16 peak and at the
+    f32 peak (not gated); each phase's seconds;
 13. ``flash_attention`` at the path shape by CUDA events, per wrapper
     call and per bare launch of the ``wgmma`` kernel, beside the bare
     launch of the FMA kernel (the earlier design, its output held to the
@@ -169,7 +199,8 @@ Phases, one line each or more:
     the plain version first), beside its plain version and its bound (no
     single PyTorch call computes it), and again at the f32 case of the
     same shape, which is what ``kernel_for``'s route for f32 rests on;
-    both kernels the same way at zamba2-1.2b's path shapes;
+    both kernels the same way at zamba2-1.2b's path shapes, and the flash
+    kernel at mixtral-8x22b's;
 14. a ``kernels`` JSON line (launches on the paths, error against the
     plain version, times and bound at the commonest path shape, and for
     the two attention kernels a row a serve path's shape) and
@@ -229,6 +260,25 @@ FLASH_PATH = (16, 8, 512, 512, 128)
 #: causal, on the ``wgmma`` kernel.
 ZAMBA2_FLASH_PATH = (32, 32, 512, 512, 64)
 
+#: mixtral-8x22b served at its published width with its depth cut to 4 of
+#: its 56 layers (56 layers are 141 B parameters, 282 GB in bf16: more
+#: than one card holds; 4 are 10.4 B, 20.8 GB, and 41.7 GB in f32 for the
+#: route check).
+MIXTRAL_LAYERS = 4
+
+#: mixtral-8x22b's flash launch: a layer's prefill of one 512-token
+#: prompt, 48 heads over 8 (GQA 6:1), D 128, bf16, causal with its window
+#: of 4096 (which a 512-token prompt does not reach), on ``wgmma``; and a
+#: launch where the window bites, 4608 rows, whose first key tile for the
+#: rows past 4096 does not start on a 64-row boundary.
+MIXTRAL_FLASH_PATH = (48, 8, 512, 512, 128)
+MIXTRAL_WINDOW = 4096
+MIXTRAL_WINDOW_CASE = (6, 1, 4608, 4608, 128)
+
+#: The cost-model phase's square matmul edge: a bf16 and an f32
+#: ``torch.matmul`` there give the sustained fractions of the peaks.
+MATMUL_EFF_N = 8192
+
 #: The flash kernels' further bf16 checks, beyond ``flash_cases``: label,
 #: ``(BH, BKV, T, S, D)``, window, softcap (causal).  D 96 is the FMA
 #: kernel's: its bf16 build is held to the plain version there.
@@ -283,18 +333,27 @@ SERVE_MODELS = (
                  {"kernel": "flash_attention",
                   "path_key": (*ZAMBA2_FLASH_PATH, "torch.bfloat16"),
                   "variant": "wgmma", "per": "n_shared_sites"})},
+    {"arch": "mixtral-8x22b", "n_layers": MIXTRAL_LAYERS,
+     "plain_impl": "naive", "route_dtype": "float32",
+     "kernels": ({"kernel": "flash_attention",
+                  "path_key": (*MIXTRAL_FLASH_PATH, "torch.bfloat16"),
+                  "variant": "wgmma", "per": "n_layers"},)},
 )
 
 #: Limits of the serve phase, on logits (f32 after the unembedding): the
 #: kernel route's last-position prefill logits against the plain route's
 #: (max abs difference), by the weights' type of the gated model, and a
-#: served token's logit below its position's maximum in the teacher-forced
-#: forward (bf16).  The bf16 limit is gated for qwen3-0.6b.  rwkv6-1.6b's
-#: bf16 routes differ by the model's own rounding noise (its plain route
-#: against itself at half the chunk moves the logits by 0.19), so its
-#: route is gated on the same arch with f32 weights, where every pair of
-#: routes agrees within 4.1e-5 (``tools/route_noise.py``); its bf16
-#: difference is printed, not gated.
+#: served token's logit below its position's maximum when the served
+#: sequence is fed back (bf16; :func:`teacher_forced`).  The bf16 limit is
+#: gated for qwen3-0.6b.  rwkv6-1.6b's bf16 routes differ by the model's
+#: own rounding noise (its plain route against itself at half the chunk
+#: moves the logits by 0.19), so its route is gated on the same arch with
+#: f32 weights, where every pair of routes agrees within 4.1e-5
+#: (``tools/route_noise.py``); its bf16 difference is printed, not gated.
+#: zamba2-1.2b and mixtral-8x22b are gated the same way: mixtral's two
+#: plain routes differ by 0.051 in bf16 and the kernel route by 0.121,
+#: each flipping hundreds of its 32,768 routing decisions, while in f32
+#: every pair agrees within 1.0e-5 and flips none.
 ROUTE_ATOL = {"bfloat16": 0.1, "float32": 1e-3}
 SELFCHECK_TOL = 0.1
 
@@ -1068,6 +1127,10 @@ def flash_cases(torch, np, fa, ops):
         ("gemma2_local", (8, 4, 512, 512, 256), "bfloat16", 256, 50.0, False),
         ("f32", FLASH_PATH, "float32", 0, 0.0, False),
         ("zamba2_path", ZAMBA2_FLASH_PATH, "bfloat16", 0, 0.0, False),
+        ("mixtral_path", MIXTRAL_FLASH_PATH, "bfloat16", MIXTRAL_WINDOW, 0.0,
+         False),
+        ("mixtral_window", MIXTRAL_WINDOW_CASE, "bfloat16", MIXTRAL_WINDOW,
+         0.0, False),
     ]
     cases = []
     for i, (label, (bh, bkv, t, s, d), dtype, window, cap, padded) \
@@ -1259,8 +1322,20 @@ def time_flash(torch, F, fa, ref, case):
             raise SystemExit(f"the bare {name} flash launch disagrees with "
                              f"the plain version")
     q4, k4, v4 = q[None], k[None], v[None]
-    runs["sdpa"] = lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True)
+    window = case["window"]
+    if 0 < window < t:          # the window bites: the same mask, explicit
+        qp = torch.arange(t, device=q.device)[:, None]
+        kp = torch.arange(s, device=q.device)[None, :]
+        mask = (kp <= qp) & (kp > qp - window)
+        runs["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        library_call = ("F.scaled_dot_product_attention(q, k, v, attn_mask="
+                        "causal & window, enable_gqa=True)")
+    else:                       # causal alone is the same mask
+        runs["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)
+        library_call = ("F.scaled_dot_product_attention(q, k, v, "
+                        "is_causal=True, enable_gqa=True)")
     runs["wrapper"] = case["run"]
     order = list(runs)
     ev = {name: [] for name in order}
@@ -1285,8 +1360,7 @@ def time_flash(torch, F, fa, ref, case):
                                  in queued.items()},
            "queued_spin_us": {name: sp for name, (_, _, sp)
                               in queued.items()},
-           "library_call": "F.scaled_dot_product_attention(q, k, v, "
-                           "is_causal=True, enable_gqa=True)"}
+           "window": window, "library_call": library_call}
     pairs = flash_pairs(t, s, True, case["window"])
     el = q.element_size()
     nbytes = (2 * bh * t * d + 2 * bkv * s * d) * el
@@ -1300,7 +1374,7 @@ def time_flash(torch, F, fa, ref, case):
     gaps = "; ".join(f"{name} {row['queued_enqueue_us'][name]:.0f} of "
                      f"{row['queued_spin_us'][name]:.0f}" for name in timed)
     phase("flash kernel", f"(BH,BKV,T,S,D)={case['shape']} {case['dtype']} "
-          f"causal, CUDA events (two passes in turns): wgmma "
+          f"causal window={window}, CUDA events (two passes in turns): wgmma "
           f"{row['ms'] * 1e3:.2f} us per wrapper call, "
           f"{row['kernel_only_ms'] * 1e3:.2f} us per bare launch; FMA kernel "
           f"(earlier design) {row['fma_kernel_only_ms'] * 1e3:.2f} us; SDPA "
@@ -1893,6 +1967,8 @@ def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
                       for x in key): n for key, n in mod.SHAPES.items()}
 
     cfg = configs.get_config(model_spec["arch"])
+    if "n_layers" in model_spec:        # depth cut to fit the card
+        cfg = dataclasses.replace(cfg, n_layers=model_spec["n_layers"])
     t0 = time.perf_counter()
     model = T.Transformer(cfg, device="cuda",
                           generator=torch.Generator("cuda").manual_seed(0))
@@ -1905,6 +1981,7 @@ def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
     warm = engine.Engine(model, slots=1, max_len=max_len)    # lazy inits
     warm.submit(engine.Request(rid=-1, prompt=prompts[0], max_new=2))
     warm.run()
+    del warm
     eng = engine.Engine(model, slots=SERVE["slots"], max_len=max_len)
     for rid, pr in enumerate(prompts):
         eng.submit(engine.Request(rid=rid, prompt=pr,
@@ -2021,26 +2098,22 @@ def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
                         f"the plain route by {gated_err} > {limit} "
                         f"({route_dtype} weights)")
 
-    # examples/serve_e2e.py's self-check, one teacher-forced forward each
+    # examples/serve_e2e.py's self-check, one teacher-forced forward each;
+    # an MoE arch's forward is another function (see teacher_forced), so
+    # its gate is the incremental recomputation and the forward is printed
+    moe = has_moe(model)
     clear()
-    worst_gap, exact = 0.0, 0
-    for r in done:
-        seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
-        logits, _ = T.forward(model, {"tokens": torch.as_tensor(
-            seq, device="cuda")[None]})
-        pos = logits[0, len(r.prompt) - 1:]
-        picked = pos.gather(1, torch.as_tensor(r.out, device="cuda")[:, None])
-        gaps = pos.amax(1) - picked[:, 0]
-        worst_gap = max(worst_gap, float(gaps.max()))
-        exact += int((gaps == 0).sum())
+    worst_gap, exact = teacher_forced(torch, np, T, model, done, max_len,
+                                      incremental=moe)
     check_launches = {k: shapes_of(mod) for k, mod in zip(kernels, mods)}
     t_fwd = SERVE["prompt_len"] + SERVE["max_new"] - 1
-    phase("serve self-check", f"{cfg.name}: teacher-forced forward "
-          f"(T={t_fwd}, padded by kernels.ops; launches "
-          f"{check_launches}): {exact}/{served} served tokens are the "
-          f"forward's argmax, the worst is {worst_gap} below its "
-          f"position's maximum, within {SELFCHECK_TOL}: "
-          f"{worst_gap <= SELFCHECK_TOL}")
+    how = (f"each prompt prefilled alone, then {SERVE['max_new'] - 1} "
+           f"teacher-forced decode steps at batch 1, eager" if moe else
+           f"teacher-forced forward (T={t_fwd}, padded by kernels.ops)")
+    phase("serve self-check", f"{cfg.name}: {how} (launches "
+          f"{check_launches}): {exact}/{served} served tokens are its "
+          f"argmax, the worst is {worst_gap} below its position's maximum, "
+          f"within {SELFCHECK_TOL}: {worst_gap <= SELFCHECK_TOL}")
     missing = [k for k, by in check_launches.items() if not by]
     if missing:
         raise SystemExit(f"serve {cfg.name}: the self-check's forward "
@@ -2048,16 +2121,131 @@ def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
     if not worst_gap <= SELFCHECK_TOL:
         failures.append(f"serve {cfg.name}: a served token is {worst_gap} "
                         f"below its position's maximum > {SELFCHECK_TOL}")
+    forward_gap = None
+    if moe:
+        forward_gap, forward_exact = teacher_forced(torch, np, T, model, done,
+                                                    max_len,
+                                                    incremental=False)
+        phase("serve self-check", f"{cfg.name}: teacher-forced forward "
+              f"(T={t_fwd}; its MoE groups of "
+              f"{snap_group(cfg, t_fwd)} tokens drop other (token, choice) "
+              f"pairs than the served prefill's group of "
+              f"{snap_group(cfg, SERVE['prompt_len'])}, so not gated): "
+              f"{forward_exact}/{served} served tokens are its argmax, the "
+              f"worst is {forward_gap} below its position's maximum")
     summary.update(graphs=graphs_row, route_max_abs_diff=route_err,
                    route_f32_max_abs_diff=route_f32,
                    selfcheck_worst_gap=worst_gap,
                    selfcheck_argmax_equal=exact,
+                   selfcheck_incremental=moe,
+                   selfcheck_forward_worst_gap=forward_gap,
                    selfcheck_launches={
                        k: {str(key): n for key, n in by.items()}
                        for k, by in check_launches.items()},
                    profile=profile_serve(torch, engine, model, prompts,
                                          max_len, kernels, eng))
+    if moe:
+        summary["moe_profile"] = profile_moe(torch, T, model, summary)
     return summary
+
+
+def has_moe(model) -> bool:
+    return any(getattr(layer, "moe", None) is not None
+               for layer in model.layers)
+
+
+def snap_group(cfg, n_tok: int) -> int:
+    """The MoE group size ``n_tok`` tokens of one sequence dispatch in."""
+    from repro_torch.models.moe import snap_group_size
+    return snap_group_size(n_tok, cfg.moe_group_size)
+
+
+def teacher_forced(torch, np, T, model, done, max_len, *, incremental):
+    """The served tokens of ``done`` against the logits each position
+    gets with the served sequence fed back: ``(worst gap below the
+    position's maximum, how many are the argmax)``.
+
+    ``incremental=False`` is ``examples/serve_e2e.py``'s check, one
+    ``forward`` over each served sequence.  For an MoE that is another
+    function than the served one: the forward dispatches the sequence in
+    other groups, whose capacity drops other (token, choice) pairs (with
+    random weights the router is far from balanced: PERF.md §7).  So
+    ``incremental=True`` recomputes what the engine computes, request by
+    request: its prompt prefilled alone (the served prefill's group), then
+    one eager decode step a served token at batch 1 (``SERVE``'s decode
+    groups of at most 4 tokens never drop: an expert gets at most one
+    choice a token, and the capacity is never below 4)."""
+    worst, exact = 0.0, 0
+    for r in done:
+        if incremental:
+            logits, cache = T.prefill(model, {"tokens": torch.as_tensor(
+                r.prompt, device="cuda")[None]}, max_len)
+            rows = [logits[0, -1]]
+            for i, tok in enumerate(r.out[:-1]):
+                logits, cache = T.decode_step(
+                    model, torch.tensor([[tok]], dtype=torch.int32,
+                                        device="cuda"),
+                    cache, len(r.prompt) + 1 + i)
+                rows.append(logits[0, -1])
+            pos = torch.stack(rows)
+        else:
+            seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+            logits, _ = T.forward(model, {"tokens": torch.as_tensor(
+                seq, device="cuda")[None]})
+            pos = logits[0, len(r.prompt) - 1:]
+        picked = pos.gather(1, torch.as_tensor(r.out, device="cuda")[:, None])
+        gaps = pos.amax(1) - picked[:, 0]
+        worst = max(worst, float(gaps.max()))
+        exact += int((gaps == 0).sum())
+    return worst, exact
+
+
+def profile_moe(torch, T, model, served):
+    """The MoE's share of a 512-token prefill's device time: one MoE
+    layer's ``moe_apply`` on that prefill's shapes (its first layer's
+    weights, a seeded input through the layer's norm) under
+    ``torch.profiler``, times the model's MoE layers, over the prefill's
+    device time in ``served``'s profile; with the costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.moe import moe_apply
+    cfg = model.cfg
+    layers = [layer for layer in model.layers
+              if getattr(layer, "moe", None) is not None]
+    layer = layers[0]
+    gen = torch.Generator("cuda").manual_seed(3)
+    x = torch.randn((1, SERVE["prompt_len"], cfg.d_model), device="cuda",
+                    generator=gen).to(cfg.dtype)
+    h = layer.ln2(x)
+
+    def run():
+        return moe_apply(layer.moe, h, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor,
+                         group_size=cfg.moe_group_size,
+                         dispatch=cfg.moe_dispatch)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if "cuda" in str(e.device_type).lower()]
+    layer_s = sum(e.self_device_time_total for e in dev) * 1e-6
+    prefill_s = served["profile"]["prefill_512"]["device_s"]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    out = {"arch": cfg.name, "moe_layers": len(layers),
+           "moe_layer_device_s": layer_s,
+           "moe_layer_kernels": sum(e.count for e in dev),
+           "prefill_device_s": prefill_s,
+           "moe_prefill_device_share": len(layers) * layer_s / prefill_s,
+           "flash_prefill_device_share": served["profile"]["prefill_512"][
+               "kernel_device_share_by_kernel"].get("flash_attention"),
+           "top_device_kernels": [[e.key[:80], e.count,
+                                   e.self_device_time_total * 1e-6]
+                                  for e in top]}
+    phase("serve moe", json.dumps(out))
+    return out
 
 
 def profile_serve(torch, engine, model, prompts, max_len, kernels, eng):
@@ -2123,6 +2311,137 @@ def profile_serve(torch, engine, model, prompts, max_len, kernels, eng):
         phase("serve profile", json.dumps({"arch": model.cfg.name,
                                            name: out[name]}))
     return out
+
+
+def matmul_fraction(torch, dtype: str, n: int = MATMUL_EFF_N):
+    """The sustained fraction of ``dtype``'s peak of a square
+    ``torch.matmul`` at ``n`` (seeded operands), by CUDA events."""
+    gen = torch.Generator("cuda").manual_seed(7)
+    a, b = (torch.randn((n, n), device="cuda", generator=gen)
+            .to(getattr(torch, dtype)) for _ in range(2))
+    ms = time_ms(lambda: torch.matmul(a, b),
+                 20 if dtype == "bfloat16" else 4)
+    del a, b
+    return 2.0 * n ** 3 / (ms * 1e-3) / PEAK_FLOPS[dtype], ms
+
+
+def meta_model(T, configs, arch, n_layers=None):
+    """``arch``'s published config (its depth cut to ``n_layers``) built
+    on ``meta``: nothing is allocated."""
+    cfg = configs.get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return T.Transformer(cfg, device="meta")
+
+
+def meta_runs(torch, T, model, batch: int = SERVE["slots"]):
+    """The serve path's two steps of ``model`` on meta: a prefill of one
+    ``SERVE`` prompt and a decode step at ``batch`` (the cache at the
+    prompt's length), as ``(fn, args)``."""
+    t = SERVE["prompt_len"]
+    max_len = t + SERVE["max_new"] + 1
+    toks = torch.zeros((1, t), dtype=torch.int32, device="meta")
+    step = torch.zeros((batch, 1), dtype=torch.int32, device="meta")
+    cache = T.init_cache(model.cfg, batch, max_len, device="meta")
+    return {"prefill_512": (T.prefill, (model, {"tokens": toks}, max_len)),
+            "decode_step_b4": (T.decode_step, (model, step, cache, t + 1))}
+
+
+def cost_model_flow(torch, configs, T, hlsreport, served):
+    """``[cost model]``: the sustained bf16 and f32 matmul fractions, then
+    ``TorchCostModel``'s prediction (at those fractions) of each served
+    arch's prefill and decode step against the device time measured in
+    this call (``served``: arch → its serve summary, whose profile holds
+    the prefill's and the captured decode step's device seconds)."""
+    t0 = time.perf_counter()
+    frac = {dt: matmul_fraction(torch, dt) for dt in ("bfloat16", "float32")}
+    phase("cost model", f"torch.matmul at {MATMUL_EFF_N}^3: bf16 "
+          f"{frac['bfloat16'][1]:.3f} ms, {frac['bfloat16'][0]:.4f} of "
+          f"{PEAK_FLOPS['bfloat16']:.3g} FLOP/s; f32 "
+          f"{frac['float32'][1]:.3f} ms, {frac['float32'][0]:.4f} of "
+          f"{PEAK_FLOPS['float32']:.3g} FLOP/s (TF32 off)")
+    consts = dataclasses.replace(
+        hlsreport.H100_SXM, matmul_efficiency=frac["bfloat16"][0],
+        matmul_efficiency_f32=frac["float32"][0])
+    cm = hlsreport.TorchCostModel(consts)
+    rows = []
+    for arch, summary in served.items():
+        layers = summary.get("n_layers")
+        model = meta_model(T, configs, arch, layers)
+        measured = {"prefill_512": summary["profile"]["prefill_512"],
+                    "decode_step_b4": summary["profile"][
+                        "decode_step_b4_graph"]}
+        for step, (fn, args) in meta_runs(torch, T, model).items():
+            t1 = time.perf_counter()
+            a = cm.analyze(fn, *args)
+            count_s = time.perf_counter() - t1
+            pred = cm.seconds(a)
+            dev = measured[step]["device_s"]
+            row = {"arch": arch, "n_layers": model.cfg.n_layers,
+                   "step": step, "predicted_s": pred,
+                   "flops_s": consts.flops_seconds(a["flops_by_dtype"]),
+                   "bytes_s": a["bytes"] / consts.hbm_bw,
+                   "measured_device_s": dev,
+                   "measured_wall_s": measured[step]["wall_s"],
+                   "predicted_over_measured": pred / dev,
+                   "flops_by_dtype": a["flops_by_dtype"],
+                   "bytes": a["bytes"],
+                   "transcendentals": a["transcendentals"],
+                   "aten_ops": a["ops"], "count_s": count_s}
+            phase("cost model", json.dumps(row))
+            rows.append(row)
+    return {"matmul_fraction": {dt: f for dt, (f, _) in frac.items()},
+            "matmul_ms": {dt: ms for dt, (_, ms) in frac.items()},
+            "rows": rows, "seconds": time.perf_counter() - t0}
+
+
+def probe_record(torch, T, configs, hlsreport, arch, n_layers):
+    """A dry-run-style probe record of ``arch`` at its published width and
+    ``n_layers`` layers, counted on meta by ``TorchCostModel``: a
+    ``SERVE`` prompt's prefill, no collectives (one card)."""
+    model = meta_model(T, configs, arch, n_layers)
+    fn, args = meta_runs(torch, T, model)["prefill_512"]
+    a = hlsreport.TorchCostModel().analyze(fn, *args)
+    return {"n_layers": n_layers,
+            "cost_analysis": {"flops": a["flops"],
+                              "bytes accessed": a["bytes"]},
+            "collectives": {"wire_bytes": 0},
+            "flops_by_dtype": a["flops_by_dtype"]}
+
+
+def step_estimate_flow(torch, T, configs, hlsreport, steptask, roofline,
+                       arch, measured_s, full_layers):
+    """``[step estimate]``: probes at 1 and 2 layers, then
+    ``estimate_step`` at the served depth against ``measured_s`` (the
+    served prefill's device time) and at the published depth; each at the
+    ``H100`` record (every FLOP at the bf16 peak, as the reference's
+    estimator counts) and at a record whose peak is the f32 one (the rate
+    of mixtral's f32 expert products)."""
+    t0 = time.perf_counter()
+    p1, p2 = (probe_record(torch, T, configs, hlsreport, arch, n)
+              for n in (1, 2))
+    hws = {"h100_bf16_peak": roofline.H100,
+           "h100_f32_peak": dataclasses.replace(
+               roofline.H100, name="h100_f32_peak",
+               peak_flops=PEAK_FLOPS["float32"])}
+    rows = []
+    for name, hw in hws.items():
+        for layers in (MIXTRAL_LAYERS, full_layers):
+            est = steptask.estimate_step(arch, "prefill_512", p1, p2, layers,
+                                         hw=hw)
+            row = {"arch": arch, "hw": name, "n_layers": layers,
+                   "predicted_s": est.makespan_s,
+                   "layer_compute_s": est.costs.layer_compute,
+                   "head_compute_s": est.costs.head_compute,
+                   "measured_device_s": (measured_s if layers
+                                         == MIXTRAL_LAYERS else None),
+                   "predicted_over_measured": (
+                       est.makespan_s / measured_s
+                       if layers == MIXTRAL_LAYERS else None)}
+            phase("step estimate", json.dumps(row))
+            rows.append(row)
+    return {"probes": [p1, p2], "rows": rows,
+            "seconds": time.perf_counter() - t0}
 
 
 def path_row(row, served, kernel):
@@ -2203,6 +2522,8 @@ def main() -> int:
     from repro_torch.kernels import linear_attn as la
     from repro_torch.kernels import lockstep_step as ls
     from repro_torch.kernels import ops, ref
+    from repro_torch.core import hlsreport, steptask
+    from repro_torch import roofline
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine
 
@@ -2434,37 +2755,60 @@ def main() -> int:
     # 11. the tile kernels' times at the path shapes
     rows = time_tiles(torch, cases, tile_errs)
 
-    # 12. the LM serve path at full width, qwen3-0.6b, rwkv6-1.6b, then
-    # zamba2-1.2b (each model freed before the next is built); each
-    # kernel's counts of its served run
+    # 12. the LM serve path at full width, qwen3-0.6b, rwkv6-1.6b,
+    # zamba2-1.2b, then mixtral-8x22b at 4 of its 56 layers (each model
+    # freed before the next is built); each kernel's counts of its served
+    # run
     wrappers = {"flash_attention": fa, "linear_attn": la}
 
     def served(spec):
+        t0 = time.perf_counter()
         out = serve_flow(torch, np, configs, T, engine, wrappers, spec,
                          failures)
         gc.collect()
         torch.cuda.empty_cache()
+        out["n_layers"] = spec.get("n_layers")
+        out["phase_s"] = time.perf_counter() - t0
+        phase("serve seconds", f"{spec['arch']}: {out['phase_s']:.1f} s")
         return out
 
-    serve, serve_rwkv, serve_zamba = [served(spec) for spec in SERVE_MODELS]
+    serve, serve_rwkv, serve_zamba, serve_mixtral = [
+        served(spec) for spec in SERVE_MODELS]
+
+    # 12b. the cost model against this call's measured device times, and
+    # the step estimator's prediction of mixtral's prefill
+    costs = cost_model_flow(torch, configs, T, hlsreport,
+                            {"qwen3-0.6b": serve,
+                             "mixtral-8x22b": serve_mixtral})
+    phase("cost model seconds", f"{costs['seconds']:.1f} s")
+    estimate = step_estimate_flow(
+        torch, T, configs, hlsreport, steptask, roofline, "mixtral-8x22b",
+        serve_mixtral["profile"]["prefill_512"]["device_s"],
+        configs.get_config("mixtral-8x22b").n_layers)
+    phase("step estimate seconds", f"{estimate['seconds']:.1f} s")
 
     # 13. the flash and linear-attention kernels' times at the path shapes
     frow = time_flash(torch, F, fa, ref, fcases[0])
     frow_z = time_flash(torch, F, fa, ref, next(
         c for c in fcases if c["label"] == "zamba2_path"))
+    frow_m = time_flash(torch, F, fa, ref, next(
+        c for c in fcases if c["label"] == "mixtral_path"))
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": serve["launches"]["flash_attention"]
-        + serve_zamba["launches"]["flash_attention"],
+        + serve_zamba["launches"]["flash_attention"]
+        + serve_mixtral["launches"]["flash_attention"],
         "launches_by_path": {
             "qwen3-0.6b": serve["launches"]["flash_attention"],
-            "zamba2-1.2b": serve_zamba["launches"]["flash_attention"]},
+            "zamba2-1.2b": serve_zamba["launches"]["flash_attention"],
+            "mixtral-8x22b": serve_mixtral["launches"]["flash_attention"]},
         "launches_by_kernel": {
             "qwen3-0.6b": serve["variants"]["flash_attention"],
-            "zamba2-1.2b": serve_zamba["variants"]["flash_attention"]},
+            "zamba2-1.2b": serve_zamba["variants"]["flash_attention"],
+            "mixtral-8x22b": serve_mixtral["variants"]["flash_attention"]},
         "max_abs_err": flash_errs["path"],
         "ms": frow["ms"], "plain_ms": frow["plain_ms"],
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
@@ -2481,10 +2825,12 @@ def main() -> int:
         "timed_shape": frow["shape"], "timed_dtype": frow["dtype"],
         "library_call": frow["library_call"],
         "launches_by_shape": {**serve["shapes"]["flash_attention"],
-                              **serve_zamba["shapes"]["flash_attention"]},
+                              **serve_zamba["shapes"]["flash_attention"],
+                              **serve_mixtral["shapes"]["flash_attention"]},
         "max_abs_err_by_case": {**flash_errs, **route_errs},
         "path_shapes": [path_row(frow, serve, "flash_attention"),
-                        path_row(frow_z, serve_zamba, "flash_attention")],
+                        path_row(frow_z, serve_zamba, "flash_attention"),
+                        path_row(frow_m, serve_mixtral, "flash_attention")],
     }
     lrow = time_linear(torch, la, ref, lcases[0])
     lrow32 = time_linear(torch, la, ref,

@@ -90,9 +90,12 @@ def import_lm_params(cfg: ModelConfig,
     ``lm_head``, optional ``shared`` (zamba2's one attention block,
     un-stacked, which becomes the ``shared`` module), and ``blocks{i}``,
     whose leaves are stacked over the periods.  Period ``p`` of
-    ``blocks{i}`` becomes layer ``p * len(cfg.pattern) + i``.  Each leaf
-    keeps its type (Mamba2's f32 ``a_log``, ``dt_bias`` and ``d_skip``
-    in a bf16 model).  Load the result with
+    ``blocks{i}`` becomes layer ``p * len(cfg.pattern) + i``; an MoE
+    layer's ``moe`` (``router.w``, the stacked experts ``gate``/``up``
+    ``(E, d, ff)`` and ``down`` ``(E, ff, d)``) and ``shared_mlp`` carry
+    under the same names.  Each leaf keeps its type (Mamba2's f32
+    ``a_log``, ``dt_bias`` and ``d_skip``, and the MoE router's f32
+    ``w``, in a bf16 model).  Load the result with
     ``Transformer(cfg).load_state_dict``."""
     n_pat = len(cfg.pattern)
     state: Dict[str, torch.Tensor] = {}

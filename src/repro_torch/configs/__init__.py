@@ -2,7 +2,8 @@
 # JAX package's configs): `get_config("<id>")` returns the published
 # full-size ModelConfig, `get_smoke("<id>")` a reduced one of the same
 # family for CPU tests.  The port carries the four dense attention archs,
-# rwkv6-1.6b and zamba2-1.2b; the others wait for their blocks (ROADMAP).
+# the two MoE archs (mixtral-8x22b, llama4-maverick), rwkv6-1.6b and
+# zamba2-1.2b; whisper and pixtral wait for their blocks (ROADMAP).
 from .registry import (SHAPES, Arch, Shape, arch_ids, get_arch, get_config,
                        get_smoke, runnable, smoke_batch)
 
@@ -14,7 +15,8 @@ def _load_all() -> None:
     if _LOADED:
         return
     _LOADED = True
-    from . import (gemma2_2b, qwen3_0_6b, qwen3_4b, qwen15_4b,  # noqa: F401
+    from . import (gemma2_2b, llama4_maverick,  # noqa: F401
+                   mixtral_8x22b, qwen3_0_6b, qwen3_4b, qwen15_4b,
                    rwkv6_1_6b, zamba2_1_2b)
 
 

@@ -7,7 +7,8 @@ from .regions import Access, Direction, Region, region_of
 from .taskgraph import Task, TaskGraph
 from .trace import Trace, TraceEvent, Tracer, task
 from .devices import DevicePool, SharedResource, SystemConfig, pod_system, zynq_system
-from .hlsreport import (HLSSynthesisModel, KernelReport, ZYNQ_7045_BUDGET,
+from .hlsreport import (H100_SXM, GPUConstants, HLSSynthesisModel,
+                        KernelReport, TorchCostModel, ZYNQ_7045_BUDGET,
                         a9_smp_seconds, fits, smp_time_scale)
 from .augment import Eligibility, build_graph
 from .simulator import (ScheduledTask, SimResult, Simulator, simulate,
@@ -32,8 +33,9 @@ __all__ = [
     "Task", "TaskGraph",
     "Trace", "TraceEvent", "Tracer", "task",
     "DevicePool", "SharedResource", "SystemConfig", "pod_system", "zynq_system",
-    "HLSSynthesisModel", "KernelReport", "ZYNQ_7045_BUDGET",
-    "a9_smp_seconds", "fits", "smp_time_scale",
+    "GPUConstants", "H100_SXM", "HLSSynthesisModel", "KernelReport",
+    "TorchCostModel", "ZYNQ_7045_BUDGET", "a9_smp_seconds", "fits",
+    "smp_time_scale",
     "Eligibility", "build_graph",
     "ScheduledTask", "SimResult", "Simulator", "simulate", "validate_pools",
     "FrozenGraph", "freeze_graph", "simulate_each", "simulate_fast",

@@ -34,7 +34,8 @@ rebuilt just for the top-k winners.
 Division of labour with the candidate-axis engines: this module is the
 *one-candidate* fast path (and the bit-identity anchor every other engine
 is pinned against); :mod:`repro_torch.core.batchsim` (numpy lockstep) and
-:mod:`repro_torch.core.torchsim` (jit-compiled ``lax.scan``, rtol tier) stack
+:mod:`repro_torch.core.torchsim` (a step loop on the card replayed from
+captured CUDA graphs, rtol tier) stack
 *all* candidates sharing one ``FrozenGraph`` on a dedicated candidate
 axis and advance them through one replayed event order, falling back to
 :func:`simulate_fast` per lane whenever a candidate's order diverges —

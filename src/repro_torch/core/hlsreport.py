@@ -3,20 +3,26 @@
 The paper feeds its simulator with *cheap, static* reports obtained in
 seconds: HLS gives estimated compute cycles + input/output transfer cycles
 (+ resource usage) per kernel, the instrumented sequential run gives the SMP
-cost.  We provide two providers with the same output type:
+cost.  We provide three providers with the same output type:
 
 * :class:`HLSSynthesisModel` — an analytic Zynq-like model (pipeline-II
   compute cycles, AXI-DMA transfer cycles, DSP/BRAM/LUT usage) calibrated so
   the paper's feasibility statements hold (two 128×128 mxm accelerators do
   NOT fit the fabric; two 64×64 ones do; one "full-resource" Cholesky kernel
   excludes everything else; any two reduced Cholesky kernels fit).
+* :class:`TorchCostModel` — runs a PyTorch function on ``meta`` tensors
+  (nothing is computed or allocated) and converts its counted FLOPs and
+  bytes into seconds with the card's constants (:data:`H100_SXM`).  This
+  is the pod-scale "HLS report": static, pre-execution, obtained in
+  seconds instead of a full-scale run.
 * measured SMP costs come from ``Trace.mean_smp_cost()`` (see trace.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from collections import Counter
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +159,185 @@ def fits(reports_and_counts: Mapping[KernelReport, int] | list,
         for res, amount in rep.resources.items():
             usage[res] = usage.get(res, 0.0) + amount * count
     return all(usage.get(res, 0.0) <= cap for res, cap in budget.items())
+
+
+# --------------------------------------------------------------------------
+# H100 constants + meta-tensor cost reports (pod-scale "HLS")
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GPUConstants:
+    """Per-card peak numbers used by every cost conversion."""
+
+    # NVIDIA H100 Tensor Core GPU datasheet, SXM5 column, dense (without
+    # sparsity): bf16 on the tensor cores, f32 on the CUDA cores (a
+    # full-precision f32 product cannot use the TF32 tensor cores)
+    peak_flops: float = 989e12
+    peak_flops_f32: float = 67e12
+    hbm_bw: float = 3.35e12             # bytes/s, HBM3 (same datasheet)
+    hbm_bytes: float = 80e9             # (same datasheet)
+    # NVLink 4 (same datasheet): 900 GB/s per GPU, both directions
+    # together; this field holds one direction, 450 GB/s
+    link_bw: float = 450e9
+    # between nodes: one 400 Gb/s NDR InfiniBand port per GPU (ConnectX-7,
+    # NVIDIA DGX H100 user guide, networking), 50 GB/s each way
+    internode_bw: float = 50e9
+    # sustained fraction of the peak on large matmuls: a bf16 and an f32
+    # torch.matmul at 8192^3 (TF32 off), timed by chip_smoke.py's
+    # [cost model] phase on an H100 80GB HBM3 at 700 W: 0.7797 and 0.7699
+    # (the TPU record's 0.8 was an assumption; these are measured)
+    matmul_efficiency: float = 0.78
+    matmul_efficiency_f32: float = 0.77
+    name: str = "h100_sxm"
+
+    def peak(self, dtype: str) -> float:
+        """The peak rate of a product whose operands are ``dtype``: f32 on
+        the CUDA cores, any other (half-width) type on the tensor cores at
+        the bf16 rate."""
+        return self.peak_flops_f32 if dtype == "float32" else self.peak_flops
+
+    def efficiency(self, dtype: str) -> float:
+        return (self.matmul_efficiency_f32 if dtype == "float32"
+                else self.matmul_efficiency)
+
+    def flops_seconds(self, flops_by_dtype: Mapping[str, float]) -> float:
+        """Seconds of the products at each operand type's sustained
+        rate."""
+        return sum(f / (self.peak(dt) * self.efficiency(dt))
+                   for dt, f in flops_by_dtype.items())
+
+
+H100_SXM = GPUConstants()
+
+#: The aten ops counted as transcendental: one per output element.
+TRANSCENDENTAL_OPS = frozenset((
+    "exp", "exp2", "expm1", "log", "log2", "log1p", "tanh", "sigmoid",
+    "erf", "erfinv", "rsqrt", "sqrt", "sin", "cos", "silu", "gelu",
+    "_softmax", "_log_softmax"))
+
+#: Ops that move no data: bare allocations, and views that aten does not
+#: mark as views (``_unsafe_view`` ends a copying ``reshape``).
+_MOVE_NOTHING = frozenset(("empty", "empty_strided", "empty_like",
+                           "new_empty", "new_empty_strided", "_unsafe_view",
+                           "lift_fresh"))
+
+
+def _tensors(tree):
+    if isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _tensors(x)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            yield from _tensors(x)
+    elif hasattr(tree, "numel") and hasattr(tree, "element_size"):
+        yield tree
+
+
+def _counting_mode():
+    """A ``TorchDispatchMode`` (built on first use, so that importing this
+    module imports no torch) that adds up, per aten op: the bytes of its
+    tensor inputs and outputs (views and bare allocations move none), the
+    output elements of :data:`TRANSCENDENTAL_OPS`, and the FLOPs of
+    ``torch.utils.flop_counter``'s formulas by the first operand's type.
+    Any op whose output is not on ``meta`` raises: the count never
+    runs anything."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class Counting(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = 0
+            self.transcendentals = 0
+            self.flops_by_dtype: Counter = Counter()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            outs = list(_tensors(out))
+            for t in outs:
+                if t.device.type != "meta":
+                    raise ValueError(f"TorchCostModel counts on meta tensors;"
+                                     f" {func} made a tensor on {t.device}")
+            self.ops += 1
+            name = func.overloadpacket.__name__
+            if not func.is_view and name not in _MOVE_NOTHING:
+                ins = list(_tensors((args, kwargs)))
+                self.bytes += sum(t.numel() * t.element_size()
+                                  for t in ins + outs)
+            if name in TRANSCENDENTAL_OPS:
+                self.transcendentals += sum(t.numel() for t in outs)
+            count = flop_registry.get(func.overloadpacket)
+            if count is not None:
+                first = next(_tensors((args, kwargs)))
+                dtype = str(first.dtype).replace("torch.", "")
+                self.flops_by_dtype[dtype] += count(*args, **kwargs,
+                                                    out_val=out)
+            return out
+
+    return Counting()
+
+
+class TorchCostModel:
+    """Static per-function cost reports from a run on ``meta`` tensors.
+
+    The counterpart of the JAX package's ``XLACostModel``, whose
+    ``.lower().compile()`` yields FLOPs and bytes without running or
+    allocating: here the function runs on ``meta`` tensors (a model built
+    with ``device="meta"``, meta inputs), where every op computes its
+    output's shape only.  FLOPs come from
+    ``torch.utils.flop_counter.FlopCounterMode`` (products only: matmuls,
+    convolutions, attention), split by operand type with the same
+    formulas; bytes are each aten op's tensor inputs and outputs added
+    up, an unfused upper bound like XLA-CPU's ``bytes accessed`` (a fused
+    kernel reads and writes its intermediates in registers, not in HBM);
+    transcendentals are the output elements of
+    :data:`TRANSCENDENTAL_OPS`.  The port's attention and linear-attention
+    routes run their plain versions on meta, so attention counts a full
+    ``T x S`` rectangle of scores where the flash kernel skips the masked
+    tiles.
+    """
+
+    def __init__(self, constants: GPUConstants = H100_SXM):
+        self.constants = constants
+
+    def analyze(self, fn: Callable[..., Any], *args: Any,
+                **kwargs: Any) -> Dict[str, Any]:
+        """``{"flops", "bytes", "transcendentals", "flops_by_dtype",
+        "ops"}`` of ``fn(*args, **kwargs)`` on meta tensors."""
+        from torch.utils.flop_counter import FlopCounterMode
+        counting = _counting_mode()
+        with FlopCounterMode(display=False) as flops, counting:
+            fn(*args, **kwargs)
+        return {"flops": float(flops.get_total_flops()),
+                "bytes": float(counting.bytes),
+                "transcendentals": float(counting.transcendentals),
+                "flops_by_dtype": {k: float(v) for k, v
+                                   in counting.flops_by_dtype.items()},
+                "ops": counting.ops}
+
+    def seconds(self, a: Mapping[str, Any]) -> float:
+        """The reference's ``max(flops / (peak · eff), bytes / hbm)``, the
+        FLOP term summed over the operand types at each one's rate (the
+        card's f32 peak is 1/15 of its bf16 one)."""
+        c = self.constants
+        return max(c.flops_seconds(a["flops_by_dtype"]),
+                   a["bytes"] / c.hbm_bw)
+
+    def report(self, kernel: str, fn: Callable[..., Any], *args: Any,
+               device_kind: str = "gpu", in_bytes: float = 0.0,
+               out_bytes: float = 0.0, **kwargs: Any) -> KernelReport:
+        a = self.analyze(fn, *args, **kwargs)
+        c = self.constants
+        return KernelReport(
+            kernel=kernel, device_kind=device_kind,
+            compute_s=self.seconds(a),
+            dma_in_s=in_bytes / c.link_bw, dma_out_s=out_bytes / c.link_bw,
+            resources={}, clock_hz=0.0,
+            meta={"flops": a["flops"], "bytes": a["bytes"],
+                  "transcendentals": a["transcendentals"]})
 
 
 # --------------------------------------------------------------------------

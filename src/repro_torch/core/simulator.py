@@ -34,8 +34,9 @@ decision table): this object engine (one estimate, full records,
 candidate per call — the sweep workhorse), :mod:`repro_torch.core.batchsim`
 (all candidates of one frozen graph in a lockstep batch — the sweep
 *throughput* engine), the first three pinned bit-identical by tests, and
-:mod:`repro_torch.core.torchsim` (the lockstep jit-compiled as a ``lax.scan`` —
-pinned at rtol level, ``repro_torch.core.replay.ENGINE_TOLERANCE``).  Shared
+:mod:`repro_torch.core.torchsim` (the lockstep as a step loop on the card,
+replayed from captured CUDA graphs — pinned at rtol level,
+``repro_torch.core.replay.ENGINE_TOLERANCE``).  Shared
 plumbing lives here: :func:`validate_pools` (the degenerate-candidate
 guard every engine runs before touching pool state) and
 :meth:`SimResult.without_schedule` (the schedule-free projection batch

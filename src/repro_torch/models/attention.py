@@ -8,7 +8,11 @@ Three interchangeable inner implementations, as in the JAX package
 * ``impl="chunked"`` — online softmax over key chunks, a Python loop.
 * ``impl="kernel"``  — :func:`repro_torch.kernels.ops.attention`: the
   hand-written Hopper flash kernel for CUDA tensors, its plain version
-  for CPU tensors.  The port's default route.
+  for CPU tensors.  The port's default route.  On ``meta`` tensors (the
+  cost model's, :class:`repro_torch.core.hlsreport.TorchCostModel`) it
+  runs the plain version, which computes nothing there and gives the
+  output's shape; its operations are the plain version's, a full
+  ``T x S`` rectangle of scores.
 
 Decode (one query against a KV cache) uses :func:`attention_decode`, plain
 PyTorch: the JAX package runs it as an einsum too, outside any kernel.
@@ -20,7 +24,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..kernels import ops
+from ..kernels import ops, ref
 from . import layers
 from .layers import Dense, RMSNorm, rotary
 
@@ -106,8 +110,12 @@ def attention_kernel(q, k, v, *, causal=True, window=0, cap=0.0, offset=0):
     qh = q.transpose(1, 2).reshape(b * h, t, dh).contiguous()
     kh = k.transpose(1, 2).reshape(b * hkv, s, dh).contiguous()
     vh = v.transpose(1, 2).reshape(b * hkv, s, dh).contiguous()
-    out = ops.attention(qh, kh, vh, causal=causal, window=window,
-                        softcap=cap)
+    if qh.is_meta:
+        out = ref.attention(qh, kh, vh, causal=causal, window=window,
+                            softcap=cap)
+    else:
+        out = ops.attention(qh, kh, vh, causal=causal, window=window,
+                            softcap=cap)
     return out.reshape(b, h, t, dh).transpose(1, 2)
 
 

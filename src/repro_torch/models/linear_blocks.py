@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import ops
+from ..kernels import ops, ref
 from .layers import Dense, RMSNorm, _param
 
 State = Dict[str, torch.Tensor]
@@ -108,12 +108,18 @@ def linear_attention_kernel(r, k, v, w, u, *, chunk: int = 64
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`linear_attention_chunked`'s contract through
     :func:`repro_torch.kernels.ops.linear_attn`, with the heads flattened
-    as ``(B, H)`` so that row ``b·H + h`` takes ``u[h]``."""
+    as ``(B, H)`` so that row ``b·H + h`` takes ``u[h]``.  On ``meta``
+    tensors (the cost model's) it runs the plain version, which computes
+    nothing there and gives the outputs' shapes."""
     b, h, t, dk = r.shape
     dv = v.shape[-1]
     flat = [x.reshape(b * h, t, x.shape[-1]).contiguous()
             for x in (r, k, v, w)]
-    out, state = ops.linear_attn_state(*flat, u.contiguous(), chunk=chunk)
+    if r.is_meta:
+        out, state = ref.linear_attention_state(*flat, u.contiguous())
+    else:
+        out, state = ops.linear_attn_state(*flat, u.contiguous(),
+                                           chunk=chunk)
     return out.reshape(b, h, t, dv), state.reshape(b, h, dk, dv)
 
 

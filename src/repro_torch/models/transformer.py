@@ -1,5 +1,6 @@
-"""Model assembly for the dense attention LMs, RWKV6 and zamba2 (Mamba2
-with a weight-shared attention block), and their serving paths.
+"""Model assembly for the dense attention LMs, the MoE LMs (mixtral,
+llama4), RWKV6 and zamba2 (Mamba2 with a weight-shared attention block),
+and their serving paths.
 
 :class:`ModelConfig` and :class:`BlockSpec` are the JAX package's
 (``repro/models/transformer.py``), field for field, so its config modules
@@ -26,10 +27,13 @@ shift1, shift2}`` for RWKV6, ``{ssm, conv}`` for Mamba2 — and entry
 ``n_layers + s`` is shared site ``s``'s ``{k, v}`` (the JAX package's
 ``cache["shared"][s]``).  Decode updates every entry in place.
 
-This slice carries the dense attention blocks (``kind="attn"``), RWKV6
-(``kind="rwkv6"``), Mamba2 (``kind="mamba2"``) and the shared block;
-MoE, encoder-decoder and patch-token configs raise
-``NotImplementedError`` when a model is built.
+The port carries the dense attention blocks (``kind="attn"``), the MoE
+blocks (``kind="moe_attn"``: attention, then the routed experts of
+:mod:`.moe` and, with ``shared_expert``, a shared MLP beside them),
+RWKV6 (``kind="rwkv6"``), Mamba2 (``kind="mamba2"``) and the shared
+block; encoder-decoder and patch-token configs raise
+``NotImplementedError`` when a model is built.  :func:`forward` returns
+the MoE layers' auxiliary losses summed, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -45,9 +49,10 @@ from .layers import (MLP, Dense, Embedding, RMSNorm, resolve_device,
                      resolve_dtype, softcap)
 from .linear_blocks import (RWKV6, Mamba2, mamba2_state_init,
                             rwkv6_state_init)
+from .moe import MoE, moe_apply
 
-#: The block kinds this slice builds.
-PORTED_KINDS = ("attn", "rwkv6", "mamba2")
+#: The block kinds the port builds.
+PORTED_KINDS = ("attn", "moe_attn", "rwkv6", "mamba2")
 
 #: Mamba2's head width: the JAX package's ``mamba2_init`` /
 #: ``mamba2_block`` default, which its model never overrides (so it is not
@@ -162,6 +167,19 @@ class ModelConfig:
         device (nothing is allocated)."""
         return Transformer(self, device="meta").param_count()
 
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: ``top_k`` of ``n_experts``
+        routed), the JAX package's formula."""
+        if self.n_experts == 0:
+            return self.param_count()
+        total = self.param_count()
+        moe_blocks = sum(1 for b in self.pattern if b.kind == "moe_attn")
+        per_expert = 3 * self.d_model * self.d_ff
+        n_moe_layers = self.n_periods * moe_blocks
+        routed = n_moe_layers * self.n_experts * per_expert
+        active = n_moe_layers * self.top_k * per_expert
+        return total - routed + active
+
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice leaves out."""
@@ -173,10 +191,10 @@ def check_supported(cfg: ModelConfig) -> None:
         left_out.append("patch-token frontends (patch_tokens)")
     if left_out:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention, RWKV6 and "
+            f"{cfg.name}: the port serves dense attention, MoE, RWKV6 and "
             f"zamba2 models only; "
             f"{', '.join(sorted(set(left_out)))} are still to port "
-            f"(ROADMAP 'Open items', items 1.7–1.11)")
+            f"(ROADMAP 'Open items', items 1.4–1.7)")
 
 
 # --------------------------------------------------------------------------
@@ -185,9 +203,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """One dense attention block (``_block_apply`` for ``kind="attn"``):
-    pre-norm attention and MLP, each with an optional post-norm (gemma2's
-    sandwich), each added to the residual."""
+    """One attention block (``_block_apply`` for ``kind="attn"`` and
+    ``"moe_attn"``): pre-norm attention, then the MLP or, for
+    ``moe_attn``, the routed experts (``moe``) plus the shared MLP
+    (``shared_mlp``, with ``shared_expert``), each with an optional
+    post-norm (gemma2's sandwich), each added to the residual."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, *, device,
                  generator: Optional[torch.Generator]):
@@ -206,13 +226,21 @@ class Block(nn.Module):
             self.post_ln2 = RMSNorm(**norm)
         else:
             self.post_ln1 = self.post_ln2 = None
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, dtype=dtype,
-                       device=device, generator=generator)
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.mlp = self.moe = self.shared_mlp = None
+        if spec.kind == "moe_attn":
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, **kw)
+            if cfg.shared_expert:
+                self.shared_mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, **kw)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Cache] = None,
                 cache_length: Union[int, torch.Tensor, None] = None
-                ) -> Tuple[torch.Tensor, Cache]:
+                ) -> Tuple[torch.Tensor, Cache, Optional[torch.Tensor]]:
+        """Returns ``(x, cache, aux)``: ``aux`` is the MoE's auxiliary
+        loss (f32 scalar), None for a dense block."""
         cfg, spec = self.cfg, self.spec
         h, new_cache = self.attn(
             self.ln1(x), positions, rope_theta=cfg.rope_theta,
@@ -221,10 +249,21 @@ class Block(nn.Module):
         if self.post_ln1 is not None:
             h = self.post_ln1(h)
         x = x + h
-        h = self.mlp(self.ln2(x))
+        h = self.ln2(x)
+        aux = None
+        if self.moe is not None:
+            out, aux = moe_apply(
+                self.moe, h, top_k=cfg.top_k,
+                capacity_factor=cfg.capacity_factor,
+                group_size=cfg.moe_group_size, dispatch=cfg.moe_dispatch)
+            if self.shared_mlp is not None:
+                out = out + self.shared_mlp(h)
+            h = out
+        else:
+            h = self.mlp(h)
         if self.post_ln2 is not None:
             h = self.post_ln2(h)
-        return x + h, new_cache
+        return x + h, new_cache, aux
 
 
 def _layer(cfg: ModelConfig, spec: BlockSpec, *, device,
@@ -314,40 +353,56 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, device=device)[None, :].expand(b, t)
 
 
-def _walk(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
-          cache: Optional[List[Cache]] = None,
-          length: Union[int, torch.Tensor, None] = None
-          ) -> Tuple[torch.Tensor, List[Cache]]:
+def _walk_aux(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
+              cache: Optional[List[Cache]] = None,
+              length: Union[int, torch.Tensor, None] = None
+              ) -> Tuple[torch.Tensor, List[Cache], torch.Tensor]:
     """Apply the stack as ``_walk_stack`` does: the layers segment by
     segment (:meth:`ModelConfig.segments`), the shared block after each
     segment whose ``shared_after`` is true.  Without ``cache`` every layer
     starts fresh; with it (decode) each continues its entry in place.
-    Returns ``(x, caches)`` in the cache layout of the module docstring."""
+    Returns ``(x, caches, aux)``: the caches in the layout of the module
+    docstring, ``aux`` the layers' MoE losses summed from an f32 zero
+    (the shared block's is dropped, as in JAX).  A block returns ``(x,
+    cache, aux)``, a recurrent layer ``(x, state)``."""
     cfg = model.cfg
     n_pat = len(cfg.pattern)
     layer_caches: List[Cache] = []
     site_caches: List[Cache] = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p0, p1, shared_after in cfg.segments():
         for n in range(p0 * n_pat, p1 * n_pat):
             c = None if cache is None else cache[n]
-            x, c = model.layers[n](x, positions, c, length)
+            x, c, *extra = model.layers[n](x, positions, c, length)
+            if extra and extra[0] is not None:
+                aux = aux + extra[0]
             layer_caches.append(c)
         if shared_after:
             c = (None if cache is None
                  else cache[cfg.n_layers + len(site_caches)])
-            x, c = model.shared(x, positions, c, length)
+            x, c, *_ = model.shared(x, positions, c, length)
             site_caches.append(c)
-    return x, layer_caches + site_caches
+    return x, layer_caches + site_caches, aux
+
+
+def _walk(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
+          cache: Optional[List[Cache]] = None,
+          length: Union[int, torch.Tensor, None] = None
+          ) -> Tuple[torch.Tensor, List[Cache]]:
+    """:func:`_walk_aux` without the auxiliary loss: ``(x, caches)``."""
+    x, caches, _ = _walk_aux(model, x, positions, cache, length)
+    return x, caches
 
 
 def forward(model: Transformer, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns ``(logits (B, T, V) f32, aux)``;
-    ``aux`` (the MoE loss in the JAX package) is 0 for the ported
-    models."""
+    ``aux`` is the MoE layers' auxiliary loss summed (f32 scalar; 0 for a
+    model without MoE layers)."""
     x = _embed_inputs(model, batch)
-    x, _ = _walk(model, x, _positions(x.shape[0], x.shape[1], x.device))
-    return _logits(model, x), torch.zeros((), device=x.device)
+    x, _, aux = _walk_aux(model, x,
+                          _positions(x.shape[0], x.shape[1], x.device))
+    return _logits(model, x), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

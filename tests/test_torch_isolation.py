@@ -3,8 +3,8 @@
 * Nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, imports
   ``jax``, ``jaxlib`` or any ``repro`` module (an AST scan of every
   import, lazy ones inside functions included).
-* A CPU sweep, CPU runs of the serving launcher (a dense arch and
-  RWKV6), and the sweep service's CLI and one torch request through it,
+* A CPU sweep, CPU runs of the serving launcher (a dense arch, mixtral
+  and RWKV6), and the sweep service's CLI and one torch request through it,
   through the port leave ``jax`` and ``repro`` out of ``sys.modules``
   (a fresh interpreter each); the sweep service leaves CUDA
   uninitialised.
@@ -57,7 +57,9 @@ def test_port_files_exist():
             "transformer.py", "registry.py", "qwen3_0_6b.py", "qwen3_4b.py",
             "qwen15_4b.py", "gemma2_2b.py", "engine.py", "serve.py",
             "linear_attn.py", "linear_blocks.py", "rwkv6_1_6b.py",
-            "sweepd.py", "coalesce.py", "paraver.py"} <= names
+            "sweepd.py", "coalesce.py", "paraver.py", "moe.py",
+            "mixtral_8x22b.py", "llama4_maverick.py", "steptask.py",
+            "model.py", "hlsreport.py"} <= names
     port = REPO / "src" / "repro_torch"
     assert (port / "serve" / "sweepd.py").is_file()
     assert (port / "serve" / "coalesce.py").is_file()
@@ -149,6 +151,12 @@ def serve_launcher_imports(arch):
 def test_cpu_serve_launcher_leaves_jax_and_repro_unimported():
     assert "served 2 requests, 6 tokens" in serve_launcher_imports(
         "qwen3-0.6b")
+
+
+def test_cpu_mixtral_serve_launcher_leaves_jax_and_repro_unimported():
+    out = serve_launcher_imports("mixtral-8x22b")
+    assert "arch=mixtral-8x22b-smoke" in out
+    assert "served 2 requests, 6 tokens" in out
 
 
 def test_cpu_rwkv6_serve_launcher_leaves_jax_and_repro_unimported():

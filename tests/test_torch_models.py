@@ -764,7 +764,7 @@ def test_default_route_is_the_kernel_and_default_device_the_card():
 
 
 @pytest.mark.parametrize("change", [
-    {"pattern": (T.BlockSpec(kind="moe_attn"),), "n_experts": 4, "top_k": 2},
+    {"encoder_layers": 2, "patch_tokens": 4},
     {"encoder_layers": 2},
     {"patch_tokens": 4},
 ])
@@ -774,10 +774,30 @@ def test_left_out_families_raise_not_implemented(change):
         T.Transformer(cfg, device="meta")
 
 
+def test_moe_block_builds():
+    """A ``moe_attn`` layer on a dense smoke config builds with the JAX
+    layout: the f32 router, the stacked experts in the model's type, the
+    shared MLP only with ``shared_expert``, no dense MLP."""
+    for shared in (False, True):
+        cfg = dataclasses.replace(
+            configs.get_smoke("qwen3-0.6b"), param_dtype="bfloat16",
+            pattern=(T.BlockSpec(kind="moe_attn"),), n_experts=4, top_k=2,
+            shared_expert=shared)
+        block = T.Transformer(cfg, device="meta").layers[0]
+        assert block.mlp is None
+        assert block.moe.router.w.dtype == torch.float32
+        assert tuple(block.moe.router.w.shape) == (cfg.d_model, 4)
+        assert tuple(block.moe.gate.shape) == (4, cfg.d_model, cfg.d_ff)
+        assert tuple(block.moe.down.shape) == (4, cfg.d_ff, cfg.d_model)
+        assert block.moe.up.dtype == torch.bfloat16
+        assert (block.shared_mlp is not None) == shared
+
+
 def test_unported_arch_is_a_key_error():
-    assert set(configs.arch_ids()) == set(DENSE) | {RWKV, ZAMBA}
+    assert set(configs.arch_ids()) == set(DENSE) | {
+        RWKV, ZAMBA, "mixtral-8x22b", "llama4-maverick-400b-a17b"}
     with pytest.raises(KeyError, match="not ported"):
-        configs.get_config("mixtral-8x22b")
+        configs.get_config("whisper-tiny")
 
 
 def test_weights_come_from_the_generator():

@@ -2,9 +2,8 @@
 
 The same weights (``repro_torch.carry.import_lm_params``) and the same
 numpy prompts go through ``repro.serve.engine.Engine`` and the port's
-``Engine`` on the CPU (the dense archs, RWKV6 and zamba2), with prompts of
-equal and of unequal length.  The
-served tokens must be equal, except that a token may differ where the JAX
+``Engine`` on the CPU (the dense archs, RWKV6, zamba2 and the MoE archs),
+with prompts of equal and of unequal length.  The served tokens must be equal, except that a token may differ where the JAX
 step's two largest logits are closer than ``TIE_TOL`` (the port's and the
 JAX package's logits agree to 1e-4, ``tests/test_torch_models.py``); such
 a token is reported as a warning, and the request's later tokens, which
@@ -89,7 +88,8 @@ def top_two_gap(logits):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "rwkv6-1.6b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "mixtral-8x22b",
+                                  "llama4-maverick-400b-a17b"])
 @pytest.mark.parametrize("lengths", sorted(PROMPT_LENGTHS))
 def test_engine_serves_the_jax_engines_tokens(arch, lengths, jx):
     jax, jnp, jconfigs, JT, jengine = jx
@@ -250,6 +250,18 @@ def test_launcher_serves_zamba2_on_the_cpu():
     assert "served 3 requests, 9 tokens" in text
 
 
+def test_launcher_serves_mixtral_on_the_cpu():
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = launch_serve.main(["--device", "cpu", "--requests", "3",
+                                "--prompt-len", "5", "--max-new", "3",
+                                "--slots", "2", "--arch", "mixtral-8x22b"])
+    text = buf.getvalue()
+    assert rc == 0
+    assert "arch=mixtral-8x22b-smoke device=cpu attn_impl=kernel" in text
+    assert "served 3 requests, 9 tokens" in text
+
+
 def test_engine_on_the_card_needs_a_card(monkeypatch):
     from repro_torch import DeviceError
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -273,9 +285,9 @@ def test_bf16_engine_serves_whole_requests():
 def card_kernels(cfg):
     """The kernels a prefill of ``cfg`` launches on the card: (wrapper
     module, launch key, launches a prefill) — flash attention once an
-    attention layer or shared site, linear attention once a recurrent
-    layer."""
-    if cfg.pattern[0].kind == "attn":
+    attention layer (dense or MoE) or shared site, linear attention once
+    a recurrent layer."""
+    if cfg.pattern[0].kind in ("attn", "moe_attn"):
         return [(fa, "flash_attention", cfg.n_layers)]
     out = [(la, "linear_attn", cfg.n_layers)]
     if cfg.n_shared_sites:
@@ -285,7 +297,7 @@ def card_kernels(cfg):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma2-2b", "rwkv6-1.6b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "mixtral-8x22b"])
 def test_engine_on_the_card(arch):
     """The smoke config on the card: the forward's logits are the CPU's
     (f32, TF32 off, rtol/atol 1e-4), every prefill goes through the arch's
@@ -389,7 +401,8 @@ def test_bf16_engine_on_the_card_goes_through_wgmma(arch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "zamba2-1.2b",
+                                  "mixtral-8x22b"])
 @pytest.mark.parametrize("lengths", sorted(PROMPT_LENGTHS))
 def test_decode_with_a_device_tensor_length_serves_the_jax_tokens(
         arch, lengths, jx):
@@ -470,7 +483,9 @@ def test_engine_keeps_decode_runners_per_batch_size():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-1.6b", "zamba2-1.2b",
+                                  "mixtral-8x22b",
+                                  "llama4-maverick-400b-a17b"])
 def test_graph_decode_serves_the_eager_tokens_on_the_card(arch):
     """On the card the captured decode step serves the eager step's tokens
     exactly, and its last-step logits within 1e-4 (f32: cuBLAS may pick

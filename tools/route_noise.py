@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""How far a recurrent arch's last-position prefill logits move between
-routes that compute the same function, at full width on one CUDA card.
+"""How far an arch's last-position prefill logits move between routes
+that compute the same function, at full width on one CUDA card.
 
-Builds ``--arch`` (rwkv6-1.6b by default, or zamba2-1.2b) at its
+Builds ``--arch`` (rwkv6-1.6b by default, zamba2-1.2b, or mixtral-8x22b
+cut to 4 of its 56 layers as ``chip_smoke.py`` serves it) at its
 published widths from ``torch.Generator`` seed 0 (as ``chip_smoke.py``
 does), prefills the same eight 512-token prompts, and reports the max
 abs difference of the last-position logits between:
 
 * the kernel route (``attn_impl="kernel"``: the linear-attention kernels,
-  and for zamba2's shared block the flash kernel) and the plain closed
-  form (``attn_impl="chunked"``), in bf16 and in f32;
-* the plain closed form at chunk 64 and at chunk 32 (the same arithmetic
-  summed in another order: the rounding noise of the bf16 model itself);
+  and the flash kernel for zamba2's shared block and mixtral's attention)
+  and the plain route (``attn_impl="chunked"``; for mixtral also
+  ``"naive"``, the route ``chip_smoke.py`` gates it against), in bf16 and
+  in f32;
+* two plain routes: for the recurrent archs the closed form at chunk 64
+  and at chunk 32, for mixtral the naive and chunked attention (the same
+  arithmetic summed in another order: the rounding noise of the model
+  itself);
+* for mixtral, the routing decisions (each token's top-2 experts in each
+  layer) that differ between each pair of routes, out of all of them;
 * per layer (and per shared site), the hidden state's max abs difference
   between the kernel and chunked routes, in bf16, for the first prompt;
 * ``chip_smoke.py``'s self-check (eight requests served through
@@ -22,8 +29,8 @@ and, for rwkv6-1.6b, the kernel against its plain version at the path
 shape with the model's own decays (``w = exp(-exp(-4 + 0.01 z))``, ~0.98
 a step).
 
-Run: ``python3 tools/route_noise.py [--arch zamba2-1.2b]`` (needs a card;
-prints one JSON line per measurement).
+Run: ``python3 tools/route_noise.py [--arch zamba2-1.2b|mixtral-8x22b]``
+(needs a card; prints one JSON line per measurement).
 """
 from __future__ import annotations
 
@@ -35,31 +42,69 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+#: mixtral-8x22b's depth on one card (``chip_smoke.py``'s MIXTRAL_LAYERS).
+MIXTRAL_LAYERS = 4
+
+
+class RoutingLog:
+    """Records each MoE call's top-k experts (``gate_idx``, as
+    ``moe_apply`` picks them) while installed as the transformer module's
+    ``moe_apply``."""
+
+    def __init__(self, T, moe):
+        self.T, self.moe, self.calls = T, moe, []
+
+    def __call__(self, p, x, *, top_k, **kw):
+        import torch
+        probs = torch.softmax(
+            x.reshape(-1, x.shape[-1]).float() @ p.router.w, dim=-1)
+        self.calls.append(self.moe.top_k_stable(probs, top_k)[1])
+        return self.moe.moe_apply(p, x, top_k=top_k, **kw)
+
+    def __enter__(self):
+        self.T.moe_apply = self
+        return self
+
+    def __exit__(self, *exc):
+        self.T.moe_apply = self.moe.moe_apply
+
 
 def last_logits(T, model, prompts):
+    """The last-position prefill logits of each prompt, and the routing
+    decisions the prefills made (one tensor of top-k experts per MoE
+    call, in call order; none for a model without MoE layers)."""
     import torch
+    from repro_torch.models import moe
     out = []
-    for pr in prompts:
-        logits, _ = T.prefill(model, {"tokens": torch.as_tensor(
-            pr, device="cuda")[None]}, len(pr) + 1)
-        out.append(logits[0, -1].float())
-    return torch.stack(out)
+    with RoutingLog(T, moe) as log:
+        for pr in prompts:
+            logits, _ = T.prefill(model, {"tokens": torch.as_tensor(
+                pr, device="cuda")[None]}, len(pr) + 1)
+            out.append(logits[0, -1].float())
+    return torch.stack(out), log.calls
 
 
 def routes(T, cfg, state, prompts, pairs):
     """Max abs difference of the last-position logits for each pair of
-    ``(attn_impl, scan_chunk)`` settings, on the same weights."""
-    logits = {}
+    ``(attn_impl, scan_chunk)`` settings, on the same weights, and for an
+    MoE arch the routing decisions that differ (and their total)."""
+    logits, picks = {}, {}
     for setting in {s for pair in pairs for s in pair}:
         impl, chunk = setting
         m = T.Transformer(dataclasses.replace(cfg, attn_impl=impl,
                                               scan_chunk=chunk),
                           device="meta")
         m.load_state_dict(state, assign=True)
-        logits[setting] = last_logits(T, m, prompts)
-    return {f"{a[0]}{a[1]} vs {b[0]}{b[1]}":
-            float((logits[a] - logits[b]).abs().max()) for a, b in pairs}, \
-        float(max(v.abs().max() for v in logits.values()))
+        logits[setting], picks[setting] = last_logits(T, m, prompts)
+    name = lambda a, b: f"{a[0]}{a[1]} vs {b[0]}{b[1]}"
+    diffs = {name(a, b): float((logits[a] - logits[b]).abs().max())
+             for a, b in pairs}
+    routing = {name(a, b): [sum(int((x != y).sum()) for x, y in
+                                zip(picks[a], picks[b])),
+                            sum(int(x.numel()) for x in picks[a])]
+               for a, b in pairs if picks[a]}
+    return diffs, float(max(v.abs().max() for v in logits.values())), \
+        routing
 
 
 def layer_divergence(T, cfg, state, prompt):
@@ -89,7 +134,7 @@ def layer_divergence(T, cfg, state, prompt):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="rwkv6-1.6b",
-                    choices=("rwkv6-1.6b", "zamba2-1.2b"))
+                    choices=("rwkv6-1.6b", "zamba2-1.2b", "mixtral-8x22b"))
     arch = ap.parse_args(argv).arch
     import torch
     if not torch.cuda.is_available():
@@ -104,23 +149,30 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
-    vocab = configs.get_config(arch).vocab
-    prompts = [rng.integers(0, vocab, size=(512,), dtype=np.int32)
+    base = configs.get_config(arch)
+    if arch == "mixtral-8x22b":
+        base = dataclasses.replace(base, n_layers=MIXTRAL_LAYERS)
+        pairs = ((("kernel", 64), ("naive", 64)),
+                 (("naive", 64), ("chunked", 64)),
+                 (("kernel", 64), ("chunked", 64)))
+    else:
+        pairs = ((("kernel", 64), ("chunked", 64)),
+                 (("chunked", 64), ("chunked", 32)),
+                 (("kernel", 64), ("kernel", 32)))
+    prompts = [rng.integers(0, base.vocab, size=(512,), dtype=np.int32)
                for _ in range(8)]
-    pairs = ((("kernel", 64), ("chunked", 64)),
-             (("chunked", 64), ("chunked", 32)),
-             (("kernel", 64), ("kernel", 32)))
     for dtype in ("bfloat16", "float32"):
-        cfg = dataclasses.replace(configs.get_config(arch),
-                                  param_dtype=dtype)
+        cfg = dataclasses.replace(base, param_dtype=dtype)
         model = T.Transformer(cfg, device="cuda",
                               generator=torch.Generator("cuda")
                               .manual_seed(0))
         state = model.state_dict()
-        diffs, scale = routes(T, cfg, state, prompts, pairs)
+        diffs, scale, routing = routes(T, cfg, state, prompts, pairs)
         print(json.dumps({"arch": arch, "dtype": dtype,
                           "logits_max_abs_diff": diffs,
-                          "logits_up_to": scale}), flush=True)
+                          "logits_up_to": scale,
+                          "routing_decisions_differing_of": routing}),
+              flush=True)
         if dtype == "bfloat16":
             print(json.dumps({"dtype": dtype, "layer_hidden_diff_and_max":
                               layer_divergence(T, cfg, state, prompts[0])}),
@@ -131,7 +183,7 @@ def main(argv=None) -> int:
     # served tokens (kernel prefill, recurrence decode) against a
     # teacher-forced forward through each route, bf16
     from repro_torch.serve import engine
-    cfg = configs.get_config(arch)
+    cfg = base
     model = T.Transformer(cfg, device="cuda",
                           generator=torch.Generator("cuda").manual_seed(0))
     eng = engine.Engine(model, slots=4, max_len=512 + 32 + 1)
