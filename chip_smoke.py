@@ -43,6 +43,19 @@ against its plain PyTorch version:
   ``torch.Generator``: every prefill's attention (GQA 6:1, window 4096)
   through the ``wgmma`` flash kernel, the routed experts in f32 as in
   the JAX package;
+* patch-token serving on pixtral-12b at its published width and depth
+  (40 layers, 12.2 B parameters), in bf16 from a seeded
+  ``torch.Generator``: text-only through ``Engine.run`` (as the JAX
+  engine serves it), then with 256 seeded patch embeddings before each
+  prompt through ``make_prefill_step`` and the engine's decode runner,
+  every prefill's attention (GQA 4:1, D 128) through the ``wgmma`` flash
+  kernel;
+* encoder-decoder serving on whisper-tiny at its published width, with
+  1500 seeded frames a request, through the same step entry points: the
+  decoder's causal self-attention through the ``wgmma`` flash kernel (D
+  64), the encoder and the cross-attention through
+  ``attention_chunked`` (a fixed route: the kernels refuse the encoder's
+  padded, non-causal keys);
 * the estimator's cost model on the card: ``TorchCostModel``'s
   prediction (counted on ``meta`` tensors) of qwen3-0.6b's and mixtral's
   prefill and decode step set against their measured device time, and
@@ -80,7 +93,9 @@ Phases, one line each or more:
    64) bf16 causal on ``wgmma`` (``zamba2_path``); mixtral-8x22b's:
    ``flash_attention`` at (48, 8, 512, 512, 128) bf16 causal with window
    4096 (``mixtral_path``) and at (6, 1, 4608, 4608, 128) where the
-   window bites (``mixtral_window``), both on ``wgmma``; ``linear_attn`` at
+   window bites (``mixtral_window``), both on ``wgmma``; pixtral-12b's at
+   (32, 8, 512, 512, 128) and (32, 8, 768, 768, 128) and whisper-tiny's
+   at (6, 6, 256, 256, 64), bf16 causal on ``wgmma``; ``linear_attn`` at
    (64, 512, 64, 64) chunk 64 in f32 with u = 0 and zamba2's decay
    spectrum (``exp(-softplus(z) · linspace(1, 16, 64)[row % 64])``, held
    at the strong-decay tolerance, ``mamba2_path``) on the sub-chunked
@@ -175,7 +190,18 @@ Phases, one line each or more:
     kernel route against ``attn_impl="naive"`` gated on f32 weights (the
     f32 attention runs the FMA kernel) at 1e-3, and the MoE's share of a
     prefill's device time (``[serve moe]``: one layer's ``moe_apply``
-    under ``torch.profiler``, times 4); each serve phase's seconds;
+    under ``torch.profiler``, times 4); then pixtral-12b at full depth
+    (the mixtral model freed first): text-only as qwen3-0.6b (320 launches
+    at (32, 8, 512, 512, 128), all ``wgmma``; the route gated on f32
+    weights at full depth as mixtral's, the f32 copy built beside the
+    bf16 one), then the same prompts with their patches (``[serve
+    fused]``: 320 launches at (32, 8, 768, 768, 128) and no other shape,
+    the captured decode step against the eager one, the route gated in
+    f32, the self-check's forward with the patches); then whisper-tiny
+    (the pixtral model freed first) with 256-token prompts and their
+    frames, the same way (32 launches at (6, 6, 256, 256, 64) and none at
+    T = 1500, the route gated in bf16, the encoder's ms a request apart
+    from the whole prefill's); each serve phase's seconds;
 12b. ``[cost model]``: a bf16 and an f32 ``torch.matmul`` at 8192^3 give
     the sustained fractions of the peaks; ``TorchCostModel`` at those
     fractions counts qwen3-0.6b's and mixtral's 512-token prefill and
@@ -200,7 +226,7 @@ Phases, one line each or more:
     single PyTorch call computes it), and again at the f32 case of the
     same shape, which is what ``kernel_for``'s route for f32 rests on;
     both kernels the same way at zamba2-1.2b's path shapes, and the flash
-    kernel at mixtral-8x22b's;
+    kernel at mixtral-8x22b's, pixtral-12b's two and whisper-tiny's;
 14. a ``kernels`` JSON line (launches on the paths, error against the
     plain version, times and bound at the commonest path shape, and for
     the two attention kernels a row a serve path's shape) and
@@ -275,6 +301,23 @@ MIXTRAL_FLASH_PATH = (48, 8, 512, 512, 128)
 MIXTRAL_WINDOW = 4096
 MIXTRAL_WINDOW_CASE = (6, 1, 4608, 4608, 128)
 
+#: pixtral-12b's flash launches, served at full width and full depth (40
+#: layers, 12,247,782,400 parameters, 24.5 GB in bf16): a layer's prefill
+#: of one 512-token prompt, text only (as ``Engine.run`` serves it), and
+#: of the same prompt behind its 256 patch embeddings (768 positions); 32
+#: heads over 8 (GQA 4:1), D 128, bf16, causal, on ``wgmma``.
+PIXTRAL_FLASH_PATH = (32, 8, 512, 512, 128)
+PIXTRAL_FUSED_PATH = (32, 8, 768, 768, 128)
+
+#: whisper-tiny's flash launch: a decoder layer's self-attention over a
+#: 256-token prompt (256 + 32 new stays inside the published decoder's
+#: 448-token context), 6 heads over 6, D 64, bf16, causal, on ``wgmma``.
+#: Its encoder (1500 frames, non-causal) and its cross-attention run
+#: ``attention_chunked``, a route fixed in the code, so no flash launch
+#: has T = 1500.
+WHISPER_PROMPT = 256
+WHISPER_FLASH_PATH = (6, 6, WHISPER_PROMPT, WHISPER_PROMPT, 64)
+
 #: The cost-model phase's square matmul edge: a bf16 and an f32
 #: ``torch.matmul`` there give the sustained fractions of the peaks.
 MATMUL_EFF_N = 8192
@@ -316,7 +359,11 @@ SERVE = {"requests": 8, "prompt_len": 512, "max_new": 32, "slots": 4}
 #: path shape key, the kernel ``kernel_for`` routes it to, and its
 #: launches a prefill: one a layer, or one a shared site), the plain route
 #: the kernel route is held to, and the weights' type of the model that
-#: route check is gated on.
+#: route check is gated on.  An arch with ``fused`` is served again (or,
+#: with ``engine_run`` false, only) with seeded patches or frames in each
+#: prefill batch, through the step entry points (:func:`fused_flow`):
+#: ``Engine.run`` feeds tokens alone, as the JAX engine does, so it serves
+#: pixtral text-only and cannot serve whisper.
 SERVE_MODELS = (
     {"arch": "qwen3-0.6b", "plain_impl": "naive", "route_dtype": "bfloat16",
      "kernels": ({"kernel": "flash_attention",
@@ -338,6 +385,19 @@ SERVE_MODELS = (
      "kernels": ({"kernel": "flash_attention",
                   "path_key": (*MIXTRAL_FLASH_PATH, "torch.bfloat16"),
                   "variant": "wgmma", "per": "n_layers"},)},
+    {"arch": "pixtral-12b", "plain_impl": "naive", "route_dtype": "float32",
+     "kernels": ({"kernel": "flash_attention",
+                  "path_key": (*PIXTRAL_FLASH_PATH, "torch.bfloat16"),
+                  "variant": "wgmma", "per": "n_layers"},),
+     "fused": {"input": "patches", "prompt_len": SERVE["prompt_len"],
+               "path_key": (*PIXTRAL_FUSED_PATH, "torch.bfloat16")}},
+    {"arch": "whisper-tiny", "plain_impl": "naive", "route_dtype": "bfloat16",
+     "engine_run": False,
+     "kernels": ({"kernel": "flash_attention",
+                  "path_key": (*WHISPER_FLASH_PATH, "torch.bfloat16"),
+                  "variant": "wgmma", "per": "n_layers"},),
+     "fused": {"input": "frames", "prompt_len": WHISPER_PROMPT,
+               "path_key": (*WHISPER_FLASH_PATH, "torch.bfloat16")}},
 )
 
 #: Limits of the serve phase, on logits (f32 after the unembedding): the
@@ -353,7 +413,14 @@ SERVE_MODELS = (
 #: zamba2-1.2b and mixtral-8x22b are gated the same way: mixtral's two
 #: plain routes differ by 0.051 in bf16 and the kernel route by 0.121,
 #: each flipping hundreds of its 32,768 routing decisions, while in f32
-#: every pair agrees within 1.0e-5 and flips none.
+#: every pair agrees within 1.0e-5 and flips none.  pixtral-12b too: at
+#: its 40 layers its two plain routes differ by 0.066 in bf16 on the
+#: text-only prompts and by 0.086 behind the patches (the kernel route by
+#: 0.078 and 0.098, logits up to 5.1), too close to 0.1 to tell a kernel
+#: fault from the model's noise, while in f32 every pair agrees within
+#: 2.4e-5 (its f32 copy, 49 GB, is built beside the served bf16 one, 24.5
+#: GB).  whisper-tiny is gated in bf16: its plain routes differ by 0.012
+#: and the kernel route by 0.016 (logits up to 1.9; f32 1.0e-6).
 ROUTE_ATOL = {"bfloat16": 0.1, "float32": 1e-3}
 SELFCHECK_TOL = 0.1
 
@@ -1131,6 +1198,9 @@ def flash_cases(torch, np, fa, ops):
          False),
         ("mixtral_window", MIXTRAL_WINDOW_CASE, "bfloat16", MIXTRAL_WINDOW,
          0.0, False),
+        ("pixtral_path", PIXTRAL_FLASH_PATH, "bfloat16", 0, 0.0, False),
+        ("pixtral_fused", PIXTRAL_FUSED_PATH, "bfloat16", 0, 0.0, False),
+        ("whisper_path", WHISPER_FLASH_PATH, "bfloat16", 0, 0.0, False),
     ]
     cases = []
     for i, (label, (bh, bkv, t, s, d), dtype, window, cap, padded) \
@@ -1633,22 +1703,60 @@ def time_linear(torch, la, ref, case):
     return row
 
 
-def route_diff(torch, T, model, plain_impl, prompts, max_len):
+def route_diff(torch, T, model, plain_impl, batches, max_len):
     """The max abs difference of the last-position prefill logits of
     ``model`` (the kernel route) and of ``plain_impl``'s route on the same
-    weights (shared, not copied), over ``prompts``; and the logits' max."""
-    import dataclasses
+    weights (shared, not copied), over the prefill ``batches``; and the
+    logits' max."""
     plain = T.Transformer(dataclasses.replace(model.cfg,
                                               attn_impl=plain_impl),
                           device="meta")
     plain.load_state_dict(model.state_dict(), assign=True)
     err = 0.0
-    for pr in prompts:
-        batch = {"tokens": torch.as_tensor(pr, device="cuda")[None]}
+    for batch in batches:
         got, _ = T.prefill(model, batch, max_len)
         want, _ = T.prefill(plain, batch, max_len)
         err = max(err, float((got - want).abs().max()))
     return err, float(want.abs().max())
+
+
+def route_check(torch, T, model, model_spec, batches, max_len, failures,
+                what):
+    """The kernel route against ``model_spec``'s plain route on the
+    served weights and, where the route is gated in f32, on the arch's f32
+    weights from the same seed; a difference past ``ROUTE_ATOL`` goes to
+    ``failures``.  Returns ``(bf16 difference, f32 difference or
+    None)``."""
+    cfg, plain_impl = model.cfg, model_spec["plain_impl"]
+    route_err, scale = route_diff(torch, T, model, plain_impl, batches,
+                                  max_len)
+    route_dtype = model_spec["route_dtype"]
+    gated_err, limit = route_err, ROUTE_ATOL[route_dtype]
+    text = (f"{cfg.name}: kernel vs plain ({plain_impl}) route, "
+            f"last-position prefill logits of the {len(batches)} {what}, "
+            f"bf16 weights: max_abs_diff={route_err} (logits up to "
+            f"{scale:.3f})")
+    if route_dtype == "bfloat16":
+        text += f" within {limit}: {route_err <= limit}"
+        route_f32 = None
+    else:
+        f32 = T.Transformer(
+            dataclasses.replace(cfg, param_dtype=route_dtype), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(0))
+        route_f32, scale_f32 = route_diff(torch, T, f32, plain_impl, batches,
+                                          max_len)
+        del f32
+        torch.cuda.empty_cache()
+        gated_err = route_f32
+        text += (f" (not gated); f32 weights: max_abs_diff={route_f32} "
+                 f"(logits up to {scale_f32:.3f}) within {limit}: "
+                 f"{route_f32 <= limit}")
+    phase("serve routes", text)
+    if not gated_err <= limit:
+        failures.append(f"serve {cfg.name}: the kernel route differs from "
+                        f"the plain route by {gated_err} > {limit} "
+                        f"({route_dtype} weights, {what})")
+    return route_err, route_f32
 
 
 def inline_request(trace, reports, accs: str, engine: str,
@@ -1941,31 +2049,10 @@ def sweepd_flow(torch, np, ls, device, mm_case, ch_case, one_shot,
     return out
 
 
-def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
-               failures):
-    """Serve ``SERVE``'s traffic with ``model_spec``'s arch on the card at
-    full width; returns a summary with the launch counts of its kernels in
-    the served run (``wrappers``: each kernel's wrapper module by launch
-    key, whose ``LAUNCHES``, ``SHAPES`` and ``VARIANTS`` are set to 0 just
-    before the run and read just after).  Exits if a request is short or
-    the launch counts are off; a kernel route that disagrees with the
-    plain route, or a failed self-check, is appended to ``failures`` (the
-    script fails at its end) and the phase goes on, so that one run
-    measures everything."""
-    import dataclasses
-    specs = model_spec["kernels"]
-    kernels = [k["kernel"] for k in specs]
-    mods = [wrappers[k] for k in kernels]
-
-    def clear():
-        for mod in mods:
-            for counter in (mod.LAUNCHES, mod.SHAPES, mod.VARIANTS):
-                counter.clear()
-
-    def shapes_of(mod):
-        return {tuple(str(x) if isinstance(x, torch.dtype) else x
-                      for x in key): n for key, n in mod.SHAPES.items()}
-
+def build_model(torch, configs, T, model_spec):
+    """``model_spec``'s arch at its published width (its depth cut where
+    the spec says) on the card, weights from ``torch.Generator("cuda")``
+    seed 0; and the seconds that took."""
     cfg = configs.get_config(model_spec["arch"])
     if "n_layers" in model_spec:        # depth cut to fit the card
         cfg = dataclasses.replace(cfg, n_layers=model_spec["n_layers"])
@@ -1973,10 +2060,53 @@ def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
     model = T.Transformer(cfg, device="cuda",
                           generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    return model, time.perf_counter() - t0
+
+
+def kernel_counters(torch, wrappers, kernels):
+    """``(clear, read)`` of ``kernels``' counters (``wrappers``: each
+    kernel's wrapper module by launch key): ``clear()`` sets every
+    ``LAUNCHES``, ``SHAPES`` and ``VARIANTS`` to 0; ``read()`` returns the
+    launches, the launches by path shape key (dtypes as text) and by
+    kernel, each by launch key."""
+    mods = [wrappers[k] for k in kernels]
+
+    def clear():
+        for mod in mods:
+            for counter in (mod.LAUNCHES, mod.SHAPES, mod.VARIANTS):
+                counter.clear()
+
+    def read():
+        return ({k: mod.LAUNCHES[k] for k, mod in zip(kernels, mods)},
+                {k: {tuple(str(x) if isinstance(x, torch.dtype) else x
+                           for x in key): n
+                     for key, n in mod.SHAPES.items()}
+                 for k, mod in zip(kernels, mods)},
+                {k: dict(mod.VARIANTS) for k, mod in zip(kernels, mods)})
+
+    return clear, read
+
+
+def serve_flow(torch, np, T, engine, wrappers, model, init_s, model_spec,
+               failures):
+    """Serve ``SERVE``'s traffic through ``Engine.run`` with ``model``
+    (``model_spec``'s arch, built in ``init_s`` seconds); returns a summary
+    with the launch counts of its kernels in the served run (``wrappers``:
+    each kernel's wrapper module by launch key, whose ``LAUNCHES``,
+    ``SHAPES`` and ``VARIANTS`` are set to 0 just before the run and read
+    just after).  Exits if a request is short or the launch counts are
+    off; a kernel route that disagrees with the plain route, or a failed
+    self-check, is appended to ``failures`` (the script fails at its end)
+    and the phase goes on, so that one run measures everything."""
+    specs = model_spec["kernels"]
+    kernels = [k["kernel"] for k in specs]
+    clear, read = kernel_counters(torch, wrappers, kernels)
+    cfg = model.cfg
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=(SERVE["prompt_len"],),
                             dtype=np.int32) for _ in range(SERVE["requests"])]
+    batches = [{"tokens": torch.as_tensor(pr, device="cuda")[None]}
+               for pr in prompts]
     max_len = SERVE["prompt_len"] + SERVE["max_new"] + 1
     warm = engine.Engine(model, slots=1, max_len=max_len)    # lazy inits
     warm.submit(engine.Request(rid=-1, prompt=prompts[0], max_new=2))
@@ -1993,9 +2123,7 @@ def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: mod.LAUNCHES[k] for k, mod in zip(kernels, mods)}
-    shapes = {k: shapes_of(mod) for k, mod in zip(kernels, mods)}
-    variants = {k: dict(mod.VARIANTS) for k, mod in zip(kernels, mods)}
+    launches, shapes, variants = read()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = eng.stats
     served = sum(len(r.out) for r in done)
@@ -2015,7 +2143,7 @@ def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
         "shapes": {k: {str(key): n for key, n in by.items()}
                    for k, by in shapes.items()},
         "variants": variants,
-        "peak_mem_gb": peak_gb}
+        "peak_mem_gb": peak_gb, "prefill_key": "prefill_512"}
     phase("serve", json.dumps(summary))
     if len(done) != SERVE["requests"] or any(
             len(r.out) != SERVE["max_new"] for r in done):
@@ -2043,84 +2171,23 @@ def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
     torch.cuda.synchronize()
     done_e = eager.run()
     torch.cuda.synchronize()
-    same_tokens = ({r.rid: r.out for r in done}
-                   == {r.rid: r.out for r in done_e})
-    logits_diff = float((eng.last_logits.float()
-                         - eager.last_logits.float()).abs().max())
-    se = eager.stats
-    graphs_row = {
-        "arch": cfg.name, "decode_steps": st.decode_steps,
-        "graph_decode_ms_per_step": st.decode_s / st.decode_steps * 1e3,
-        "eager_decode_ms_per_step": se.decode_s / se.decode_steps * 1e3,
-        "graph_capture_s": st.capture_s,
-        "graph_cache": eng.compile_cache.as_dict(),
-        "same_tokens": same_tokens,
-        "last_step_logits_max_abs_diff": logits_diff,
-        "ok": same_tokens and logits_diff == 0.0}
-    phase("serve graphs", json.dumps(graphs_row))
-    if not same_tokens:
-        failures.append(f"serve {cfg.name}: the captured decode step "
-                        f"served other tokens than the eager one")
-    if logits_diff != 0.0:
-        failures.append(f"serve {cfg.name}: the captured decode step's "
-                        f"last logits differ from the eager step's by "
-                        f"{logits_diff}")
+    graphs_row = graphs_check(cfg.name, eng, done, eager, done_e, failures)
     del eager, done_e
 
-    # the kernel route against the plain route, on the served weights and,
-    # where the route is gated in f32, on the arch's f32 weights
-    route_err, scale = route_diff(torch, T, model, model_spec["plain_impl"],
-                                  prompts, max_len)
-    route_dtype = model_spec["route_dtype"]
-    gated_err, limit = route_err, ROUTE_ATOL[route_dtype]
-    text = (f"{cfg.name}: kernel vs plain ({model_spec['plain_impl']}) "
-            f"route, last-position prefill logits of the {len(prompts)} "
-            f"prompts, bf16 weights: max_abs_diff={route_err} (logits up to "
-            f"{scale:.3f})")
-    if route_dtype == "bfloat16":
-        text += f" within {limit}: {route_err <= limit}"
-        route_f32 = None
-    else:
-        f32 = T.Transformer(
-            dataclasses.replace(cfg, param_dtype=route_dtype), device="cuda",
-            generator=torch.Generator("cuda").manual_seed(0))
-        route_f32, scale_f32 = route_diff(
-            torch, T, f32, model_spec["plain_impl"], prompts, max_len)
-        del f32
-        torch.cuda.empty_cache()
-        gated_err = route_f32
-        text += (f" (not gated); f32 weights: max_abs_diff={route_f32} "
-                 f"(logits up to {scale_f32:.3f}) within {limit}: "
-                 f"{route_f32 <= limit}")
-    phase("serve routes", text)
-    if not gated_err <= limit:
-        failures.append(f"serve {cfg.name}: the kernel route differs from "
-                        f"the plain route by {gated_err} > {limit} "
-                        f"({route_dtype} weights)")
+    route_err, route_f32 = route_check(torch, T, model, model_spec, batches,
+                                       max_len, failures, "prompts")
 
     # examples/serve_e2e.py's self-check, one teacher-forced forward each;
     # an MoE arch's forward is another function (see teacher_forced), so
     # its gate is the incremental recomputation and the forward is printed
     moe = has_moe(model)
-    clear()
-    worst_gap, exact = teacher_forced(torch, np, T, model, done, max_len,
-                                      incremental=moe)
-    check_launches = {k: shapes_of(mod) for k, mod in zip(kernels, mods)}
     t_fwd = SERVE["prompt_len"] + SERVE["max_new"] - 1
     how = (f"each prompt prefilled alone, then {SERVE['max_new'] - 1} "
            f"teacher-forced decode steps at batch 1, eager" if moe else
            f"teacher-forced forward (T={t_fwd}, padded by kernels.ops)")
-    phase("serve self-check", f"{cfg.name}: {how} (launches "
-          f"{check_launches}): {exact}/{served} served tokens are its "
-          f"argmax, the worst is {worst_gap} below its position's maximum, "
-          f"within {SELFCHECK_TOL}: {worst_gap <= SELFCHECK_TOL}")
-    missing = [k for k, by in check_launches.items() if not by]
-    if missing:
-        raise SystemExit(f"serve {cfg.name}: the self-check's forward "
-                         f"launched no {', '.join(missing)}")
-    if not worst_gap <= SELFCHECK_TOL:
-        failures.append(f"serve {cfg.name}: a served token is {worst_gap} "
-                        f"below its position's maximum > {SELFCHECK_TOL}")
+    worst_gap, exact, check_launches = self_check(
+        torch, np, T, model, done, max_len, clear, read, failures, how,
+        incremental=moe)
     forward_gap = None
     if moe:
         forward_gap, forward_exact = teacher_forced(torch, np, T, model, done,
@@ -2142,11 +2209,245 @@ def serve_flow(torch, np, configs, T, engine, wrappers, model_spec,
                    selfcheck_launches={
                        k: {str(key): n for key, n in by.items()}
                        for k, by in check_launches.items()},
-                   profile=profile_serve(torch, engine, model, prompts,
-                                         max_len, kernels, eng))
+                   profile=profile_serve(torch, engine, model, batches,
+                                         max_len, kernels, eng,
+                                         "prefill_512"))
     if moe:
         summary["moe_profile"] = profile_moe(torch, T, model, summary)
     return summary
+
+
+def fused_requests(torch, np, cfg, key, prompt_len):
+    """``SERVE``'s requests for an arch whose prefill takes ``key``
+    (``"patches"`` or ``"frames"``): ``(prompt, prefill batch)`` pairs,
+    the prompts :func:`serve_flow` draws (numpy seed 0) at ``prompt_len``,
+    each batch with its own standard-normal rows ``(1, patch_tokens or
+    encoder_seq, d_model)`` in the weights' type, drawn on the card from
+    ``torch.Generator("cuda")`` seed 1 (a conv or ViT frontend's output:
+    the JAX package stubs both)."""
+    rng = np.random.default_rng(0)
+    gen = torch.Generator("cuda").manual_seed(1)
+    rows = cfg.patch_tokens if key == "patches" else cfg.encoder_seq
+    out = []
+    for _ in range(SERVE["requests"]):
+        prompt = rng.integers(0, cfg.vocab, size=(prompt_len,),
+                              dtype=np.int32)
+        extra = torch.randn((1, rows, cfg.d_model), device="cuda",
+                            generator=gen).to(cfg.dtype)
+        out.append((prompt, {"tokens": torch.as_tensor(
+            prompt, device="cuda")[None], key: extra}))
+    return out
+
+
+def fused_serve(torch, engine, model, requests, max_len, *, graphs):
+    """``Engine.run``'s batching of ``requests`` (:func:`fused_requests`)
+    through the step entry points: each prefilled alone by
+    ``make_prefill_step`` with its patches or frames, then ``slots`` at a
+    time decoded in lock-step by the engine's decode runner (captured
+    unless ``graphs`` is false) from ``positions + 1``.  Returns the
+    served ``Request``s and the ``Engine``, whose ``stats`` and
+    ``last_logits`` count the run as ``Engine.run`` counts its own
+    (``prefill_tokens``: the prompts' tokens)."""
+    eng = engine.Engine(model, slots=SERVE["slots"], max_len=max_len,
+                        graphs=graphs)
+    prefill = engine.make_prefill_step(model, max_len)
+    st = eng.stats
+    done = []
+    for b0 in range(0, len(requests), eng.slots):
+        active, caches, toks = [], [], []
+        for rid in range(b0, min(b0 + eng.slots, len(requests))):
+            prompt, batch = requests[rid]
+            t0 = time.perf_counter()
+            tok, cache = prefill(batch)
+            active.append(engine.Request(rid=rid, prompt=prompt,
+                                         max_new=SERVE["max_new"],
+                                         out=[int(tok[0, 0])]))
+            st.prefill_s += time.perf_counter() - t0
+            st.prefill_tokens += len(prompt)
+            caches.append(cache)
+            toks.append(tok)
+        t0 = time.perf_counter()
+        runner = eng.decoder(len(active))
+        st.capture_s += time.perf_counter() - t0
+        runner.load(caches, torch.cat(toks), max(
+            positions(requests[r.rid][1]) for r in active) + 1)
+        for _ in range(SERVE["max_new"] - 1):
+            t0 = time.perf_counter()
+            host = runner.step()[:, 0].tolist()
+            st.decode_s += time.perf_counter() - t0
+            st.decode_steps += 1
+            for r, tok in zip(active, host):
+                r.out.append(tok)
+        eng.last_logits = runner.logits.clone()
+        done += active
+    return done, eng
+
+
+def fused_flow(torch, np, T, engine, wrappers, model, init_s, model_spec,
+               failures):
+    """Serve ``SERVE``'s requests with ``model`` (``model_spec``'s arch),
+    each with its seeded patches or frames (``model_spec["fused"]``),
+    through the step entry points (:func:`fused_serve`), with the flash
+    counts set to 0 just before the served run and read just after: every
+    launch at the fused path shape, on its kernel, one a layer a request,
+    and none elsewhere (for whisper: none at the encoder's 1500 frames),
+    else the script exits.  Then :func:`serve_flow`'s checks: the eager
+    decode step serves the same tokens and last logits, the kernel route
+    against the plain one, the teacher-forced self-check (the forward with
+    each request's patches or frames), and a profile; for whisper also
+    the encoder's time a request apart from the whole prefill's.  Returns
+    a summary."""
+    fused = model_spec["fused"]
+    key, path_key = fused["input"], fused["path_key"]
+    spec = model_spec["kernels"][0]
+    kernel = spec["kernel"]
+    clear, read = kernel_counters(torch, wrappers, [kernel])
+    cfg = model.cfg
+    requests = fused_requests(torch, np, cfg, key, fused["prompt_len"])
+    batches = [batch for _, batch in requests]
+    n_pos = positions(batches[0])
+    max_len = n_pos + SERVE["max_new"] + 1
+    prefill = engine.make_prefill_step(model, max_len)
+    prefill(batches[0])                     # lazy inits at this shape
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    clear()
+    t0 = time.perf_counter()
+    done, eng = fused_serve(torch, engine, model, requests, max_len,
+                            graphs=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, shapes, variants = read()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    served = sum(len(r.out) for r in done)
+    want = SERVE["requests"] * cfg.n_layers
+    at_encoder = sum(n for k, n in shapes[kernel].items()
+                     if cfg.is_enc_dec and k[2] == cfg.encoder_seq)
+    summary = {
+        "arch": cfg.name, "input": key, "params": model.param_count(),
+        "dtype": str(cfg.dtype), "attn_impl": cfg.attn_impl,
+        "init_s": init_s, "requests": len(done), "served_tokens": served,
+        "positions_a_prefill": n_pos, "wall_s": wall,
+        "prefill_tokens": st.prefill_tokens, "prefill_s": st.prefill_s,
+        "prefill_tok_per_s": st.prefill_tokens / st.prefill_s,
+        "prefill_positions_per_s": len(done) * n_pos / st.prefill_s,
+        "decode_steps": st.decode_steps, "decode_s": st.decode_s,
+        "decode_ms_per_step": st.decode_s / st.decode_steps * 1e3,
+        "decode_tok_per_s": st.decode_steps * SERVE["slots"] / st.decode_s,
+        "decode_capture_s": st.capture_s,
+        "graph_cache": eng.compile_cache.as_dict(),
+        "kernels": [kernel], "launches": launches,
+        "shapes": {k: {str(sh): n for sh, n in by.items()}
+                   for k, by in shapes.items()},
+        "variants": variants, "launches_at_encoder_seq": at_encoder,
+        "peak_mem_gb": peak_gb, "prefill_key": f"prefill_{key}_{n_pos}"}
+    if cfg.is_enc_dec:
+        enc_ms = time_ms(lambda: T._encoder_kv(model, batches[0]), 8)
+        prefill_ms = time_ms(lambda: prefill(batches[0]), 8)
+        summary.update(encoder_ms_a_request=enc_ms,
+                       prefill_ms_a_request=prefill_ms,
+                       decoder_prefill_ms_a_request=prefill_ms - enc_ms)
+    phase("serve fused", json.dumps(summary))
+    if len(done) != SERVE["requests"] or any(
+            len(r.out) != SERVE["max_new"] for r in done):
+        raise SystemExit(f"serve {cfg.name} with {key}: a request was not "
+                         f"served in full")
+    if launches[kernel] != want or shapes[kernel] != {path_key: want}:
+        raise SystemExit(f"serve {cfg.name} with {key}: {launches[kernel]} "
+                         f"{kernel} launches ({shapes[kernel]}), expected "
+                         f"{want}, all at {path_key}")
+    if variants[kernel] != {spec["variant"]: want}:
+        raise SystemExit(f"serve {cfg.name} with {key}: {kernel} launches "
+                         f"by kernel {variants[kernel]}, expected all {want} "
+                         f"on {spec['variant']}")
+
+    done_e, eager = fused_serve(torch, engine, model, requests, max_len,
+                                graphs=False)
+    torch.cuda.synchronize()
+    graphs_row = graphs_check(f"{cfg.name} with {key}", eng, done, eager,
+                              done_e, failures)
+    del eager, done_e
+    route_err, route_f32 = route_check(torch, T, model, model_spec, batches,
+                                       max_len, failures,
+                                       f"prompts with their {key}")
+    t_fwd = fused["prompt_len"] + SERVE["max_new"] - 1
+    worst_gap, exact, check_launches = self_check(
+        torch, np, T, model, done, max_len, clear, read, failures,
+        f"teacher-forced forward with the {key} (T={t_fwd} tokens, "
+        f"{positions(batches[0]) - fused['prompt_len'] + t_fwd} positions, "
+        f"padded by kernels.ops)", incremental=False,
+        extras=[{key: batch[key]} for batch in batches])
+    summary.update(graphs=graphs_row, route_max_abs_diff=route_err,
+                   route_f32_max_abs_diff=route_f32,
+                   selfcheck_worst_gap=worst_gap,
+                   selfcheck_argmax_equal=exact,
+                   selfcheck_launches={
+                       k: {str(sh): n for sh, n in by.items()}
+                       for k, by in check_launches.items()},
+                   profile=profile_serve(torch, engine, model, batches,
+                                         max_len, [kernel], eng,
+                                         summary["prefill_key"]))
+    return summary
+
+
+def graphs_check(name, eng, done, eager, done_e, failures):
+    """The captured decode step (``eng``, which served ``done``) against
+    the eager one (``eager``, ``done_e``) in the same call: the same
+    tokens and the same last-step logits, else ``failures``; prints and
+    returns the ``[serve graphs]`` row."""
+    st, se = eng.stats, eager.stats
+    same_tokens = ({r.rid: r.out for r in done}
+                   == {r.rid: r.out for r in done_e})
+    logits_diff = float((eng.last_logits.float()
+                         - eager.last_logits.float()).abs().max())
+    row = {
+        "arch": name, "decode_steps": st.decode_steps,
+        "graph_decode_ms_per_step": st.decode_s / st.decode_steps * 1e3,
+        "eager_decode_ms_per_step": se.decode_s / se.decode_steps * 1e3,
+        "graph_capture_s": st.capture_s,
+        "graph_cache": eng.compile_cache.as_dict(),
+        "same_tokens": same_tokens,
+        "last_step_logits_max_abs_diff": logits_diff,
+        "ok": same_tokens and logits_diff == 0.0}
+    phase("serve graphs", json.dumps(row))
+    if not same_tokens:
+        failures.append(f"serve {name}: the captured decode step served "
+                        f"other tokens than the eager one")
+    if logits_diff != 0.0:
+        failures.append(f"serve {name}: the captured decode step's last "
+                        f"logits differ from the eager step's by "
+                        f"{logits_diff}")
+    return row
+
+
+def self_check(torch, np, T, model, done, max_len, clear, read, failures,
+               how, *, incremental, extras=None):
+    """``examples/serve_e2e.py``'s self-check of the served ``done`` by
+    :func:`teacher_forced`, with the kernel counters (``clear``/``read``
+    of :func:`kernel_counters`) set to 0 just before and read just after:
+    exits if the check launched none of the kernels; a served token
+    further than ``SELFCHECK_TOL`` below its position's maximum goes to
+    ``failures``.  Returns ``(worst gap, argmax count, launches by path
+    shape key)``."""
+    cfg = model.cfg
+    clear()
+    worst_gap, exact = teacher_forced(torch, np, T, model, done, max_len,
+                                      incremental=incremental, extras=extras)
+    _, check_launches, _ = read()
+    served = sum(len(r.out) for r in done)
+    phase("serve self-check", f"{cfg.name}: {how} (launches "
+          f"{check_launches}): {exact}/{served} served tokens are its "
+          f"argmax, the worst is {worst_gap} below its position's maximum, "
+          f"within {SELFCHECK_TOL}: {worst_gap <= SELFCHECK_TOL}")
+    missing = [k for k, by in check_launches.items() if not by]
+    if missing:
+        raise SystemExit(f"serve {cfg.name}: the self-check's forward "
+                         f"launched no {', '.join(missing)}")
+    if not worst_gap <= SELFCHECK_TOL:
+        failures.append(f"serve {cfg.name}: a served token is {worst_gap} "
+                        f"below its position's maximum > {SELFCHECK_TOL}")
+    return worst_gap, exact, check_launches
 
 
 def has_moe(model) -> bool:
@@ -2160,13 +2461,16 @@ def snap_group(cfg, n_tok: int) -> int:
     return snap_group_size(n_tok, cfg.moe_group_size)
 
 
-def teacher_forced(torch, np, T, model, done, max_len, *, incremental):
+def teacher_forced(torch, np, T, model, done, max_len, *, incremental,
+                   extras=None):
     """The served tokens of ``done`` against the logits each position
     gets with the served sequence fed back: ``(worst gap below the
     position's maximum, how many are the argmax)``.
 
     ``incremental=False`` is ``examples/serve_e2e.py``'s check, one
-    ``forward`` over each served sequence.  For an MoE that is another
+    ``forward`` over each served sequence (with request ``rid``'s patches
+    or frames, ``extras[rid]``, in its batch: the forward returns the text
+    positions' logits).  For an MoE that is another
     function than the served one: the forward dispatches the sequence in
     other groups, whose capacity drops other (token, choice) pairs (with
     random weights the router is far from balanced: PERF.md §7).  So
@@ -2190,8 +2494,9 @@ def teacher_forced(torch, np, T, model, done, max_len, *, incremental):
             pos = torch.stack(rows)
         else:
             seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
-            logits, _ = T.forward(model, {"tokens": torch.as_tensor(
-                seq, device="cuda")[None]})
+            logits, _ = T.forward(model, {
+                "tokens": torch.as_tensor(seq, device="cuda")[None],
+                **(extras[r.rid] if extras else {})})
             pos = logits[0, len(r.prompt) - 1:]
         picked = pos.gather(1, torch.as_tensor(r.out, device="cuda")[:, None])
         gaps = pos.amax(1) - picked[:, 0]
@@ -2248,33 +2553,38 @@ def profile_moe(torch, T, model, served):
     return out
 
 
-def profile_serve(torch, engine, model, prompts, max_len, kernels, eng):
-    """Where one 512-token prefill and one batch-4 decode step spend their
-    time on the card: each run once unprofiled (host wall, ending in a
-    synchronise) and once under ``torch.profiler`` (device time, kernel
-    count, the costliest host operations and device kernels, and the
-    device time and share of the rows whose name holds each of
-    ``kernels``, and of all of them); the decode step also as one replay
-    of ``eng``'s captured graph."""
+def positions(batch) -> int:
+    """The positions a prefill batch fills: its patches and its tokens."""
+    return sum(batch[k].shape[1] for k in ("patches", "tokens")
+               if k in batch)
+
+
+def profile_serve(torch, engine, model, batches, max_len, kernels, eng,
+                  prefill_key):
+    """Where one prefill (of ``batches[0]``, named ``prefill_key``) and
+    one batch-4 decode step spend their time on the card: each run once
+    unprofiled (host wall, ending in a synchronise) and once under
+    ``torch.profiler`` (device time, kernel count, the costliest host
+    operations and device kernels, and the device time and share of the
+    rows whose name holds each of ``kernels``, and of all of them); the
+    decode step also as one replay of ``eng``'s captured graph."""
     from torch.profiler import ProfilerActivity, profile
     prefill = engine.make_prefill_step(model, max_len)
     step = engine.make_serve_step(model)
     caches, toks = [], []
-    for pr in prompts[:SERVE["slots"]]:
-        tok, cache = prefill({"tokens": torch.as_tensor(
-            pr, device="cuda")[None]})
+    for batch in batches[:SERVE["slots"]]:
+        tok, cache = prefill(batch)
         caches.append(cache)
         toks.append(tok)
     cache = [{name: torch.cat([c[layer][name] for c in caches])
               for name in caches[0][layer]}
              for layer in range(len(caches[0]))]
     toks = torch.cat(toks)
-    batch = {"tokens": torch.as_tensor(prompts[0], device="cuda")[None]}
+    length = positions(batches[0]) + 1
     runner = eng.decoder(SERVE["slots"])
-    runner.load(caches, toks, SERVE["prompt_len"] + 1)
-    runs = {"prefill_512": lambda: prefill(batch),
-            "decode_step_b4": lambda: step(toks, cache,
-                                           SERVE["prompt_len"] + 1),
+    runner.load(caches, toks, length)
+    runs = {prefill_key: lambda: prefill(batches[0]),
+            "decode_step_b4": lambda: step(toks, cache, length),
             "decode_step_b4_graph": runner.step}
     out = {}
     for name, fn in runs.items():
@@ -2451,7 +2761,7 @@ def path_row(row, served, kernel):
     keys = ("shape", "dtype", "ms", "kernel_only_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "device_us", "queued_us")
     return {"arch": served["arch"], "launches": served["launches"][kernel],
-            "prefill_device_share": served["profile"]["prefill_512"][
+            "prefill_device_share": served["profile"][served["prefill_key"]][
                 "kernel_device_share_by_kernel"][kernel],
             **{key: row[key] for key in keys}}
 
@@ -2756,24 +3066,41 @@ def main() -> int:
     rows = time_tiles(torch, cases, tile_errs)
 
     # 12. the LM serve path at full width, qwen3-0.6b, rwkv6-1.6b,
-    # zamba2-1.2b, then mixtral-8x22b at 4 of its 56 layers (each model
-    # freed before the next is built); each kernel's counts of its served
-    # run
+    # zamba2-1.2b, mixtral-8x22b at 4 of its 56 layers, pixtral-12b (text
+    # only through Engine.run, then with its patches) and whisper-tiny
+    # (with its frames), each model freed before the next is built; each
+    # kernel's counts of each served run
     wrappers = {"flash_attention": fa, "linear_attn": la}
 
     def served(spec):
+        """``(Engine.run's summary or None, the fused run's or None)``."""
         t0 = time.perf_counter()
-        out = serve_flow(torch, np, configs, T, engine, wrappers, spec,
-                         failures)
+        model, init_s = build_model(torch, configs, T, spec)
+        out = [None, None]
+        if spec.get("engine_run", True):
+            out[0] = serve_flow(torch, np, T, engine, wrappers, model, init_s,
+                                spec, failures)
+        if "fused" in spec:
+            out[1] = fused_flow(torch, np, T, engine, wrappers, model,
+                                init_s, spec, failures)
+        del model
         gc.collect()
         torch.cuda.empty_cache()
-        out["n_layers"] = spec.get("n_layers")
-        out["phase_s"] = time.perf_counter() - t0
-        phase("serve seconds", f"{spec['arch']}: {out['phase_s']:.1f} s")
+        for summary in out:
+            if summary is not None:
+                summary["n_layers"] = spec.get("n_layers")
+        phase("serve seconds", f"{spec['arch']}: "
+              f"{time.perf_counter() - t0:.1f} s")
         return out
 
-    serve, serve_rwkv, serve_zamba, serve_mixtral = [
+    ((serve, _), (serve_rwkv, _), (serve_zamba, _), (serve_mixtral, _),
+     (serve_pixtral, serve_pixtral_fused), (_, serve_whisper)) = [
         served(spec) for spec in SERVE_MODELS]
+    flash_served = {"qwen3-0.6b": serve, "zamba2-1.2b": serve_zamba,
+                    "mixtral-8x22b": serve_mixtral,
+                    "pixtral-12b": serve_pixtral,
+                    "pixtral-12b+patches": serve_pixtral_fused,
+                    "whisper-tiny+frames": serve_whisper}
 
     # 12b. the cost model against this call's measured device times, and
     # the step estimator's prediction of mixtral's prefill
@@ -2789,26 +3116,23 @@ def main() -> int:
 
     # 13. the flash and linear-attention kernels' times at the path shapes
     frow = time_flash(torch, F, fa, ref, fcases[0])
-    frow_z = time_flash(torch, F, fa, ref, next(
-        c for c in fcases if c["label"] == "zamba2_path"))
-    frow_m = time_flash(torch, F, fa, ref, next(
-        c for c in fcases if c["label"] == "mixtral_path"))
+    frows = {label: time_flash(torch, F, fa, ref, next(
+        c for c in fcases if c["label"] == label))
+        for label in ("zamba2_path", "mixtral_path", "pixtral_path",
+                      "pixtral_fused", "whisper_path")}
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
-        "launches": serve["launches"]["flash_attention"]
-        + serve_zamba["launches"]["flash_attention"]
-        + serve_mixtral["launches"]["flash_attention"],
+        "launches": sum(run["launches"]["flash_attention"]
+                        for run in flash_served.values()),
         "launches_by_path": {
-            "qwen3-0.6b": serve["launches"]["flash_attention"],
-            "zamba2-1.2b": serve_zamba["launches"]["flash_attention"],
-            "mixtral-8x22b": serve_mixtral["launches"]["flash_attention"]},
+            path: run["launches"]["flash_attention"]
+            for path, run in flash_served.items()},
         "launches_by_kernel": {
-            "qwen3-0.6b": serve["variants"]["flash_attention"],
-            "zamba2-1.2b": serve_zamba["variants"]["flash_attention"],
-            "mixtral-8x22b": serve_mixtral["variants"]["flash_attention"]},
+            path: run["variants"]["flash_attention"]
+            for path, run in flash_served.items()},
         "max_abs_err": flash_errs["path"],
         "ms": frow["ms"], "plain_ms": frow["plain_ms"],
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
@@ -2824,13 +3148,18 @@ def main() -> int:
         "wgmma_ptxas": ptxas_summary(wg_info["ptxas"]),
         "timed_shape": frow["shape"], "timed_dtype": frow["dtype"],
         "library_call": frow["library_call"],
-        "launches_by_shape": {**serve["shapes"]["flash_attention"],
-                              **serve_zamba["shapes"]["flash_attention"],
-                              **serve_mixtral["shapes"]["flash_attention"]},
+        "launches_by_shape": {
+            shape: n for run in flash_served.values()
+            for shape, n in run["shapes"]["flash_attention"].items()},
         "max_abs_err_by_case": {**flash_errs, **route_errs},
-        "path_shapes": [path_row(frow, serve, "flash_attention"),
-                        path_row(frow_z, serve_zamba, "flash_attention"),
-                        path_row(frow_m, serve_mixtral, "flash_attention")],
+        "path_shapes": [
+            path_row(frow, serve, "flash_attention"),
+            *(path_row(frows[label], run, "flash_attention")
+              for label, run in (("zamba2_path", serve_zamba),
+                                 ("mixtral_path", serve_mixtral),
+                                 ("pixtral_path", serve_pixtral),
+                                 ("pixtral_fused", serve_pixtral_fused),
+                                 ("whisper_path", serve_whisper)))],
     }
     lrow = time_linear(torch, la, ref, lcases[0])
     lrow32 = time_linear(torch, la, ref,

@@ -93,20 +93,32 @@ def import_lm_params(cfg: ModelConfig,
     ``blocks{i}`` becomes layer ``p * len(cfg.pattern) + i``; an MoE
     layer's ``moe`` (``router.w``, the stacked experts ``gate``/``up``
     ``(E, d, ff)`` and ``down`` ``(E, ff, d)``) and ``shared_mlp`` carry
-    under the same names.  Each leaf keeps its type (Mamba2's f32
-    ``a_log``, ``dt_bias`` and ``d_skip``, and the MoE router's f32
-    ``w``, in a bf16 model).  Load the result with
-    ``Transformer(cfg).load_state_dict``."""
+    under the same names.  whisper's ``encoder.blocks`` (stacked over
+    ``encoder_layers``) become ``encoder.layers.{n}``, ``encoder.norm``
+    stays, and ``cross`` (stacked over the periods) becomes
+    ``cross.{p}``.  Each leaf keeps its type (Mamba2's f32 ``a_log``,
+    ``dt_bias`` and ``d_skip``, and the MoE router's f32 ``w``, in a bf16
+    model).  Load the result with ``Transformer(cfg).load_state_dict``."""
     n_pat = len(cfg.pattern)
     state: Dict[str, torch.Tensor] = {}
-    for key, sub in params.items():
-        if not key.startswith("blocks"):
-            state.update({name: _tensor(a)
-                          for name, a in _flatten({key: sub}, "").items()})
-            continue
-        i = int(key[len("blocks"):])
-        for name, stacked in _flatten(sub, "").items():
+
+    def unstack(tree: Mapping[str, Any], prefix: str, index) -> None:
+        for name, stacked in _flatten(tree, "").items():
             stacked = np.asarray(stacked)
             for p in range(stacked.shape[0]):
-                state[f"layers.{p * n_pat + i}.{name}"] = _tensor(stacked[p])
+                state[f"{prefix}.{index(p)}.{name}"] = _tensor(stacked[p])
+
+    for key, sub in params.items():
+        if key.startswith("blocks"):
+            i = int(key[len("blocks"):])
+            unstack(sub, "layers", lambda p, i=i: p * n_pat + i)
+        elif key == "cross":
+            unstack(sub, "cross", lambda p: p)
+        elif key == "encoder":
+            unstack(sub["blocks"], "encoder.layers", lambda p: p)
+            state.update({name: _tensor(a) for name, a in _flatten(
+                {"norm": sub["norm"]}, "encoder.").items()})
+        else:
+            state.update({name: _tensor(a)
+                          for name, a in _flatten({key: sub}, "").items()})
     return state

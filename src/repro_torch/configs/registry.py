@@ -74,8 +74,7 @@ def get_arch(arch_id: str) -> Arch:
         _load_all()
     if arch_id not in _REGISTRY:
         raise KeyError(f"{arch_id!r} is not ported (the port has "
-                       f"{', '.join(arch_ids())}; the others wait in "
-                       f"ROADMAP)")
+                       f"{', '.join(arch_ids())}, as the JAX package has)")
     return _REGISTRY[arch_id]
 
 
@@ -96,14 +95,25 @@ def arch_ids() -> Tuple[str, ...]:
 def smoke_batch(cfg: ModelConfig, batch: int = 2, seq: int = 32,
                 train: bool = True, seed: int = 0,
                 device=None) -> Dict[str, torch.Tensor]:
-    """A concrete small batch of int32 tokens (and labels when ``train``)
-    drawn from a CPU ``torch.Generator`` seeded with ``seed``, so every
-    device gets the same tokens."""
+    """A concrete small batch with the JAX package's keys, drawn from a
+    CPU ``torch.Generator`` seeded with ``seed``, so every device gets the
+    same values: int32 ``tokens`` ``(batch, seq - patch_tokens)``; with
+    ``patch_tokens``, ``patches`` ``(batch, patch_tokens, d_model)``; for
+    an encoder-decoder, ``frames`` ``(batch, encoder_seq, d_model)`` (both
+    standard normal in the weights' type); and ``labels`` like ``tokens``
+    when ``train``."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
-                                   dtype=torch.int32)}
+    t_text = seq - (cfg.patch_tokens or 0)
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, t_text),
+                                   generator=gen, dtype=torch.int32)}
+    if cfg.patch_tokens:
+        out["patches"] = torch.randn((batch, cfg.patch_tokens, cfg.d_model),
+                                     generator=gen).to(cfg.dtype)
+    if cfg.is_enc_dec:
+        out["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                                    generator=gen).to(cfg.dtype)
     if train:
-        out["labels"] = torch.randint(0, cfg.vocab, (batch, seq),
+        out["labels"] = torch.randint(0, cfg.vocab, (batch, t_text),
                                       generator=gen, dtype=torch.int32)
     return {k: v.to(device) for k, v in out.items()}

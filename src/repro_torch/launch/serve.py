@@ -3,8 +3,10 @@
 Batched serving of a smoke-sized model with weights drawn from seed 0:
 prefill per request, lock-step batched greedy decode over fixed slots.
 Runs on the card unless ``--device cpu`` is given; ``--arch`` is any
-ported arch (the four dense ones, ``mixtral-8x22b``,
-``llama4-maverick-400b-a17b``, ``rwkv6-1.6b`` or ``zamba2-1.2b``).  The
+arch whose prefill takes tokens alone (the four dense ones,
+``mixtral-8x22b``, ``llama4-maverick-400b-a17b``, ``rwkv6-1.6b``,
+``zamba2-1.2b``, or ``pixtral-12b`` text-only; whisper's prefill needs
+``frames``, which the engine does not feed, as in the JAX package).  The
 route is the config's ``attn_impl`` (``"kernel"``: the flash kernel for
 attention, the MoE archs' included, and zamba2's shared block, and the
 linear-attention kernel for the prefill of RWKV6 and Mamba2, on the card;

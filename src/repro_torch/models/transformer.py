@@ -1,5 +1,7 @@
-"""Model assembly for the dense attention LMs, the MoE LMs (mixtral,
-llama4), RWKV6 and zamba2 (Mamba2 with a weight-shared attention block),
+"""Model assembly for every architecture of the JAX package — the dense
+attention LMs, the MoE LMs (mixtral, llama4), RWKV6, zamba2 (Mamba2 with
+a weight-shared attention block), whisper (an encoder-decoder with
+cross-attention) and pixtral (patch embeddings fused before the text) —
 and their serving paths.
 
 :class:`ModelConfig` and :class:`BlockSpec` are the JAX package's
@@ -16,24 +18,27 @@ layer ``period * len(pattern) + i`` is the JAX package's stacked
 ``shared`` attention block, applied after every segment of
 ``shared_every`` layers that :meth:`ModelConfig.segments` marks, with
 the same weights at each of its ``n_shared_sites`` sites
-(``_walk_stack``).  :func:`forward`, :func:`prefill`, :func:`decode_step`
-and :func:`init_cache` are the train and serving paths of
+(``_walk_stack``).  With ``encoder_layers`` (whisper) it holds the
+:class:`Encoder` and one :class:`CrossAttention` a period (``cross``),
+applied after that period's pattern elements against the encoder's k/v.
+:func:`forward`, :func:`prefill`, :func:`decode_step` and
+:func:`init_cache` are the train and serving paths of
 ``transformer.py:513-586``, taking the model where the JAX functions
-take ``(cfg, params)``.
+take ``(cfg, params)``; a batch carries ``tokens`` and, for pixtral,
+``patches`` (prepended to the token embeddings: positions run over the
+fused sequence, and :func:`forward` returns the text positions' logits)
+or, for whisper, ``frames`` (the encoder's input).
 
 A cache is a list of dicts: entry ``n < n_layers`` is layer ``n``'s —
 ``{k, v}`` ``(B, max_len, Hkv, hd)`` for an attention layer, ``{wkv,
-shift1, shift2}`` for RWKV6, ``{ssm, conv}`` for Mamba2 — and entry
+shift1, shift2}`` for RWKV6, ``{ssm, conv}`` for Mamba2 — entry
 ``n_layers + s`` is shared site ``s``'s ``{k, v}`` (the JAX package's
-``cache["shared"][s]``).  Decode updates every entry in place.
-
-The port carries the dense attention blocks (``kind="attn"``), the MoE
-blocks (``kind="moe_attn"``: attention, then the routed experts of
-:mod:`.moe` and, with ``shared_expert``, a shared MLP beside them),
-RWKV6 (``kind="rwkv6"``), Mamba2 (``kind="mamba2"``) and the shared
-block; encoder-decoder and patch-token configs raise
-``NotImplementedError`` when a model is built.  :func:`forward` returns
-the MoE layers' auxiliary losses summed, as the JAX package's does.
+``cache["shared"][s]``), and entry ``n_layers + n_shared_sites + p`` is
+period ``p``'s cross-attention ``{k, v}`` ``(B, encoder_seq, Hkv, hd)``
+over the encoder's output (``cache["enc_kv"]``).  Decode updates every
+entry in place except the cross-attention entries, which it only reads.
+:func:`forward` returns the MoE layers' auxiliary losses summed, as the
+JAX package's does.
 """
 from __future__ import annotations
 
@@ -44,15 +49,12 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from .attention import Attention, Cache
+from .attention import Attention, Cache, attention_chunked
 from .layers import (MLP, Dense, Embedding, RMSNorm, resolve_device,
                      resolve_dtype, softcap)
 from .linear_blocks import (RWKV6, Mamba2, mamba2_state_init,
                             rwkv6_state_init)
 from .moe import MoE, moe_apply
-
-#: The block kinds the port builds.
-PORTED_KINDS = ("attn", "moe_attn", "rwkv6", "mamba2")
 
 #: Mamba2's head width: the JAX package's ``mamba2_init`` /
 #: ``mamba2_block`` default, which its model never overrides (so it is not
@@ -159,6 +161,10 @@ class ModelConfig:
         return out
 
     @property
+    def is_enc_dec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
     def dtype(self) -> torch.dtype:
         return resolve_dtype(self.param_dtype)
 
@@ -181,22 +187,6 @@ class ModelConfig:
         return total - routed + active
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice leaves out."""
-    left_out = [f"{s.kind} blocks" for s in cfg.pattern
-                if s.kind not in PORTED_KINDS]
-    if cfg.encoder_layers:
-        left_out.append("the encoder-decoder stack (encoder_layers)")
-    if cfg.patch_tokens:
-        left_out.append("patch-token frontends (patch_tokens)")
-    if left_out:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves dense attention, MoE, RWKV6 and "
-            f"zamba2 models only; "
-            f"{', '.join(sorted(set(left_out)))} are still to port "
-            f"(ROADMAP 'Open items', items 1.4–1.7)")
-
-
 # --------------------------------------------------------------------------
 # Modules
 # --------------------------------------------------------------------------
@@ -207,12 +197,15 @@ class Block(nn.Module):
     ``"moe_attn"``): pre-norm attention, then the MLP or, for
     ``moe_attn``, the routed experts (``moe``) plus the shared MLP
     (``shared_mlp``, with ``shared_expert``), each with an optional
-    post-norm (gemma2's sandwich), each added to the residual."""
+    post-norm (gemma2's sandwich), each added to the residual.  The
+    attention runs ``impl`` (default: ``cfg.attn_impl``)."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec, *, device,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator],
+                 impl: Optional[str] = None):
         super().__init__()
         self.cfg, self.spec = cfg, spec
+        self.impl = cfg.attn_impl if impl is None else impl
         dtype = cfg.dtype
         norm = dict(d=cfg.d_model, dtype=dtype, device=device,
                     eps=cfg.norm_eps, zero_centered=cfg.zero_centered_norm)
@@ -245,7 +238,7 @@ class Block(nn.Module):
         h, new_cache = self.attn(
             self.ln1(x), positions, rope_theta=cfg.rope_theta,
             causal=spec.causal, window=spec.window, cap=cfg.attn_softcap,
-            impl=cfg.attn_impl, kv_cache=cache, cache_length=cache_length)
+            impl=self.impl, kv_cache=cache, cache_length=cache_length)
         if self.post_ln1 is not None:
             h = self.post_ln1(h)
         x = x + h
@@ -266,6 +259,83 @@ class Block(nn.Module):
         return x + h, new_cache, aux
 
 
+#: The attention route of whisper's encoder and of every cross-attention,
+#: whatever ``cfg.attn_impl`` says.
+ENCODER_IMPL = "chunked"
+
+
+class Encoder(nn.Module):
+    """whisper's encoder (``_run_encoder``): ``encoder_layers``
+    non-causal attention blocks (``layers``) over the frames, then a
+    final ``norm``.
+
+    Its attention runs :func:`~.attention.attention_chunked`
+    (``ENCODER_IMPL``) whatever ``cfg.attn_impl`` says, a route fixed in
+    the code: the JAX package's default arithmetic.  The kernel route
+    cannot take it, because ``ops.attention`` pads whisper's 1500 frames
+    to the kernels' 128-row blocks and refuses padded keys without the
+    causal mask that hides them (as the JAX package's ``ops.attention``
+    does); the flash kernels do not mask padded keys.  A departure from
+    a model built with ``attn_impl="kernel"`` in the JAX package, which
+    sends the encoder to its kernel (ROADMAP §3)."""
+
+    def __init__(self, cfg: ModelConfig, *, device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.cfg = cfg
+        spec = BlockSpec(kind="attn", causal=False)
+        self.layers = nn.ModuleList(
+            Block(cfg, spec, device=device, generator=generator,
+                  impl=ENCODER_IMPL) for _ in range(cfg.encoder_layers))
+        self.norm = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=device,
+                            eps=cfg.norm_eps,
+                            zero_centered=cfg.zero_centered_norm)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """``frames (B, S, d)`` (cast to the weights' type) through the
+        blocks at rope positions ``0..S-1``, then the norm."""
+        x = frames.to(self.cfg.dtype)
+        positions = _positions(x.shape[0], x.shape[1], x.device)
+        for layer in self.layers:
+            x, _, _ = layer(x, positions)
+        return self.norm(x)
+
+
+class CrossAttention(nn.Module):
+    """One period's cross-attention (``_cross_attn_init``/``_apply``): a
+    pre-norm ``ln`` and an ``attn`` whose ``wq``/``wo`` apply to the
+    decoder and ``wk``/``wv`` to the encoder's output
+    (:meth:`encoder_kv`).  No rope; non-causal over every frame, through
+    :func:`~.attention.attention_chunked` always, as in the JAX
+    package."""
+
+    def __init__(self, cfg: ModelConfig, *, device,
+                 generator: Optional[torch.Generator]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = RMSNorm(cfg.d_model, dtype=cfg.dtype, device=device,
+                          eps=cfg.norm_eps,
+                          zero_centered=cfg.zero_centered_norm)
+        self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
+                              dtype=cfg.dtype, device=device,
+                              generator=generator)
+
+    def encoder_kv(self, enc_out: torch.Tensor) -> Cache:
+        """``{k, v}`` ``(B, S, n_kv, hd)`` over ``enc_out (B, S, d)``
+        (``_encoder_kv``, one period)."""
+        b, s, _ = enc_out.shape
+        cfg = self.cfg
+        return {"k": self.attn.wk(enc_out).reshape(b, s, cfg.n_kv, cfg.hd),
+                "v": self.attn.wv(enc_out).reshape(b, s, cfg.n_kv, cfg.hd)}
+
+    def forward(self, x: torch.Tensor, enc_kv: Cache) -> torch.Tensor:
+        b, t, _ = x.shape
+        cfg = self.cfg
+        q = self.attn.wq(self.ln(x)).reshape(b, t, cfg.n_heads, cfg.hd)
+        out = attention_chunked(q, enc_kv["k"], enc_kv["v"], causal=False)
+        return x + self.attn.wo(out.reshape(b, t, cfg.n_heads * cfg.hd))
+
+
 def _layer(cfg: ModelConfig, spec: BlockSpec, *, device,
            generator: Optional[torch.Generator]) -> nn.Module:
     """One layer of ``spec``'s kind (``_block_init``)."""
@@ -283,8 +353,10 @@ def _layer(cfg: ModelConfig, spec: BlockSpec, *, device,
 
 class Transformer(nn.Module):
     """Embedding, the layers in layer order, the final norm, the head
-    (tied to the embedding unless ``tie_embeddings`` is false) and, with
-    ``shared_every``, the ``shared`` attention block (else None).
+    (tied to the embedding unless ``tie_embeddings`` is false), with
+    ``shared_every`` the ``shared`` attention block, and with
+    ``encoder_layers`` the ``encoder`` and the ``cross`` attentions, one
+    a period (each None otherwise).
 
     Weights are drawn from ``generator`` (a ``torch.Generator`` on
     ``device``; seed 0 when none is given) in construction order; on the
@@ -293,7 +365,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_supported(cfg)
         device = resolve_device(device)
         if generator is None and device.type != "meta":
             generator = torch.Generator(device).manual_seed(0)
@@ -310,6 +381,10 @@ class Transformer(nn.Module):
                         Dense(cfg.d_model, cfg.vocab, dtype=cfg.dtype, **kw))
         self.shared = (Block(cfg, BlockSpec(kind="attn"), **kw)
                        if cfg.shared_every else None)
+        self.encoder = Encoder(cfg, **kw) if cfg.is_enc_dec else None
+        self.cross = (nn.ModuleList(CrossAttention(cfg, **kw)
+                                    for _ in range(cfg.n_periods))
+                      if cfg.is_enc_dec else None)
 
     @property
     def device(self) -> torch.device:
@@ -338,8 +413,24 @@ def _scale_embeddings(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _embed_inputs(model: Transformer,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    x = model.embed(batch["tokens"]).to(model.cfg.dtype)
-    return _scale_embeddings(model.cfg, x)
+    """Token embeddings, with pixtral's ``patches`` prepended (cast to the
+    weights' type) before ``embed_scale``, as in the JAX package."""
+    cfg = model.cfg
+    x = model.embed(batch["tokens"]).to(cfg.dtype)
+    if cfg.patch_tokens and "patches" in batch:
+        x = torch.cat([batch["patches"].to(cfg.dtype), x], dim=1)
+    return _scale_embeddings(cfg, x)
+
+
+def _encoder_kv(model: Transformer,
+                batch: Dict[str, torch.Tensor]) -> Optional[List[Cache]]:
+    """Each period's cross-attention ``{k, v}`` over the encoder's output
+    of ``batch["frames"]`` (``_run_encoder`` then ``_encoder_kv``); None
+    for a decoder-only model."""
+    if not model.cfg.is_enc_dec:
+        return None
+    enc_out = model.encoder(batch["frames"])
+    return [cross.encoder_kv(enc_out) for cross in model.cross]
 
 
 def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
@@ -355,18 +446,24 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
 
 def _walk_aux(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
               cache: Optional[List[Cache]] = None,
-              length: Union[int, torch.Tensor, None] = None
+              length: Union[int, torch.Tensor, None] = None,
+              enc_kv: Optional[List[Cache]] = None
               ) -> Tuple[torch.Tensor, List[Cache], torch.Tensor]:
     """Apply the stack as ``_walk_stack`` does: the layers segment by
-    segment (:meth:`ModelConfig.segments`), the shared block after each
-    segment whose ``shared_after`` is true.  Without ``cache`` every layer
-    starts fresh; with it (decode) each continues its entry in place.
-    Returns ``(x, caches, aux)``: the caches in the layout of the module
-    docstring, ``aux`` the layers' MoE losses summed from an f32 zero
-    (the shared block's is dropped, as in JAX).  A block returns ``(x,
-    cache, aux)``, a recurrent layer ``(x, state)``."""
+    segment (:meth:`ModelConfig.segments`), each period's cross-attention
+    after its pattern elements (against ``enc_kv``, or in decode the
+    cache's cross entries), the shared block after each segment whose
+    ``shared_after`` is true.  Without ``cache`` every layer starts fresh;
+    with it (decode) each continues its entry in place.  Returns ``(x,
+    caches, aux)``: the layers' and sites' caches in the layout of the
+    module docstring (no cross entries), ``aux`` the layers' MoE losses
+    summed from an f32 zero (the shared block's is dropped, as in JAX).
+    A block returns ``(x, cache, aux)``, a recurrent layer ``(x,
+    state)``."""
     cfg = model.cfg
     n_pat = len(cfg.pattern)
+    if cfg.is_enc_dec and enc_kv is None:
+        enc_kv = cache[cfg.n_layers + cfg.n_shared_sites:]
     layer_caches: List[Cache] = []
     site_caches: List[Cache] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -377,6 +474,8 @@ def _walk_aux(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
             if extra and extra[0] is not None:
                 aux = aux + extra[0]
             layer_caches.append(c)
+            if enc_kv is not None and n % n_pat == n_pat - 1:
+                x = model.cross[n // n_pat](x, enc_kv[n // n_pat])
         if shared_after:
             c = (None if cache is None
                  else cache[cfg.n_layers + len(site_caches)])
@@ -387,22 +486,28 @@ def _walk_aux(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
 
 def _walk(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
           cache: Optional[List[Cache]] = None,
-          length: Union[int, torch.Tensor, None] = None
+          length: Union[int, torch.Tensor, None] = None,
+          enc_kv: Optional[List[Cache]] = None
           ) -> Tuple[torch.Tensor, List[Cache]]:
     """:func:`_walk_aux` without the auxiliary loss: ``(x, caches)``."""
-    x, caches, _ = _walk_aux(model, x, positions, cache, length)
+    x, caches, _ = _walk_aux(model, x, positions, cache, length, enc_kv)
     return x, caches
 
 
 def forward(model: Transformer, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns ``(logits (B, T, V) f32, aux)``;
+    """Full-sequence forward.  Returns ``(logits (B, T, V) f32, aux)``,
+    the logits of the text positions alone when ``patches`` are fused;
     ``aux`` is the MoE layers' auxiliary loss summed (f32 scalar; 0 for a
     model without MoE layers)."""
     x = _embed_inputs(model, batch)
     x, _, aux = _walk_aux(model, x,
-                          _positions(x.shape[0], x.shape[1], x.device))
-    return _logits(model, x), aux
+                          _positions(x.shape[0], x.shape[1], x.device),
+                          enc_kv=_encoder_kv(model, batch))
+    logits = _logits(model, x)
+    if model.cfg.patch_tokens and "patches" in batch:
+        logits = logits[:, batch["patches"].shape[1]:]
+    return logits, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -411,11 +516,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``{k, v}``, each ``(batch, max_len, n_kv, hd)`` in the weights' type,
     for attention layers and shared sites;
     :func:`~.linear_blocks.rwkv6_state_init` for RWKV6 and
-    :func:`~.linear_blocks.mamba2_state_init` for Mamba2."""
+    :func:`~.linear_blocks.mamba2_state_init` for Mamba2; and ``{k, v}``,
+    each ``(batch, encoder_seq, n_kv, hd)``, for each period's
+    cross-attention."""
     device = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv, cfg.hd)
 
-    def kv() -> Cache:
+    def kv(length: int = max_len) -> Cache:
+        shape = (batch, length, cfg.n_kv, cfg.hd)
         return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -433,21 +540,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=cfg.dtype, device=device))
         else:
             cache.append(kv())
-    return cache + [kv() for _ in range(cfg.n_shared_sites)]
+    cache += [kv() for _ in range(cfg.n_shared_sites)]
+    if cfg.is_enc_dec:
+        cache += [kv(cfg.encoder_seq) for _ in range(cfg.n_periods)]
+    return cache
 
 
 def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
             max_len: int) -> Tuple[torch.Tensor, List[Cache]]:
-    """Run the full prompt; return ``(last-position logits (B, 1, V),
-    cache)`` with the k/v of each attention layer and shared site
-    zero-padded to ``max_len`` (``pad_kv``) and each recurrent layer's
-    state as it stands after the prompt."""
+    """Run the full prompt (``patch_tokens + T`` positions with fused
+    patches); return ``(last-position logits (B, 1, V), cache)`` with the
+    k/v of each attention layer and shared site zero-padded to
+    ``max_len`` (``pad_kv``), each recurrent layer's state as it stands
+    after the prompt, and each period's cross-attention k/v over the
+    encoder's output of ``frames``."""
     x = _embed_inputs(model, batch)
     b, t, _ = x.shape
-    x, cache = _walk(model, x, _positions(b, t, x.device))
+    enc_kv = _encoder_kv(model, batch)
+    x, cache = _walk(model, x, _positions(b, t, x.device), enc_kv=enc_kv)
     cache = [{name: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, max_len - t))
               for name, a in c.items()} if "k" in c else c for c in cache]
-    return _logits(model, x[:, -1:]), cache
+    return _logits(model, x[:, -1:]), cache + (enc_kv or [])
 
 
 def decode_step(model: Transformer, tokens: torch.Tensor, cache: List[Cache],
@@ -456,9 +569,11 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: List[Cache],
     """One serving step: ``tokens (B, 1)`` against a cache whose first
     ``length`` positions are valid (an attention layer or shared site
     writes the new token, in place, at ``length - 1``; an RWKV6 or Mamba2
-    layer advances its state in place).  Returns ``(logits (B, 1, V), cache)``.  ``length`` may be
-    a 0-d device tensor: the step then reads nothing on the host, which is
-    what lets the serve engine capture it in a CUDA graph."""
+    layer advances its state in place; the cross-attention entries are
+    read, never written).  Returns ``(logits (B, 1, V), cache)``.
+    ``length`` may be a 0-d device tensor: the step then reads nothing on
+    the host, which is what lets the serve engine capture it in a CUDA
+    graph."""
     x = _scale_embeddings(model.cfg, model.embed(tokens).to(model.cfg.dtype))
     b, t, _ = x.shape
     length = torch.as_tensor(length, device=x.device)

@@ -5,11 +5,17 @@ The JAX package's engine (``repro/serve/engine.py``) on the port's model:
 greedy ``argmax`` on the device; :class:`Engine` is the host-side loop,
 with the same batching — each request prefilled alone, every entry of the
 slots' caches concatenated on the batch axis (k/v of attention layers and
-of zamba2's shared sites, the states of RWKV6 and Mamba2 layers), and the
-slots decoded in lock-step from ``max(prompt lengths) + 1``.  With
-prompts of unequal length the shorter ones therefore attend to zero keys
-and decode at shifted positions, as in the JAX package (ROADMAP §3); an
-RWKV6 state carries no positions, so its requests decode as if alone.
+of zamba2's shared sites, the states of RWKV6 and Mamba2 layers,
+whisper's cross-attention k/v), and the slots decoded in lock-step from
+``max(prompt lengths) + 1``.  With prompts of unequal length the shorter
+ones therefore attend to zero keys and decode at shifted positions, as in
+the JAX package (ROADMAP §3); an RWKV6 state carries no positions, so its
+requests decode as if alone.  Like the JAX engine, :meth:`Engine.run`
+feeds each prefill its tokens alone: it serves pixtral text-only, and
+not whisper, whose prefill needs ``frames``.  Requests with ``patches``
+or ``frames`` go through :func:`make_prefill_step` with those in the
+batch and a :class:`DecodeRunner` loaded at ``length = (patch_tokens +)
+T + 1``, the step entry points the JAX package's dry-run lowers.
 
 The decode step is the counterpart of the JAX engine's ``jax.jit(
 make_serve_step(cfg))``: a :class:`DecodeRunner` held in a

@@ -3,8 +3,8 @@
 * Nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, imports
   ``jax``, ``jaxlib`` or any ``repro`` module (an AST scan of every
   import, lazy ones inside functions included).
-* A CPU sweep, CPU runs of the serving launcher (a dense arch, mixtral
-  and RWKV6), and the sweep service's CLI and one torch request through it,
+* A CPU sweep, CPU runs of the serving launcher (a dense arch, mixtral,
+  RWKV6 and pixtral), and the sweep service's CLI and one torch request through it,
   through the port leave ``jax`` and ``repro`` out of ``sys.modules``
   (a fresh interpreter each); the sweep service leaves CUDA
   uninitialised.
@@ -59,7 +59,8 @@ def test_port_files_exist():
             "linear_attn.py", "linear_blocks.py", "rwkv6_1_6b.py",
             "sweepd.py", "coalesce.py", "paraver.py", "moe.py",
             "mixtral_8x22b.py", "llama4_maverick.py", "steptask.py",
-            "model.py", "hlsreport.py"} <= names
+            "model.py", "hlsreport.py", "whisper_tiny.py",
+            "pixtral_12b.py"} <= names
     port = REPO / "src" / "repro_torch"
     assert (port / "serve" / "sweepd.py").is_file()
     assert (port / "serve" / "coalesce.py").is_file()
@@ -162,6 +163,12 @@ def test_cpu_mixtral_serve_launcher_leaves_jax_and_repro_unimported():
 def test_cpu_rwkv6_serve_launcher_leaves_jax_and_repro_unimported():
     out = serve_launcher_imports("rwkv6-1.6b")
     assert "arch=rwkv6-1.6b-smoke" in out
+    assert "served 2 requests, 6 tokens" in out
+
+
+def test_cpu_pixtral_serve_launcher_leaves_jax_and_repro_unimported():
+    out = serve_launcher_imports("pixtral-12b")
+    assert "arch=pixtral-12b-smoke" in out
     assert "served 2 requests, 6 tokens" in out
 
 

@@ -763,17 +763,6 @@ def test_default_route_is_the_kernel_and_default_device_the_card():
     assert T.Transformer(cfg, device="meta").device.type == "meta"
 
 
-@pytest.mark.parametrize("change", [
-    {"encoder_layers": 2, "patch_tokens": 4},
-    {"encoder_layers": 2},
-    {"patch_tokens": 4},
-])
-def test_left_out_families_raise_not_implemented(change):
-    cfg = dataclasses.replace(configs.get_smoke("qwen3-0.6b"), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.Transformer(cfg, device="meta")
-
-
 def test_moe_block_builds():
     """A ``moe_attn`` layer on a dense smoke config builds with the JAX
     layout: the f32 router, the stacked experts in the model's type, the
@@ -793,11 +782,20 @@ def test_moe_block_builds():
         assert (block.shared_mlp is not None) == shared
 
 
+def test_arch_ids_equal_the_jax_packages(jx):
+    _, _, jconfigs, _, _, _ = jx
+    assert set(configs.arch_ids()) == set(jconfigs.arch_ids()) == set(
+        DENSE) | {RWKV, ZAMBA, "mixtral-8x22b", "llama4-maverick-400b-a17b",
+                  "whisper-tiny", "pixtral-12b"}
+
+
 def test_unported_arch_is_a_key_error():
-    assert set(configs.arch_ids()) == set(DENSE) | {
-        RWKV, ZAMBA, "mixtral-8x22b", "llama4-maverick-400b-a17b"}
+    """Every arch of the JAX package is ported; an id of none of them
+    still raises ``KeyError``."""
     with pytest.raises(KeyError, match="not ported"):
-        configs.get_config("whisper-tiny")
+        configs.get_config("whisper-large")
+    with pytest.raises(KeyError, match="not ported"):
+        configs.get_smoke("")
 
 
 def test_weights_come_from_the_generator():
