@@ -60,7 +60,10 @@ against its plain PyTorch version:
   prediction (counted on ``meta`` tensors) of qwen3-0.6b's and mixtral's
   prefill and decode step set against their measured device time, and
   the step estimator (``core/steptask.py``) from probes at 1 and 2
-  mixtral layers set against the measured 4-layer prefill.
+  mixtral layers set against the measured 4-layer prefill;
+* training (``repro_torch.train``) on qwen3-0.6b at its published width
+  on the chunked route (the JAX package's training arithmetic: no
+  kernel has a backward, and the train step launches none).
 
 Phases, one line each or more:
 
@@ -211,6 +214,26 @@ Phases, one line each or more:
     ``estimate_step`` at 4 layers against the measured prefill and at 56
     (the published depth), at the ``H100`` record's bf16 peak and at the
     f32 peak (not gated); each phase's seconds;
+12c. ``[train]``: (a) qwen3-0.6b at full width with 2 layers in f32,
+    one ``make_train_step`` step on the card and the same step on the
+    CPU from the same weights and a ``SyntheticLM`` batch of 2 x 128:
+    loss and grad norm within rtol 1e-4, the updated parameters within
+    rtol 2e-3 / atol 2e-5; (b) on the card, ``remat`` ``full`` and
+    ``dots`` against ``none`` (loss and gradients within 1e-5, each
+    mode's peak memory, also at full depth on 8 x 512 in bf16), and
+    ``accum_steps=2`` against 1 at JAX's bounds; (c) with deterministic
+    algorithms on for this check only, the supervisor through failures
+    at steps 6 and 11 with checkpoints every 4 equals an uninterrupted
+    run within 1e-5 / 1e-6; (d) the full depth (28 layers, 596 M
+    parameters) in bf16 with f32 moments on ``SyntheticLM`` batches of 8
+    x 512, 20 steps through the supervisor with asynchronous checkpoints
+    every 10 and a failure at step 13, every kernel's count set to 0
+    just before and read just after (all 0): tokens/s, ms a step by CUDA
+    events, peak memory, a 3-step ``torch.profiler`` window (kernels,
+    device time, busy share), the mean of the last 5 losses below the
+    first 5's; (e) ``ops.attention`` and ``ops.linear_attn`` on CUDA
+    operands that require grad raise ``NotImplementedError`` and launch
+    nothing; the phase's seconds;
 13. ``flash_attention`` at the path shape by CUDA events, per wrapper
     call and per bare launch of the ``wgmma`` kernel, beside the bare
     launch of the FMA kernel (the earlier design, its output held to the
@@ -254,6 +277,11 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+# cuBLAS reads this when its handle is made: the train phase's replay (c)
+# turns deterministic algorithms on, which need it; set before torch first
+# touches the card.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 #: HBM3 rate of an H100 SXM (NVIDIA's data sheet), for the kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
@@ -423,6 +451,32 @@ SERVE_MODELS = (
 #: and the kernel route by 0.016 (logits up to 1.9; f32 1.0e-6).
 ROUTE_ATOL = {"bfloat16": 0.1, "float32": 1e-3}
 SELFCHECK_TOL = 0.1
+
+#: The train phase (``[train]``): qwen3-0.6b at its published width on the
+#: chunked route (the JAX package's training arithmetic: the kernels have
+#: no backward).  (a)-(c) run 2 of its layers in f32 on a SyntheticLM
+#: batch of 2 x 128; (c) replays 14 steps with checkpoints every 4 and
+#: failures injected at steps 6 and 11 (JAX's ``test_fault_tolerance``);
+#: (d) trains the full depth in bf16 with f32 moments on batches of 8 x
+#: 512 for 20 steps through the supervisor, asynchronous checkpoints
+#: every 10 steps (keep 2) and one failure injected at step 13, then
+#: profiles 3 more steps.
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_CHECK = {"n_layers": 2, "batch": 2, "seq": 128}
+TRAIN_REPLAY = {"steps": 14, "ckpt_every": 4, "fail_at": (6, 11)}
+TRAIN_SLICE = {"batch": 8, "seq": 512, "steps": 20, "ckpt_every": 10,
+               "fail_at": 13, "lr": 3e-3, "profile_steps": 3}
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+
+#: The train phase's bounds: JAX's for two equivalent steps
+#: (``tests/test_train_step.py:85-87``: loss rtol 1e-5 for accumulation,
+#: updated parameters rtol 2e-3 / atol 2e-5); the card's loss and grad
+#: norm against the CPU's at rtol 1e-4; the remat modes' loss and
+#: gradients within 1e-5 (rtol and atol); the replay's parameters against
+#: the uninterrupted run's at JAX's ``test_fault_tolerance`` bounds.
+TRAIN_STEP_TOL = {"loss": 1e-4, "accum_loss": 1e-5, "params": (2e-3, 2e-5)}
+REMAT_TOL = 1e-5
+REPLAY_TOL = (1e-5, 1e-6)
 
 #: The sweep-service phase: concurrent clients of (b) against the
 #: server's default ``max_concurrent`` (4), and where its files go (the
@@ -2802,6 +2856,375 @@ def tile_kernel_rows(rows, fig6, chol):
     return out
 
 
+def train_models(torch, T, cfg, state, modes=("none",)):
+    """A model of ``cfg`` on the card per remat mode, each loaded with
+    ``state`` (built on ``meta`` and allocated empty, so no weights are
+    drawn)."""
+    out = {}
+    for mode in modes:
+        model = T.Transformer(dataclasses.replace(cfg, remat=mode),
+                              device="meta").to_empty(device="cuda")
+        model.load_state_dict(state)
+        out[mode] = model
+    return out
+
+
+def max_rel(torch, got, want) -> float:
+    """Largest ``|got - want| / (|want| + 1e-30)`` over two tensors."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float(((got - want).abs() / (want.abs() + 1e-30)).max())
+
+
+def held(torch, got, want, rtol, atol) -> bool:
+    """``|got - want| <= atol + rtol·|want|`` everywhere (numpy's
+    ``allclose``), on the host."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def params_held(torch, a, b, rtol, atol):
+    """``(every parameter of model a held to b's, worst abs difference,
+    its name)``."""
+    ok, worst, where = True, 0.0, ""
+    pb = dict(b.named_parameters())
+    for name, p in a.named_parameters():
+        q = pb[name]
+        ok &= held(torch, p, q, rtol, atol)
+        d = float((p.detach().float().cpu() - q.detach().float().cpu())
+                  .abs().max())
+        if d > worst:
+            worst, where = d, name
+    return ok, worst, where
+
+
+def train_flow(torch, np, configs, T, failures):
+    """The ``[train]`` phase: the port's train step on qwen3-0.6b at its
+    published width, on the chunked route (the JAX package's training
+    arithmetic; the kernels have no backward).  (a) 2 layers in f32, one
+    step on the card against the same step on the CPU; (b) on the card,
+    the three remat modes (loss, gradients, peak memory) and
+    accumulation over two microbatches against one batch; (c) the
+    supervisor's replay under deterministic algorithms against an
+    uninterrupted run; (d) full width and depth in bf16, 20 steps through
+    the supervisor with asynchronous checkpoints and one injected failure
+    (tokens/s, ms a step by CUDA events, peak memory, a 3-step profile,
+    the loss falling); (e) the kernel wrappers refuse operands that
+    require grad on the card and launch nothing.  Every check that fails
+    is added to ``failures``.  Returns the summary."""
+    import copy
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import block_matmul as bm
+    from repro_torch.kernels import cholesky_tiles as ct
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_attn as la
+    from repro_torch.kernels import lockstep_step as ls
+    from repro_torch.kernels import ops
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as S
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.supervisor import FailureInjector, Supervisor
+
+    t_phase = time.perf_counter()
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    out = {"arch": TRAIN_ARCH}
+
+    def check(label, ok, detail):
+        phase("train check", f"{label}: {detail}: {ok}")
+        if not ok:
+            failures.append(f"train {label}: {detail}")
+
+    # (a) card against CPU: one step from the same weights and batch
+    ck = TRAIN_CHECK
+    cfg2 = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                               n_layers=ck["n_layers"], param_dtype="float32",
+                               attn_impl="chunked")
+    cpu = T.Transformer(cfg2, device="cpu")
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    ds2 = SyntheticLM(DataConfig(seq_len=ck["seq"], global_batch=ck["batch"],
+                                 vocab=cfg2.vocab))
+    batch = ds2.global_batch(0)
+    tcfg = S.TrainConfig(opt=opt_mod.OptConfig(lr=1e-2))
+    results = {}
+    for dev, model in (("cuda", train_models(torch, T, cfg2, init)["none"]),
+                       ("cpu", cpu)):
+        state = opt_mod.init(tcfg.opt, S.trainable(model))
+        t0 = time.perf_counter()
+        model, state, m = S.make_train_step(cfg2, tcfg)(model, state, batch)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        results[dev] = (model, m, time.perf_counter() - t0)
+    (gpu_model, gm, g_s), (cpu_model, cm, c_s) = results["cuda"], \
+        results["cpu"]
+    tol = TRAIN_STEP_TOL
+    loss_rel = max_rel(torch, gm["loss"], cm["loss"])
+    norm_rel = max_rel(torch, gm["grad_norm"], cm["grad_norm"])
+    p_ok, p_worst, p_where = params_held(torch, gpu_model, cpu_model,
+                                         *tol["params"])
+    out["card_vs_cpu"] = {
+        "n_layers": ck["n_layers"], "batch": [ck["batch"], ck["seq"]],
+        "dtype": "float32", "loss_card": float(gm["loss"]),
+        "loss_cpu": float(cm["loss"]), "loss_rel_diff": loss_rel,
+        "grad_norm_card": float(gm["grad_norm"]),
+        "grad_norm_cpu": float(cm["grad_norm"]), "grad_norm_rel_diff":
+        norm_rel, "param_max_abs_diff": p_worst, "param_worst": p_where,
+        "card_step_s_first_call": g_s, "cpu_step_s": c_s}
+    phase("train card vs cpu", json.dumps(out["card_vs_cpu"]))
+    check("(a) card vs cpu", loss_rel <= tol["loss"] and
+          norm_rel <= tol["loss"],
+          f"loss and grad norm within rtol {tol['loss']}")
+    check("(a) card vs cpu", p_ok, f"updated parameters within rtol "
+          f"{tol['params'][0]} / atol {tol['params'][1]}")
+    del cpu, cpu_model, gpu_model
+
+    # (b) the remat modes' loss, gradients and peak memory; accumulation
+    card_batch = {k: torch.as_tensor(v, device="cuda")
+                  for k, v in batch.items()}
+    models = train_models(torch, T, cfg2, init, ("none", "full", "dots"))
+    remat, base = {}, None
+    for mode, model in models.items():
+        loss_fn = S.make_loss_fn(model.cfg, 0.01)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        total, _, grads = S.value_and_grad(loss_fn, model, card_batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        if base is None:
+            base = (total, grads)
+            worst = 0.0
+            ok = True
+        else:
+            ok = held(torch, total, base[0], REMAT_TOL, REMAT_TOL) and all(
+                held(torch, g, base[1][k], REMAT_TOL, REMAT_TOL)
+                for k, g in grads.items())
+            worst = max(float((g - base[1][k]).abs().max())
+                        for k, g in grads.items())
+        remat[mode] = {"loss": float(total), "grad_max_abs_diff": worst,
+                       "peak_bytes_over_weights": peak}
+        if mode != "none":
+            check(f"(b) remat {mode}", ok, f"loss and gradients within "
+                  f"{REMAT_TOL} of remat none")
+    del models, base, grads
+    out["remat_2_layers"] = remat
+    phase("train remat", json.dumps({"n_layers": ck["n_layers"],
+                                     "batch": [ck["batch"], ck["seq"]],
+                                     "dtype": "float32", **remat}))
+    accum = {}
+    for n in (1, 2):
+        model = train_models(torch, T, cfg2, init)["none"]
+        tc = dataclasses.replace(tcfg, accum_steps=n)
+        state = opt_mod.init(tc.opt, S.trainable(model))
+        model, state, m = S.make_train_step(cfg2, tc)(model, state, batch)
+        accum[n] = (model, float(m["loss"]))
+    a_ok, a_worst, _ = params_held(torch, accum[2][0], accum[1][0],
+                                   *tol["params"])
+    a_rel = abs(accum[2][1] - accum[1][1]) / abs(accum[1][1])
+    out["accum"] = {"loss_1": accum[1][1], "loss_2": accum[2][1],
+                    "loss_rel_diff": a_rel, "param_max_abs_diff": a_worst}
+    phase("train accum", json.dumps(out["accum"]))
+    check("(b) accum_steps=2", a_rel <= tol["accum_loss"] and a_ok,
+          f"loss within rtol {tol['accum_loss']}, parameters within rtol "
+          f"{tol['params'][0]} / atol {tol['params'][1]} of accum_steps=1")
+    del accum
+
+    # (c) the supervisor's replay against an uninterrupted run, with
+    # deterministic algorithms on for this phase only
+    rp = TRAIN_REPLAY
+    tcfg_r = S.TrainConfig(opt=opt_mod.OptConfig(lr=1e-3, warmup_steps=2))
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(dir=TRAIN_DIR) as tmp:
+            model = train_models(torch, T, cfg2, init)["none"]
+            state = opt_mod.init(tcfg_r.opt, S.trainable(model))
+            t0 = time.perf_counter()
+            sup = Supervisor(S.make_train_step(cfg2, tcfg_r), ds2, tmp,
+                             ckpt_every=rp["ckpt_every"],
+                             injector=FailureInjector(at_steps=rp["fail_at"]))
+            model, state, rep = sup.run(model, state, rp["steps"])
+            torch.cuda.synchronize()
+            sup_s = time.perf_counter() - t0
+        ref = train_models(torch, T, cfg2, init)["none"]
+        ref_state = opt_mod.init(tcfg_r.opt, S.trainable(ref))
+        ref_step = S.make_train_step(cfg2, tcfg_r)
+        for s in range(rp["steps"]):
+            ref, ref_state, _ = ref_step(ref, ref_state, ds2.global_batch(s))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    r_ok, r_worst, _ = params_held(torch, model, ref, *REPLAY_TOL)
+    identical = all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                      ref.parameters()))
+    out["replay"] = {"steps": rep.steps_done, "restarts": rep.restarts,
+                     "steps_replayed": rep.steps_replayed,
+                     "fail_at": list(rp["fail_at"]),
+                     "ckpt_every": rp["ckpt_every"], "supervised_s": sup_s,
+                     "param_max_abs_diff": r_worst,
+                     "bit_identical": identical}
+    phase("train replay", json.dumps(out["replay"]))
+    check("(c) supervisor replay", r_ok and rep.restarts == 2
+          and rep.steps_done == rp["steps"],
+          f"2 restarts, parameters within rtol {REPLAY_TOL[0]} / atol "
+          f"{REPLAY_TOL[1]} of the uninterrupted run")
+    del model, ref, state, ref_state, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the slice at full width and depth
+    sl = TRAIN_SLICE
+    cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                              attn_impl="chunked")
+    tcfg = S.TrainConfig(opt=opt_mod.OptConfig(
+        lr=sl["lr"], warmup_steps=2, total_steps=sl["steps"]))
+    t0 = time.perf_counter()
+    model, state = S.init_train_state(cfg, tcfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ds = SyntheticLM(DataConfig(seq_len=sl["seq"], global_batch=sl["batch"],
+                                vocab=cfg.vocab))
+    tokens = sl["batch"] * sl["seq"]
+    # the peak each remat mode needs for one step's gradients at this size
+    peaks = {}
+    big_batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in ds.global_batch(0).items()}
+    for mode in ("none", "full", "dots"):
+        m = model if mode == "none" else train_models(
+            torch, T, cfg, model.state_dict(), (mode,))[mode]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _, _, grads = S.value_and_grad(S.make_loss_fn(m.cfg, 0.01), m,
+                                       big_batch)
+        torch.cuda.synchronize()
+        peaks[mode] = {"peak_bytes_over_resident":
+                       torch.cuda.max_memory_allocated() - before}
+        del grads, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("train remat", json.dumps({"n_layers": cfg.n_layers,
+                                     "batch": [sl["batch"], sl["seq"]],
+                                     "dtype": str(cfg.dtype), **peaks}))
+    out["remat_full_depth"] = peaks
+
+    step_fn = S.make_train_step(cfg, tcfg)
+    events = []
+
+    def timed(model, state, batch):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = step_fn(model, state, batch)
+        e1.record()
+        events.append((e0, e1))
+        return res
+
+    # every kernel's count set to 0 just before the run, read just after
+    counters = (fa.LAUNCHES, la.LAUNCHES, bm.LAUNCHES, ct.LAUNCHES)
+    for c in counters:
+        c.clear()
+    ls.LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=TRAIN_DIR) as tmp:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        t0 = time.perf_counter()
+        sup = Supervisor(timed, ds, tmp, ckpt_every=sl["ckpt_every"],
+                         keep=2, async_ckpt=True,
+                         injector=FailureInjector(at_steps=(sl["fail_at"],)))
+        model, state, rep = sup.run(model, state, sl["steps"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kept = sorted(d.name for d in Path(tmp).iterdir())
+    peak = torch.cuda.max_memory_allocated()
+    launched = {**fa.LAUNCHES, **la.LAUNCHES, **bm.LAUNCHES, **ct.LAUNCHES,
+                "step_commit": ls.LAUNCHES}
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    steady = sorted(step_ms[1:])
+    med = steady[len(steady) // 2]
+    first5, last5 = np.mean(rep.losses[:5]), np.mean(rep.losses[-5:])
+
+    # three more steps under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(sl["profile_steps"]):
+            model, state, _ = step_fn(model, state,
+                                      ds.global_batch(sl["steps"] + s))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if "cuda" in str(e.device_type).lower()]
+    device_s = sum(e.self_device_time_total for e in dev) * 1e-6
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    out["slice"] = {
+        "params": model.param_count(), "dtype": str(cfg.dtype),
+        "moment_dtype": str(tcfg.opt.moment_dtype),
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+        "batch": [sl["batch"], sl["seq"]], "init_s": init_s,
+        "steps_done": rep.steps_done, "steps_run": len(step_ms),
+        "restarts": rep.restarts, "steps_replayed": rep.steps_replayed,
+        "ckpt_every": sl["ckpt_every"], "fail_at": sl["fail_at"],
+        "checkpoints_kept": kept, "disk_free_gb": free_gb,
+        "wall_s": wall, "wall_tok_per_s": len(step_ms) * tokens / wall,
+        "step_ms_median": med, "step_ms_first": step_ms[0],
+        "step_ms_min": steady[0], "step_ms_max": steady[-1],
+        "tok_per_s": tokens / (med * 1e-3),
+        "peak_bytes": peak, "loss_first5": float(first5),
+        "loss_last5": float(last5), "losses": rep.losses,
+        "kernel_launches": launched,
+        "profile": {"steps": sl["profile_steps"], "wall_s": prof_wall,
+                    "device_s": device_s,
+                    "device_busy_share": device_s / prof_wall,
+                    "kernels": sum(e.count for e in dev),
+                    "top_device_kernels": [[e.key[:80], e.count,
+                                            e.self_device_time_total * 1e-6]
+                                           for e in top]}}
+    phase("train slice", json.dumps(out["slice"]))
+    check("(d) slice", last5 < first5, f"mean of the last 5 losses "
+          f"{last5:.4f} below the first 5's {first5:.4f}")
+    check("(d) slice", rep.restarts == 1 and rep.steps_done == sl["steps"]
+          and all(np.isfinite(rep.losses)),
+          "one restart, every step done, finite losses")
+    check("(d) slice", not any(launched.values()),
+          f"no kernel launched by the train step: {launched}")
+    phase("train", json.dumps({"kernels": []}))
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the wrappers refuse operands that require grad, and launch
+    # nothing
+    gen = torch.Generator("cuda").manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=gen,
+                           dtype=torch.bfloat16).requires_grad_(True)
+    calls = {"flash_attention": lambda: ops.attention(
+                 rnd(16, 512, 128), rnd(8, 512, 128), rnd(8, 512, 128)),
+             "linear_attn": lambda: ops.linear_attn(
+                 rnd(32, 512, 64), rnd(32, 512, 64), rnd(32, 512, 64),
+                 torch.rand((32, 512, 64), device="cuda", generator=gen,
+                            requires_grad=True), rnd(32, 64), chunk=64)}
+    guard = {}
+    wrappers = {"flash_attention": fa, "linear_attn": la}
+    for name, call in calls.items():
+        before = sum(wrappers[name].LAUNCHES.values())
+        try:
+            call()
+            raised = False
+        except NotImplementedError:
+            raised = True
+        torch.cuda.synchronize()
+        after = sum(wrappers[name].LAUNCHES.values())
+        guard[name] = {"raised": raised, "launches": after - before}
+        check(f"(e) {name} guard", raised and after == before,
+              "raises NotImplementedError on operands that require grad, "
+              "no launch")
+    out["guard"] = guard
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("train seconds", f"{out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3113,6 +3536,11 @@ def main() -> int:
         serve_mixtral["profile"]["prefill_512"]["device_s"],
         configs.get_config("mixtral-8x22b").n_layers)
     phase("step estimate seconds", f"{estimate['seconds']:.1f} s")
+
+    # 12c. the train step on qwen3-0.6b at full width: card against CPU,
+    # remat and accumulation, the supervisor's replay, then the slice at
+    # full depth through the supervisor; it launches no kernel
+    train_flow(torch, np, configs, T, failures)
 
     # 13. the flash and linear-attention kernels' times at the path shapes
     frow = time_flash(torch, F, fa, ref, fcases[0])

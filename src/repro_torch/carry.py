@@ -16,7 +16,11 @@ and validates them against the graph before replaying any.
 The LM substrate does have weights: :func:`import_lm_params` turns the JAX
 package's parameter tree (``repro.models.transformer.init``), as numpy
 arrays, into the state dict of the port's
-:class:`~repro_torch.models.transformer.Transformer`.
+:class:`~repro_torch.models.transformer.Transformer`; applied to a tree
+of the same structure (a gradient, a moment) it gives the port's tensors
+by parameter name.  :func:`import_opt_state` turns the JAX package's
+AdamW state into the port's
+:class:`~repro_torch.train.optimizer.OptState`.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from .core.hlsreport import KernelReport, ReportMap
 from .core.replay import ReplayLibrary
 from .core.trace import Trace
 from .models.transformer import ModelConfig
+from .train.optimizer import OptState
 
 _REPORT_FIELDS = tuple(f.name for f in dataclasses.fields(KernelReport))
 
@@ -122,3 +127,14 @@ def import_lm_params(cfg: ModelConfig,
             state.update({name: _tensor(a)
                           for name, a in _flatten({key: sub}, "").items()})
     return state
+
+
+def import_opt_state(cfg: ModelConfig, state: Any) -> OptState:
+    """The port's optimizer state for the JAX package's
+    ``repro.train.optimizer.OptState`` (``step``, ``mu``, ``nu``) with
+    numpy leaves: ``mu`` and ``nu`` mapped by :func:`import_lm_params`,
+    each moment in its own type, ``step`` an int32 scalar."""
+    return OptState(step=torch.tensor(int(np.asarray(state.step)),
+                                      dtype=torch.int32),
+                    mu=import_lm_params(cfg, state.mu),
+                    nu=import_lm_params(cfg, state.nu))

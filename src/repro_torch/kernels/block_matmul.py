@@ -172,6 +172,19 @@ def launch_gemm(lib: ctypes.CDLL, a: torch.Tensor, b: torch.Tensor,
         raise_launch_error(lib, rc, f"{what} at M={M} N={N} K={K}")
 
 
+def refuse_grad(kernel: str, *operands: torch.Tensor) -> None:
+    """``NotImplementedError`` when autograd would record any of
+    ``operands``, on either device: the kernels have no backward, and the
+    JAX package refuses to differentiate its Pallas kernels too.  Each
+    wrapper calls it first, so the plain version is never run in a
+    kernel's place to get a gradient; a model that trains routes
+    attention through ``attn_impl="chunked"``."""
+    if torch.is_grad_enabled() and any(o.requires_grad for o in operands):
+        raise NotImplementedError(
+            f"{kernel} has no backward: its operands require grad (train "
+            f"with attn_impl='chunked', the JAX package's training route)")
+
+
 def on_card(kernel: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU one; any other device has
     no kernel and no plain route."""
@@ -200,6 +213,7 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
                          f"multiples of blocks ({block_m},{block_n},"
                          f"{block_k})")
     out_dtype = out_dtype or a.dtype
+    refuse_grad("block_matmul", a, b)
     if not on_card("block_matmul", a):
         return ref.matmul(a, b, out_dtype)
     if not takes(a, b, m, n, k):
@@ -226,6 +240,7 @@ def gemm_update_tile(a: torch.Tensor, b: torch.Tensor,
     if K != K2 or c.shape != (M, N):
         raise ValueError(f"gemm_update shapes a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}, c {tuple(c.shape)}")
+    refuse_grad("gemm_update", a, b, c)
     if not on_card("gemm_update", a):
         return ref.gemm_update(a, b, c)
     if not (takes(a, b, M, N, K) and c.device == a.device

@@ -25,7 +25,7 @@ from .. import DeviceError
 from . import ref
 from .block_matmul import (DTYPE_CODES, MAX_DIM, TRSM_ARGS, current_stream,
                            launch_gemm, on_card, raise_launch_error, refuse,
-                           takes, tiles_library)
+                           refuse_grad, takes, tiles_library)
 
 #: Kernel launches since the last reset, by wrapper (``"syrk_tile"``,
 #: ``"trsm_tile"``): one per CUDA call, none for the plain version.
@@ -46,6 +46,7 @@ def syrk_tile(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     if a.shape != c.shape or a.shape != (bs, bs):
         raise ValueError(f"syrk tile shapes {tuple(a.shape)} vs "
                          f"{tuple(c.shape)}")
+    refuse_grad("syrk_tile", a, c)
     if not on_card("syrk_tile", a):
         return ref.syrk(a, c)
     if not (c.device == a.device and a.dtype in DTYPE_CODES
@@ -72,6 +73,7 @@ def trsm_tile(a: torch.Tensor, b: torch.Tensor, *,
                          f"{tuple(b.shape)}")
     if bs % panel:
         raise ValueError(f"bs={bs} not a multiple of panel={panel}")
+    refuse_grad("trsm_tile", a, b)
     if not on_card("trsm_tile", a):
         return ref.trsm(a, b)
     n = b.shape[-1]

@@ -33,7 +33,7 @@ import torch
 
 from .. import DeviceError
 from . import build, ref
-from .block_matmul import DTYPE_CODES, on_card
+from .block_matmul import DTYPE_CODES, on_card, refuse_grad
 
 #: Kernel launches since the last reset (``"flash_attention"``): one per
 #: CUDA call, none for the plain version.  Callers clear it before a run
@@ -192,6 +192,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"T={t_len}, S={s_len} not multiples of "
                          f"({block_q},{block_k})")
     scale = scale if scale is not None else d ** -0.5
+    refuse_grad("flash_attention", q, k, v)
     if not on_card("flash_attention", q):
         return ref.attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)

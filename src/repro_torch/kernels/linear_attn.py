@@ -43,7 +43,8 @@ import torch
 
 from .. import DeviceError
 from . import build, ref
-from .block_matmul import DTYPE_CODES, current_stream, on_card
+from .block_matmul import (DTYPE_CODES, current_stream, on_card,
+                           refuse_grad)
 
 #: Wrapper calls that launched a kernel since the last reset
 #: (``"linear_attn"``): one per CUDA call, none for the plain version.
@@ -257,6 +258,7 @@ def linear_attention_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(out (BH, T, dv) in r's dtype, final state (BH, dk, dv) f32)``,
     from a zero state.  ``T`` must be a multiple of ``chunk``."""
     check_shapes(r, k, v, w, u, chunk)
+    refuse_grad("linear_attn", r, k, v, w, u)
     if not on_card("linear_attn", r):
         return ref.linear_attention_state(r, k, v, w, u)
     if not takes(r, k, v, w, u, chunk):

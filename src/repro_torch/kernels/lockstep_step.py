@@ -38,7 +38,7 @@ import torch
 
 from .. import DeviceError
 from . import build
-from .block_matmul import current_stream, on_card
+from .block_matmul import current_stream, on_card, refuse_grad
 
 #: Kernel launches since the last reset: one per CUDA call, none for the
 #: plain version; a captured graph's launches count at each replay
@@ -241,6 +241,7 @@ def step_commit(clocks: torch.Tensor, busy: torch.Tensor, seen: torch.Tensor,
     CUDA tensors launch the Hopper kernel on the current stream (no
     synchronisation); CPU tensors run :func:`step_commit_ref`."""
     global LAUNCHES
+    refuse_grad("step_commit", clocks, busy, seen, p, rt, base, live)
     if not on_card("step_commit", clocks):
         return step_commit_ref(clocks, busy, seen, p, rt, base, live)
     if not takes(clocks, busy, seen, p, rt, base, live):

@@ -4,7 +4,11 @@ The tensor's device picks the route, as in :mod:`repro_torch.core.torchsim`:
 CUDA tensors launch the Hopper kernels, CPU tensors run their plain
 versions.  :func:`matmul`, :func:`attention` and :func:`linear_attn` pad
 their operands to the kernels' block contracts and slice the result back
-(``repro/kernels/ops.py:26-102``).
+(``repro/kernels/ops.py:26-102``).  No kernel has a backward: on either
+device, a call whose operands autograd would record raises
+``NotImplementedError`` before any launch or plain version runs
+(``block_matmul.refuse_grad``), as the JAX package cannot differentiate its
+Pallas kernels.
 """
 from __future__ import annotations
 

@@ -38,16 +38,23 @@ period ``p``'s cross-attention ``{k, v}`` ``(B, encoder_seq, Hkv, hd)``
 over the encoder's output (``cache["enc_kv"]``).  Decode updates every
 entry in place except the cross-attention entries, which it only reads.
 :func:`forward` returns the MoE layers' auxiliary losses summed, as the
-JAX package's does.
+JAX package's does, and :func:`lm_loss` is the training loss over it.
+Where autograd records the forward, each period of the walk runs under
+``cfg.remat`` (``"none"``, ``"full"`` or ``"dots"``), as the JAX package
+checkpoints its scan body (:func:`_walk_aux`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import Attention, Cache, attention_chunked
 from .layers import (MLP, Dense, Embedding, RMSNorm, resolve_device,
@@ -444,38 +451,94 @@ def _positions(b: int, t: int, device) -> torch.Tensor:
     return torch.arange(t, device=device)[None, :].expand(b, t)
 
 
+def _period(model: Transformer, p: int, x: torch.Tensor, aux: torch.Tensor,
+            positions: torch.Tensor, cache: Optional[List[Cache]],
+            length: Union[int, torch.Tensor, None],
+            enc_kv: Optional[List[Cache]]
+            ) -> Tuple[torch.Tensor, torch.Tensor, List[Cache]]:
+    """Period ``p`` of the stack, the body of the JAX package's layer
+    scan: its pattern elements in order, then its cross-attention (against
+    ``enc_kv``) when there is one.  Returns ``(x, aux, caches)``, ``aux``
+    with the period's MoE losses added one at a time.  A block returns
+    ``(x, cache, aux)``, a recurrent layer ``(x, state)``."""
+    n_pat = len(model.cfg.pattern)
+    caches: List[Cache] = []
+    for n in range(p * n_pat, (p + 1) * n_pat):
+        c = None if cache is None else cache[n]
+        x, c, *extra = model.layers[n](x, positions, c, length)
+        if extra and extra[0] is not None:
+            aux = aux + extra[0]
+        caches.append(c)
+    if enc_kv is not None:
+        x = model.cross[p](x, enc_kv[p])
+    return x, aux, caches
+
+
+#: The matmul operators whose outputs ``remat="dots"`` keeps (JAX's
+#: ``checkpoint_dots``: every dot product's result).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat``: ``"full"`` keeps nothing of it
+    for the backward pass and recomputes it there, ``"dots"`` keeps the
+    matmuls' outputs only (:func:`_save_dots`)."""
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def _walk_aux(model: Transformer, x: torch.Tensor, positions: torch.Tensor,
               cache: Optional[List[Cache]] = None,
               length: Union[int, torch.Tensor, None] = None,
               enc_kv: Optional[List[Cache]] = None
               ) -> Tuple[torch.Tensor, List[Cache], torch.Tensor]:
-    """Apply the stack as ``_walk_stack`` does: the layers segment by
-    segment (:meth:`ModelConfig.segments`), each period's cross-attention
-    after its pattern elements (against ``enc_kv``, or in decode the
-    cache's cross entries), the shared block after each segment whose
-    ``shared_after`` is true.  Without ``cache`` every layer starts fresh;
-    with it (decode) each continues its entry in place.  Returns ``(x,
-    caches, aux)``: the layers' and sites' caches in the layout of the
-    module docstring (no cross entries), ``aux`` the layers' MoE losses
-    summed from an f32 zero (the shared block's is dropped, as in JAX).
-    A block returns ``(x, cache, aux)``, a recurrent layer ``(x,
-    state)``."""
+    """Apply the stack as ``_walk_stack`` does: the periods
+    (:func:`_period`) segment by segment (:meth:`ModelConfig.segments`),
+    each period's cross-attention after its pattern elements (against
+    ``enc_kv``, or in decode the cache's cross entries), the shared block
+    after each segment whose ``shared_after`` is true.  Without ``cache``
+    every layer starts fresh; with it (decode) each continues its entry
+    in place.  Returns ``(x, caches, aux)``: the layers' and sites'
+    caches in the layout of the module docstring (no cross entries),
+    ``aux`` the layers' MoE losses summed from an f32 zero (the shared
+    block's is dropped, as in JAX).
+
+    Where autograd records the forward (grad mode on and the model's
+    parameters requiring grad), each period runs under ``cfg.remat``
+    (:func:`_remat`), as the JAX package checkpoints its scan body; the
+    periods' caches are then not kept, and the list holds the shared
+    sites' alone.  Serving (frozen weights) never remats."""
     cfg = model.cfg
-    n_pat = len(cfg.pattern)
     if cfg.is_enc_dec and enc_kv is None:
         enc_kv = cache[cfg.n_layers + cfg.n_shared_sites:]
+    remat = (cfg.remat != "none" and cache is None and torch.is_grad_enabled()
+             and model.embed.table.requires_grad)
     layer_caches: List[Cache] = []
     site_caches: List[Cache] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p0, p1, shared_after in cfg.segments():
-        for n in range(p0 * n_pat, p1 * n_pat):
-            c = None if cache is None else cache[n]
-            x, c, *extra = model.layers[n](x, positions, c, length)
-            if extra and extra[0] is not None:
-                aux = aux + extra[0]
-            layer_caches.append(c)
-            if enc_kv is not None and n % n_pat == n_pat - 1:
-                x = model.cross[n // n_pat](x, enc_kv[n // n_pat])
+        for p in range(p0, p1):
+            if remat:
+                x, aux = _remat(
+                    cfg, lambda x, aux, p=p: _period(
+                        model, p, x, aux, positions, None, None, enc_kv)[:2],
+                    x, aux)
+            else:
+                x, aux, caches = _period(model, p, x, aux, positions, cache,
+                                         length, enc_kv)
+                layer_caches += caches
         if shared_after:
             c = (None if cache is None
                  else cache[cfg.n_layers + len(site_caches)])
@@ -580,3 +643,26 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: List[Cache],
     positions = (length - 1).reshape(1, 1).expand(b, t)
     x, _ = _walk(model, x, positions, cache, length)
     return _logits(model, x), cache
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+
+def lm_loss(model: Transformer, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy over the f32 logits plus ``aux_weight``
+    times the MoE auxiliary loss (``transformer.py:594-609``): labels
+    below 0 are masked out, and the mean runs over the labels kept.
+    Returns ``(total, {"loss", "aux"})``, ``loss`` the cross entropy
+    alone."""
+    logits, aux = forward(model, batch)
+    labels = batch["labels"]
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}

@@ -60,7 +60,9 @@ def test_port_files_exist():
             "sweepd.py", "coalesce.py", "paraver.py", "moe.py",
             "mixtral_8x22b.py", "llama4_maverick.py", "steptask.py",
             "model.py", "hlsreport.py", "whisper_tiny.py",
-            "pixtral_12b.py"} <= names
+            "pixtral_12b.py", "optimizer.py", "step.py", "data.py",
+            "checkpoint.py", "supervisor.py", "compression.py",
+            "train.py"} <= names
     port = REPO / "src" / "repro_torch"
     assert (port / "serve" / "sweepd.py").is_file()
     assert (port / "serve" / "coalesce.py").is_file()
