@@ -210,8 +210,8 @@ Phases, one line each or more:
     fractions counts qwen3-0.6b's and mixtral's 512-token prefill and
     batch-4 decode step on ``meta`` and prints each prediction against the
     device time measured in phase 12 (not gated); ``[step estimate]``:
-    probe records of mixtral at 1 and 2 layers counted on meta,
-    ``estimate_step`` at 4 layers against the measured prefill and at 56
+    the dry-run's probe records of mixtral at 1 and 2 layers (a fake (1,
+    1) mesh), ``estimate_step`` at 4 layers against the measured prefill and at 56
     (the published depth), at the ``H100`` record's bf16 peak and at the
     f32 peak (not gated); each phase's seconds;
 12c. ``[train]``: (a) qwen3-0.6b at full width with 2 layers in f32,
@@ -233,7 +233,30 @@ Phases, one line each or more:
     device time, busy share), the mean of the last 5 losses below the
     first 5's; (e) ``ops.attention`` and ``ops.linear_attn`` on CUDA
     operands that require grad raise ``NotImplementedError`` and launch
-    nothing; the phase's seconds;
+    nothing; the phase's seconds; (d) keeps its checkpoints for 12d;
+12d. the distribution layer: ``[parallel]``, a world of one over NCCL and
+    a (1, 1) ("data", "model") mesh on the card, the [train] slice's last
+    checkpoint restored with ``restore(shardings=param_shardings(...))``
+    as DTensors and again as plain tensors, one AdamW step of each at full
+    width and depth (losses within 1e-3 relative, parameters at rtol 2e-3
+    / atol 2e-5), ms a step each way in turns and the peak memory, and
+    ``make_overlapped_matmul`` at (4096, 1024) @ (1024, 3072) bf16 against
+    ``torch.matmul``; ``[pipeline]``, qwen3-0.6b's 28 layers in 2 stages
+    (``stage_slices``), 4 microbatches of 2 x 512 prompts through the
+    default kernel route against the unstaged 8-prompt prefill at
+    ``ROUTE_ATOL``, the ``wgmma`` flash launches of each run by shape from
+    the wrapper's counters (one a layer a microbatch), and
+    ``evaluate_pp`` for gpipe and 1f1b at the stage cost measured there;
+    ``[dryrun]``, the port's dry-run, every cell in an interpreter of its
+    own, all started together: (a) qwen3-0.6b's train step at 8 x 512 on a
+    fake (1, 1) mesh, its predicted peak within 2x of [train]'s measured
+    one, its FLOPs at the bf16 peak beside [train]'s ms a step; (b)
+    qwen3-4b train_4k, mixtral-8x22b decode_32k, llama4-maverick
+    prefill_32k, zamba2-1.2b long_500k and whisper-tiny train_4k at data=16
+    x model=16, each timed, and ``roofline_table(analyze_all(...))`` over
+    them at ``H100``; (c) mixtral-8x22b decode_32k at
+    ``mesh_variant(32, 8)``; every cell a record, every FSDP record with a
+    nonzero all-gather; each phase's seconds, then the whole smoke's;
 13. ``flash_attention`` at the path shape by CUDA events, per wrapper
     call and per bare launch of the ``wgmma`` kernel, beside the bare
     launch of the FMA kernel (the earlier design, its output held to the
@@ -467,6 +490,8 @@ TRAIN_REPLAY = {"steps": 14, "ckpt_every": 4, "fail_at": (6, 11)}
 TRAIN_SLICE = {"batch": 8, "seq": 512, "steps": 20, "ckpt_every": 10,
                "fail_at": 13, "lr": 3e-3, "profile_steps": 3}
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+#: Where (d) keeps its checkpoints, which the [parallel] phase restores.
+SLICE_CKPT = TRAIN_DIR / "slice"
 
 #: The train phase's bounds: JAX's for two equivalent steps
 #: (``tests/test_train_step.py:85-87``: loss rtol 1e-5 for accumulation,
@@ -477,6 +502,50 @@ TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 TRAIN_STEP_TOL = {"loss": 1e-4, "accum_loss": 1e-5, "params": (2e-3, 2e-5)}
 REMAT_TOL = 1e-5
 REPLAY_TOL = (1e-5, 1e-6)
+
+#: The distribution phases.  [parallel]: a world of one over NCCL, a
+#: (1, 1) ("data", "model") mesh on the card; the [train] slice's last
+#: checkpoint restored twice, as DTensors laid out by ``param_shardings``
+#: and as plain tensors, then one AdamW step of each on a SyntheticLM batch
+#: of 8 x 512 (bf16, f32 moments, chunked); their losses within 1e-3
+#: relative and parameters at JAX's rtol 2e-3 / atol 2e-5; 3 more steps
+#: each way timed in turns; ``make_overlapped_matmul`` at qwen3-0.6b's MLP
+#: width against ``torch.matmul`` at ``MATMUL_RTOL``.
+PARALLEL = {"timed_steps": 3}
+PARALLEL_TOL = {"loss": 1e-3, "params": (2e-3, 2e-5)}
+OVERLAP_SHAPE = (4096, 1024, 3072)          # x (M, K) @ w (K, N), bf16
+#: [pipeline]: qwen3-0.6b's 28 layers in 2 stages (``stage_slices``), 4
+#: microbatches of 2 prompts of 512 through the default "kernel" route,
+#: against the unstaged 8-prompt prefill at ``ROUTE_ATOL``.
+PIPELINE = {"stages": 2, "micro": 4, "prompts": 8, "seq": 512}
+#: [dryrun]: (a) qwen3-0.6b's train step at the [train] slice's 8 x 512 on
+#: a fake (1, 1) mesh, its predicted peak within a factor of 2 of the
+#: slice's measured one; (b) published cells at data=16 x model=16; (c)
+#: one at mesh_variant(32, 8).  Each cell runs in an interpreter of its
+#: own (the fake process group is process-wide), all at once.
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("mixtral-8x22b", "decode_32k"),
+                ("llama4-maverick-400b-a17b", "prefill_32k"),
+                ("zamba2-1.2b", "long_500k"), ("whisper-tiny", "train_4k"))
+DRYRUN_VARIANT = ("mixtral-8x22b", "decode_32k", (32, 8))
+DRYRUN_PEAK_FACTOR = 2.0
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_CELL = r"""
+import json, sys
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+from repro_torch.configs import Shape
+from repro_torch.launch import dryrun
+spec = json.loads(sys.argv[2])
+dryrun.ARTIFACTS = Path(spec["artifacts"])
+rec = dryrun.run_cell(spec["arch"], spec["shape_name"], False,
+                      mesh_override=(tuple(spec["sizes"]),
+                                     tuple(spec["names"])),
+                      device=spec["device"], save=spec["save"],
+                      shape_override=(Shape(**spec["shape"])
+                                      if spec["shape"] else None))
+print("RECORD " + json.dumps(rec))
+"""
+
 
 #: The sweep-service phase: concurrent clients of (b) against the
 #: server's default ``max_concurrent`` (4), and where its files go (the
@@ -512,8 +581,17 @@ print(json.dumps({"cc": cc.as_dict(), "nvcc": build.BUILDS,
 """
 
 
+#: Every phase line also goes here, whole: a run's printed output is
+#: often read only from its end.
+PHASE_LOG = ROOT / "chiprun_out" / "chip_smoke_phases.log"
+
+
 def phase(name: str, text: str) -> None:
-    print(f"[{name}] {text}", flush=True)
+    line = f"[{name}] {text}"
+    print(line, flush=True)
+    PHASE_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with PHASE_LOG.open("a") as f:
+        f.write(line + "\n")
 
 
 def card_line() -> str:
@@ -2759,22 +2837,20 @@ def cost_model_flow(torch, configs, T, hlsreport, served):
             "rows": rows, "seconds": time.perf_counter() - t0}
 
 
-def probe_record(torch, T, configs, hlsreport, arch, n_layers):
-    """A dry-run-style probe record of ``arch`` at its published width and
-    ``n_layers`` layers, counted on meta by ``TorchCostModel``: a
+def probe_record(arch, n_layers):
+    """The dry-run's probe record of ``arch`` at its published width and
+    ``n_layers`` layers (``dryrun.run_cell`` on a fake (1, 1) mesh): a
     ``SERVE`` prompt's prefill, no collectives (one card)."""
-    model = meta_model(T, configs, arch, n_layers)
-    fn, args = meta_runs(torch, T, model)["prefill_512"]
-    a = hlsreport.TorchCostModel().analyze(fn, *args)
-    return {"n_layers": n_layers,
-            "cost_analysis": {"flops": a["flops"],
-                              "bytes accessed": a["bytes"]},
-            "collectives": {"wire_bytes": 0},
-            "flops_by_dtype": a["flops_by_dtype"]}
+    from repro_torch.configs import Shape
+    from repro_torch.launch import dryrun
+    return dryrun.run_cell(
+        arch, "prefill_32k", False, mesh_override=((1, 1), ("data", "model")),
+        save=False, probe_layers=n_layers,
+        shape_override=Shape("prefill_512", SERVE["prompt_len"], 1,
+                             "prefill"))
 
 
-def step_estimate_flow(torch, T, configs, hlsreport, steptask, roofline,
-                       arch, measured_s, full_layers):
+def step_estimate_flow(steptask, roofline, arch, measured_s, full_layers):
     """``[step estimate]``: probes at 1 and 2 layers, then
     ``estimate_step`` at the served depth against ``measured_s`` (the
     served prefill's device time) and at the published depth; each at the
@@ -2782,8 +2858,7 @@ def step_estimate_flow(torch, T, configs, hlsreport, steptask, roofline,
     estimator counts) and at a record whose peak is the f32 one (the rate
     of mixtral's f32 expert products)."""
     t0 = time.perf_counter()
-    p1, p2 = (probe_record(torch, T, configs, hlsreport, arch, n)
-              for n in (1, 2))
+    p1, p2 = (probe_record(arch, n) for n in (1, 2))
     hws = {"h100_bf16_peak": roofline.H100,
            "h100_f32_peak": dataclasses.replace(
                roofline.H100, name="h100_f32_peak",
@@ -3124,16 +3199,18 @@ def train_flow(torch, np, configs, T, failures):
     ls.LAUNCHES = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory(dir=TRAIN_DIR) as tmp:
-        free_gb = shutil.disk_usage(tmp).free / 1e9
-        t0 = time.perf_counter()
-        sup = Supervisor(timed, ds, tmp, ckpt_every=sl["ckpt_every"],
-                         keep=2, async_ckpt=True,
-                         injector=FailureInjector(at_steps=(sl["fail_at"],)))
-        model, state, rep = sup.run(model, state, sl["steps"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        kept = sorted(d.name for d in Path(tmp).iterdir())
+    # the slice's checkpoints stay for the [parallel] phase
+    shutil.rmtree(SLICE_CKPT, ignore_errors=True)
+    SLICE_CKPT.mkdir(parents=True)
+    free_gb = shutil.disk_usage(SLICE_CKPT).free / 1e9
+    t0 = time.perf_counter()
+    sup = Supervisor(timed, ds, str(SLICE_CKPT), ckpt_every=sl["ckpt_every"],
+                     keep=2, async_ckpt=True,
+                     injector=FailureInjector(at_steps=(sl["fail_at"],)))
+    model, state, rep = sup.run(model, state, sl["steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kept = sorted(d.name for d in SLICE_CKPT.iterdir())
     peak = torch.cuda.max_memory_allocated()
     launched = {**fa.LAUNCHES, **la.LAUNCHES, **bm.LAUNCHES, **ct.LAUNCHES,
                 "step_commit": ls.LAUNCHES}
@@ -3225,12 +3302,390 @@ def train_flow(torch, np, configs, T, failures):
     return out
 
 
+def parallel_flow(torch, np, configs, T, failures, ckpt_dir=SLICE_CKPT):
+    """``[parallel]``: the distribution layer on the card (a world of one
+    over NCCL, a (1, 1) mesh).  The [train] slice's last checkpoint
+    (``ckpt_dir``) restored with ``restore(shardings=param_shardings(...))``
+    as DTensors and again as plain tensors; one qwen3-0.6b AdamW step each
+    way at full width and depth, held to each other; ms a step and peak
+    memory each way; ``make_overlapped_matmul`` against ``torch.matmul``.
+    Every check that fails is added to ``failures``.  Returns the
+    summary."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as S
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    t_phase = time.perf_counter()
+    out = {"arch": TRAIN_ARCH}
+
+    def check(label, ok, detail):
+        phase("parallel check", f"{label}: {detail}: {ok}")
+        if not ok:
+            failures.append(f"parallel {label}: {detail}")
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_mod.mesh_variant(1, 1, device_type="cuda")
+        sl = TRAIN_SLICE
+        cfg = dataclasses.replace(configs.get_config(TRAIN_ARCH),
+                                  attn_impl="chunked")
+        plan = sh.plan_for(cfg)
+        tcfg = S.TrainConfig(opt=opt_mod.OptConfig(
+            lr=sl["lr"], warmup_steps=2, total_steps=sl["steps"]))
+        step_n = ckpt.latest_step(ckpt_dir)
+        meta = T.Transformer(cfg, device="meta")
+        like = {"params": meta,
+                "opt": opt_mod.init(tcfg.opt, dict(meta.named_parameters()))}
+        shardings = {"params": sh.param_shardings(cfg, mesh, plan, meta),
+                     "opt": sh.opt_shardings(cfg, mesh, plan, like["opt"])}
+        t0 = time.perf_counter()
+        laid = ckpt.restore(ckpt_dir, step_n, like, shardings=shardings)
+        restore_s = time.perf_counter() - t0
+        plain = ckpt.restore(ckpt_dir, step_n, like, device="cuda")
+        models = {}
+        for way, tree in (("dtensor", laid), ("plain", plain)):
+            model = T.Transformer(cfg, device="meta")
+            sh.set_parameters(model, tree["params"])
+            opt = tree["opt"]
+            if way == "dtensor":        # the step counter stays a scalar
+                opt = opt._replace(step=opt.step.to_local())
+            models[way] = [model, opt]
+        placed = all(
+            p.placements == shardings["params"][n].placements
+            for n, p in models["dtensor"][0].named_parameters())
+        ds = SyntheticLM(DataConfig(seq_len=sl["seq"], global_batch=sl["batch"],
+                                    vocab=cfg.vocab))
+        step_fn = S.make_train_step(cfg, tcfg)
+
+        def batch_for(way, n):
+            b = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in ds.global_batch(n).items()}
+            if way == "dtensor":
+                bsh = sh.batch_shardings(cfg, mesh, b)
+                b = {k: bsh[k].distribute(v) for k, v in b.items()}
+            return b
+
+        def run(way, n):
+            model, opt = models[way]
+            batch = batch_for(way, n)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            with implicit_replication():
+                e0.record()
+                model, opt, m = step_fn(model, opt, batch)
+                e1.record()
+            torch.cuda.synchronize()
+            models[way] = [model, opt]
+            loss = m["loss"]
+            loss = loss.full_tensor() if hasattr(loss, "full_tensor") \
+                else loss
+            return float(loss), e0.elapsed_time(e1)
+
+        first = {}
+        for way in ("dtensor", "plain"):
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            loss, ms = run(way, step_n)
+            first[way] = {"loss": loss, "first_step_ms": ms,
+                          "resident_bytes": before,
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+        loss_rel = abs(first["dtensor"]["loss"] - first["plain"]["loss"]) \
+            / abs(first["plain"]["loss"])
+        pd = dict(models["plain"][0].named_parameters())
+        ok, worst, where = True, 0.0, ""
+        for n, p in models["dtensor"][0].named_parameters():
+            local = p.to_local()
+            ok &= held(torch, local, pd[n], *PARALLEL_TOL["params"])
+            d = float((local.detach().float()
+                       - pd[n].detach().float()).abs().max())
+            if d > worst:
+                worst, where = d, n
+        check("(a) restore(shardings=)", placed, "every parameter a DTensor "
+              "in its param_shardings placements")
+        check("(a) step", loss_rel <= PARALLEL_TOL["loss"],
+              f"DTensor loss {first['dtensor']['loss']:.6f} vs plain "
+              f"{first['plain']['loss']:.6f}: within rtol "
+              f"{PARALLEL_TOL['loss']}")
+        check("(a) step", ok, f"updated parameters within rtol "
+              f"{PARALLEL_TOL['params'][0]} / atol "
+              f"{PARALLEL_TOL['params'][1]} (worst {worst:.3g} at {where})")
+        times = {"dtensor": [], "plain": []}
+        for i in range(PARALLEL["timed_steps"]):
+            for way in ("dtensor", "plain"):
+                times[way].append(run(way, step_n + 1 + i)[1])
+        tokens = sl["batch"] * sl["seq"]
+        out["step"] = {
+            "checkpoint_step": step_n, "restore_shardings_s": restore_s,
+            "n_layers": cfg.n_layers, "batch": [sl["batch"], sl["seq"]],
+            "dtype": str(cfg.dtype), "loss_rel_diff": loss_rel,
+            "param_max_abs_diff": worst, "param_worst": where,
+            **{f"{way}_{k}": v for way, d in first.items()
+               for k, v in d.items()},
+            **{f"{way}_step_ms": sorted(t)[len(t) // 2]
+               for way, t in times.items()},
+            **{f"{way}_tok_per_s": tokens / (sorted(t)[len(t) // 2] * 1e-3)
+               for way, t in times.items()},
+            "step_ms_by_turn": times}
+        phase("parallel step", json.dumps(out["step"]))
+        del models, laid, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # make_overlapped_matmul at qwen3-0.6b's MLP width
+        m_, k_, n_ = OVERLAP_SHAPE
+        gen = torch.Generator("cuda").manual_seed(7)
+        x = torch.randn((m_, k_), device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        w = torch.randn((k_, n_), device="cuda", generator=gen,
+                        dtype=torch.bfloat16)
+        wd = sh.NamedSharding(mesh, ("data", None)).distribute(w)
+        f = coll.make_overlapped_matmul(mesh, "data")
+        got = f(x, wd).to_local()
+        want = torch.matmul(x, w)
+        err = float((got.float() - want.float()).abs().max())
+        rtol = MATMUL_RTOL["bfloat16"]
+        check("(b) make_overlapped_matmul", held(torch, got, want, rtol,
+                                                 rtol),
+              f"x {tuple(x.shape)} @ w {tuple(w.shape)} bf16 against "
+              f"torch.matmul within {rtol} (max abs err {err:.3g})")
+        out["overlap"] = {"shape": list(OVERLAP_SHAPE), "max_abs_err": err,
+                          "ms": time_ms(lambda: f(x, wd), 20),
+                          "matmul_ms": time_ms(lambda: torch.matmul(x, w),
+                                               20)}
+        phase("parallel overlap", json.dumps(out["overlap"]))
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("parallel seconds", f"{out['seconds']:.1f} s")
+    return out
+
+
+def pipeline_flow(torch, np, configs, T, fa, failures):
+    """``[pipeline]``: qwen3-0.6b (full width and depth, bf16, the default
+    "kernel" route) prefilled whole and then staged (``staged_prefill``:
+    ``stage_slices`` into 2 stages, 4 microbatches): the staged logits
+    against the whole at ``ROUTE_ATOL``, the flash launches of each run by
+    shape from the wrapper's counters (one a layer a microbatch), and
+    ``evaluate_pp`` for gpipe and 1f1b at the stage cost measured here.
+    Returns the summary (its launches feed the kernels line)."""
+    from repro_torch.parallel import pipeline as pp
+    from repro_torch.roofline import H100
+
+    t_phase = time.perf_counter()
+    pl = PIPELINE
+    model, init_s = build_model(torch, configs, T, {"arch": TRAIN_ARCH})
+    cfg = model.cfg
+    rng = np.random.default_rng(11)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (pl["prompts"], pl["seq"]), dtype=np.int32),
+        device="cuda")}
+    clear, read = kernel_counters(torch, {"flash_attention": fa},
+                                  ("flash_attention",))
+    runs = {}
+    with torch.no_grad():
+        for name, fn in (("whole", lambda: T.prefill(model, batch,
+                                                       pl["seq"])),
+                         ("staged", lambda: pp.staged_prefill(
+                             model, batch, pl["seq"], pl["stages"],
+                             pl["micro"]))):
+            fn()                         # warm (builds, first launches)
+            torch.cuda.synchronize()
+            clear()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            logits, _ = fn()
+            e1.record()
+            torch.cuda.synchronize()
+            launches, shapes, variants = read()
+            runs[name] = {"logits": logits, "ms": e0.elapsed_time(e1),
+                          "launches": launches["flash_attention"],
+                          "shapes": shapes["flash_attention"],
+                          "variants": variants["flash_attention"]}
+    diff = float((runs["staged"]["logits"].float()
+                  - runs["whole"]["logits"].float()).abs().max())
+    atol = ROUTE_ATOL["bfloat16"]
+    out = {"arch": cfg.name, "stages": pl["stages"], "micro": pl["micro"],
+           "prompts": pl["prompts"], "seq": pl["seq"], "init_s": init_s,
+           "bounds": pp.stage_bounds(cfg.n_periods, pl["stages"]),
+           "logits_max_abs_diff": diff,
+           **{f"{n}_{k}": r[k] for n, r in runs.items()
+              for k in ("ms", "launches", "variants")},
+           "shapes": {n: {str(k): v for k, v in r["shapes"].items()}
+                      for n, r in runs.items()}}
+    checks = {
+        "logits": diff <= atol,
+        "whole launches": runs["whole"]["launches"] == cfg.n_layers
+        and len(runs["whole"]["shapes"]) == 1,
+        "staged launches": runs["staged"]["launches"]
+        == pl["micro"] * cfg.n_layers and len(runs["staged"]["shapes"]) == 1,
+        "microbatch shape": all(
+            k[0] * pl["micro"] == j[0] for k in runs["staged"]["shapes"]
+            for j in runs["whole"]["shapes"])}
+    for label, ok in checks.items():
+        phase("pipeline check", f"{label}: {ok}")
+        if not ok:
+            failures.append(f"pipeline {label}: {json.dumps(out)}")
+    # the stage cost: the staged run's device time over its units of one
+    # stage and one microbatch (equal stages); a backward of 2x the
+    # forward; the p2p send of one microbatch's activations computed at
+    # the H100 record's NVLink rate (not measured)
+    units = pl["stages"] * pl["micro"]
+    fwd = runs["staged"]["ms"] * 1e-3 / units
+    rows = pl["prompts"] // pl["micro"]
+    p2p = rows * pl["seq"] * cfg.d_model * 2 / H100.link_bw
+    out["evaluate_pp"] = {
+        sched: dataclasses.asdict(pp.evaluate_pp(pp.PPConfig(
+            pl["stages"], pl["micro"], fwd, 2 * fwd, p2p, sched)))
+        for sched in ("gpipe", "1f1b")}
+    out["stage_fwd_s"], out["p2p_s_computed"] = fwd, p2p
+    phase("pipeline", json.dumps(out))
+    del model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("pipeline seconds", f"{out['seconds']:.1f} s")
+    return out
+
+
+def dryrun_cells():
+    """The [dryrun] cells as specs for ``DRYRUN_CELL``: (a) the [train]
+    slice's shape on a (1, 1) mesh, (b) ``DRYRUN_CELLS`` at 16 x 16, (c)
+    ``DRYRUN_VARIANT``."""
+    sl = TRAIN_SLICE
+    base = {"artifacts": str(DRYRUN_DIR / "dryrun"), "device": "cuda",
+            "names": ["data", "model"]}
+    cells = [dict(base, label="(a)", arch=TRAIN_ARCH, shape_name="train_4k",
+                  sizes=[1, 1], save=False,
+                  shape={"name": "train_4k", "seq_len": sl["seq"],
+                         "global_batch": sl["batch"], "kind": "train"})]
+    cells += [dict(base, label="(b)", arch=a, shape_name=s, sizes=[16, 16],
+                   save=True, shape=None) for a, s in DRYRUN_CELLS]
+    a, s, sizes = DRYRUN_VARIANT
+    cells.append(dict(base, label="(c)", arch=a, shape_name=s,
+                      sizes=list(sizes), save=True, shape=None))
+    return cells
+
+
+def dryrun_flow(torch, train_summary, failures):
+    """``[dryrun]``: the port's dry-run on the card's machine, every cell
+    in an interpreter of its own, all started together.  (a) qwen3-0.6b's
+    train step at the [train] slice's shape on a fake (1, 1) mesh: its
+    predicted peak against the slice's measured one (gated within
+    ``DRYRUN_PEAK_FACTOR``), its FLOPs at the bf16 peak against the
+    measured ms a step; (b) the published cells at 16 x 16, each timed,
+    and ``roofline_table(analyze_all(...))`` over them with ``hw=H100``;
+    (c) one cell at ``mesh_variant(32, 8)``.  Gates: every cell yields a
+    record, every FSDP record has a nonzero all-gather."""
+    from repro_torch.roofline import model as rmodel
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for spec in dryrun_cells():
+        procs.append((spec, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CELL, str(ROOT / "src"),
+             json.dumps(spec)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env)))
+    records = []
+    for spec, t0, proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        wall = time.perf_counter() - t0
+        logs = ROOT / "chiprun_out" / "dryrun"
+        logs.mkdir(parents=True, exist_ok=True)
+        (logs / f"{spec['arch']}__{spec['shape_name']}__"
+                f"{'x'.join(map(str, spec['sizes']))}.log").write_text(
+            stdout + stderr)
+        rec = next((json.loads(line[len("RECORD "):])
+                    for line in stdout.splitlines()
+                    if line.startswith("RECORD ")), None)
+        label = f"{spec['label']} {spec['arch']} {spec['shape_name']} " \
+            f"{'x'.join(map(str, spec['sizes']))}"
+        if proc.returncode != 0 or rec is None:
+            failures.append(f"dryrun {label}: rc {proc.returncode}: "
+                            f"{stderr[-1500:]}")
+            phase("dryrun cell", f"{label}: FAILED rc {proc.returncode}")
+            continue
+        c = rec["collectives"]
+        row = {"cell": spec["label"], "arch": rec["arch"],
+               "shape": rec["shape"], "mesh": rec["mesh"],
+               "wall_s": wall, "lower_s": rec["lower_s"],
+               "fsdp": rec["plan"]["fsdp"], "remat": rec["plan"]["remat"],
+               "flops_per_device": rec["cost_analysis"]["flops"],
+               "bytes_per_device": rec["cost_analysis"]["bytes accessed"],
+               "per_op_bytes": c["per_op_bytes"],
+               "wire_bytes": c["wire_bytes"],
+               "peak_memory_in_bytes": rec["memory"][
+                   "peak_memory_in_bytes"],
+               "explicit_redistributes": len(rec["explicit_redistributes"]),
+               "explicit_redistribute_bytes": sum(
+                   d["operand_bytes"] for d in rec["explicit_redistributes"]),
+               "predicted_with": "TorchCostModel counts; roofline at "
+               "roofline.H100"}
+        phase("dryrun cell", json.dumps(row))
+        records.append((spec, rec, row))
+        if rec["plan"]["fsdp"] and not c["per_op_bytes"]["all-gather"] > 0:
+            failures.append(f"dryrun {label}: FSDP record without an "
+                            f"all-gather")
+    out = {"cells": [row for _, _, row in records]}
+    a = next((rec for spec, rec, _ in records if spec["label"] == "(a)"),
+             None)
+    measured = train_summary["slice"]["peak_bytes"] if train_summary \
+        else None
+    if a is not None and measured:
+        pred = a["memory"]["peak_memory_in_bytes"]
+        ratio = pred / measured
+        step_ms = train_summary["slice"]["step_ms_median"]
+        out["a"] = {"predicted_peak_bytes": pred,
+                    "measured_peak_bytes": measured,
+                    "predicted_over_measured": ratio,
+                    "flops_per_step": a["cost_analysis"]["flops"],
+                    "flops_at_bf16_peak_ms": a["cost_analysis"]["flops"]
+                    / PEAK_FLOPS["bfloat16"] * 1e3,
+                    "measured_step_ms": step_ms}
+        phase("dryrun (a)", json.dumps(out["a"]))
+        ok = 1 / DRYRUN_PEAK_FACTOR <= ratio <= DRYRUN_PEAK_FACTOR
+        phase("dryrun check", f"(a) predicted peak within "
+              f"{DRYRUN_PEAK_FACTOR}x of the measured: {ok}")
+        if not ok:
+            failures.append(f"dryrun (a): predicted peak {pred} vs measured "
+                            f"{measured}")
+    elif train_summary:
+        failures.append("dryrun (a): no record")
+    ok = len(records) == len(procs)
+    phase("dryrun check", f"every cell yields a record: {ok}")
+    rmodel.ARTIFACTS = DRYRUN_DIR
+    cells = rmodel.analyze_all(mesh_filter="data=16×model=16",
+                               hw=rmodel.H100)
+    out["roofline"] = [c.row() for c in cells]
+    for line in rmodel.roofline_table(cells).splitlines():
+        phase("dryrun roofline", line)
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("dryrun seconds", f"{out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
+    t_smoke = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    PHASE_LOG.unlink(missing_ok=True)
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: the port's sources are not under {src}",
@@ -3532,7 +3987,7 @@ def main() -> int:
                              "mixtral-8x22b": serve_mixtral})
     phase("cost model seconds", f"{costs['seconds']:.1f} s")
     estimate = step_estimate_flow(
-        torch, T, configs, hlsreport, steptask, roofline, "mixtral-8x22b",
+        steptask, roofline, "mixtral-8x22b",
         serve_mixtral["profile"]["prefill_512"]["device_s"],
         configs.get_config("mixtral-8x22b").n_layers)
     phase("step estimate seconds", f"{estimate['seconds']:.1f} s")
@@ -3540,7 +3995,14 @@ def main() -> int:
     # 12c. the train step on qwen3-0.6b at full width: card against CPU,
     # remat and accumulation, the supervisor's replay, then the slice at
     # full depth through the supervisor; it launches no kernel
-    train_flow(torch, np, configs, T, failures)
+    trained = train_flow(torch, np, configs, T, failures)
+
+    # 12d. the distribution layer: the slice's checkpoint restored as
+    # DTensors on a (1, 1) mesh over NCCL, a step each way; the staged
+    # prefill through the flash kernel; the dry-run's cells
+    parallel_flow(torch, np, configs, T, failures)
+    piped = pipeline_flow(torch, np, configs, T, fa, failures)
+    dryrun_flow(torch, trained, failures)
 
     # 13. the flash and linear-attention kernels' times at the path shapes
     frow = time_flash(torch, F, fa, ref, fcases[0])
@@ -3554,13 +4016,18 @@ def main() -> int:
         "fma_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:77",
         "launches": sum(run["launches"]["flash_attention"]
-                        for run in flash_served.values()),
+                        for run in flash_served.values())
+        + piped["whole_launches"] + piped["staged_launches"],
         "launches_by_path": {
-            path: run["launches"]["flash_attention"]
-            for path, run in flash_served.items()},
+            **{path: run["launches"]["flash_attention"]
+               for path, run in flash_served.items()},
+            "pipeline whole prefill": piped["whole_launches"],
+            "pipeline staged prefill": piped["staged_launches"]},
         "launches_by_kernel": {
-            path: run["variants"]["flash_attention"]
-            for path, run in flash_served.items()},
+            **{path: run["variants"]["flash_attention"]
+               for path, run in flash_served.items()},
+            "pipeline whole prefill": piped["whole_variants"],
+            "pipeline staged prefill": piped["staged_variants"]},
         "max_abs_err": flash_errs["path"],
         "ms": frow["ms"], "plain_ms": frow["plain_ms"],
         "bound_ms": frow["bound_ms"], "bound_by": frow["bound_by"],
@@ -3577,8 +4044,11 @@ def main() -> int:
         "timed_shape": frow["shape"], "timed_dtype": frow["dtype"],
         "library_call": frow["library_call"],
         "launches_by_shape": {
-            shape: n for run in flash_served.values()
-            for shape, n in run["shapes"]["flash_attention"].items()},
+            **{shape: n for run in flash_served.values()
+               for shape, n in run["shapes"]["flash_attention"].items()},
+            **{f"pipeline {name} {shape}": n
+               for name, shapes in piped["shapes"].items()
+               for shape, n in shapes.items()}},
         "max_abs_err_by_case": {**flash_errs, **route_errs},
         "path_shapes": [
             path_row(frow, serve, "flash_attention"),
@@ -3633,12 +4103,16 @@ def main() -> int:
     }
 
     # 14. the kernels line
-    print(json.dumps({"kernels": [kern] + tile_kernel_rows(rows, fig6, chol)
-                      + [flash, linear]}))
+    kernels_line = json.dumps({"kernels": [kern] + tile_kernel_rows(
+        rows, fig6, chol) + [flash, linear]})
+    print(kernels_line)
+    with PHASE_LOG.open("a") as f:
+        f.write(kernels_line + "\n")
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
         return 1
+    phase("smoke seconds", f"{time.perf_counter() - t_smoke:.1f} s")
     print(power_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

@@ -6,7 +6,7 @@
 # llama4-maverick), rwkv6-1.6b, zamba2-1.2b, whisper-tiny (encoder-decoder)
 # and pixtral-12b (patch tokens).
 from .registry import (SHAPES, Arch, Shape, arch_ids, get_arch, get_config,
-                       get_smoke, runnable, smoke_batch)
+                       get_smoke, input_specs, runnable, smoke_batch)
 
 _LOADED = False
 
@@ -22,4 +22,4 @@ def _load_all() -> None:
 
 
 __all__ = ["SHAPES", "Arch", "Shape", "arch_ids", "get_arch", "get_config",
-           "get_smoke", "runnable", "smoke_batch"]
+           "get_smoke", "input_specs", "runnable", "smoke_batch"]

@@ -1,19 +1,20 @@
 """Architecture registry and the assigned input-shape cells.
 
-The JAX package's registry (``repro/configs/registry.py``) without
-``input_specs``: the dry-run's ``ShapeDtypeStruct`` stand-ins wait for the
-port's dry-run (ROADMAP).  Every registered architecture provides its
-published full-size config and a reduced smoke config of the same family.
+The JAX package's registry (``repro/configs/registry.py``): every
+registered architecture provides its published full-size config and a
+reduced smoke config of the same family; :func:`input_specs` gives the
+dry-run's stand-ins for a cell's inputs, ``meta`` tensors where JAX has
+``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from ..models.layers import resolve_device
-from ..models.transformer import ModelConfig
+from ..models.transformer import ModelConfig, init_cache
 
 # --------------------------------------------------------------------------
 # Shape cells
@@ -90,6 +91,44 @@ def arch_ids() -> Tuple[str, ...]:
     from . import _load_all
     _load_all()
     return tuple(_REGISTRY)
+
+
+# --------------------------------------------------------------------------
+# Input specs (meta tensors: shapes and types, no allocation)
+# --------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: Shape) -> Dict[str, Any]:
+    """Stand-ins for every input of the step traced for this cell, on the
+    ``meta`` device, with the JAX package's keys:
+
+    train  → {"batch": {tokens, labels[, patches][, frames]}}
+    prefill→ {"batch": {tokens[, patches][, frames]}}
+    decode → {"tokens", "cache", "length"}
+
+    (the cache in the port's layout, ``transformer.init_cache``)."""
+    b, t = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": _meta((b, 1), torch.int32),
+                "cache": init_cache(cfg, b, t, device="meta"),
+                "length": _meta((), torch.int32)}
+
+    batch: Dict[str, Any] = {}
+    t_text = t
+    if cfg.patch_tokens:                     # VLM stub: patch embeddings
+        t_text = t - cfg.patch_tokens
+        batch["patches"] = _meta((b, cfg.patch_tokens, cfg.d_model),
+                                 cfg.dtype)
+    batch["tokens"] = _meta((b, t_text), torch.int32)
+    if cfg.is_enc_dec:                       # audio stub: frame embeddings
+        batch["frames"] = _meta((b, cfg.encoder_seq, cfg.d_model), cfg.dtype)
+    if shape.kind == "train":
+        batch["labels"] = _meta((b, t_text), torch.int32)
+    return {"batch": batch}
 
 
 def smoke_batch(cfg: ModelConfig, batch: int = 2, seq: int = 32,

@@ -234,14 +234,19 @@ def _tensors(tree):
         yield tree
 
 
-def _counting_mode():
+def _counting_mode(sharded: bool = False):
     """A ``TorchDispatchMode`` (built on first use, so that importing this
     module imports no torch) that adds up, per aten op: the bytes of its
     tensor inputs and outputs (views and bare allocations move none), the
     output elements of :data:`TRANSCENDENTAL_OPS`, and the FLOPs of
     ``torch.utils.flop_counter``'s formulas by the first operand's type.
     Any op whose output is not on ``meta`` raises: the count never
-    runs anything."""
+    runs anything.  An op on DTensors is left to DTensor (the handler
+    returns ``NotImplemented``), which runs it as ops on each rank's local
+    tensors and collectives: those are what is counted, so a ``sharded``
+    step's count is one device's (and the small host tensors DTensor
+    builds for its own shard arithmetic are not counted)."""
+    from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
 
@@ -254,11 +259,15 @@ def _counting_mode():
             self.ops = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
             outs = list(_tensors(out))
             for t in outs:
                 if t.device.type != "meta":
+                    if sharded:          # DTensor's index bookkeeping
+                        return out
                     raise ValueError(f"TorchCostModel counts on meta tensors;"
                                      f" {func} made a tensor on {t.device}")
             self.ops += 1
@@ -290,7 +299,10 @@ class TorchCostModel:
     output's shape only.  FLOPs come from
     ``torch.utils.flop_counter.FlopCounterMode`` (products only: matmuls,
     convolutions, attention), split by operand type with the same
-    formulas; bytes are each aten op's tensor inputs and outputs added
+    formulas (:meth:`analyze_sharded`: the same formulas on one rank's
+    local ops of a step on DTensors, a device's FLOPs, as the dry-run
+    records them); bytes are
+    each aten op's tensor inputs and outputs added
     up, an unfused upper bound like XLA-CPU's ``bytes accessed`` (a fused
     kernel reads and writes its intermediates in registers, not in HBM);
     transcendentals are the output elements of
@@ -312,6 +324,21 @@ class TorchCostModel:
         with FlopCounterMode(display=False) as flops, counting:
             fn(*args, **kwargs)
         return {"flops": float(flops.get_total_flops()),
+                "bytes": float(counting.bytes),
+                "transcendentals": float(counting.transcendentals),
+                "flops_by_dtype": {k: float(v) for k, v
+                                   in counting.flops_by_dtype.items()},
+                "ops": counting.ops}
+
+    def analyze_sharded(self, fn: Callable[..., Any], *args: Any,
+                        **kwargs: Any) -> Dict[str, Any]:
+        """:meth:`analyze` of a step on DTensors over ``meta`` local
+        tensors: one rank's local ops, FLOPs by the same formulas (the
+        sum over operand types), so the figures are one device's."""
+        counting = _counting_mode(sharded=True)
+        with counting:
+            fn(*args, **kwargs)
+        return {"flops": float(sum(counting.flops_by_dtype.values())),
                 "bytes": float(counting.bytes),
                 "transcendentals": float(counting.transcendentals),
                 "flops_by_dtype": {k: float(v) for k, v

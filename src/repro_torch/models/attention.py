@@ -142,6 +142,24 @@ def attention_decode(q, k_cache, v_cache, *,
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
+def write_cache(cache: torch.Tensor, idx: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """Write ``new (B, t, Hkv, Dh)`` into ``cache (B, S, Hkv, Dh)`` at the
+    positions ``idx (t,)``, in place.  A DTensor cache sharded along S (the
+    dry-run's sequence-sharded decode cache) has no sharding strategy for
+    ``index_copy_``, so it takes the write as a select over every position
+    (what a partitioned dynamic update of a sharded dim does); a plain
+    cache is written by ``index_copy_``."""
+    new = new.to(cache.dtype)
+    if not hasattr(cache, "placements"):
+        cache.index_copy_(1, idx, new)
+        return
+    pos = torch.arange(cache.shape[1], device=idx.device)
+    hit = (pos[:, None] == idx[None, :]).to(cache.dtype)      # (S, t)
+    cache.copy_(torch.where(hit.amax(dim=1)[None, :, None, None] > 0,
+                            torch.einsum("st,bthd->bshd", hit, new), cache))
+
+
 IMPLS = {"naive": attention_naive, "chunked": attention_chunked,
          "kernel": attention_kernel}
 
@@ -201,8 +219,8 @@ class Attention(nn.Module):
         else:
             length = torch.as_tensor(cache_length, device=x.device)
             idx = length - t + torch.arange(t, device=x.device)
-            kv_cache["k"].index_copy_(1, idx, k.to(kv_cache["k"].dtype))
-            kv_cache["v"].index_copy_(1, idx, v.to(kv_cache["v"].dtype))
+            write_cache(kv_cache["k"], idx, k)
+            write_cache(kv_cache["v"], idx, v)
             out = attention_decode(q, kv_cache["k"], kv_cache["v"],
                                    length=length, window=window, cap=cap)
             new_cache = kv_cache

@@ -1,6 +1,6 @@
-# Distribution layer of the port.  So far gradient compression alone
-# (compression.py, the JAX package's repro/parallel/compression.py); the
-# sharding rules, collectives and pipeline schedules are still to come.
-from . import compression
+# Distribution layer of the port (the JAX package's repro/parallel):
+# sharding rules (DP/TP/EP/SP/FSDP + pod axis) as DTensor specs,
+# overlap-friendly collectives, gradient compression, pipeline schedules.
+from . import collectives, compression, pipeline, sharding
 
-__all__ = ["compression"]
+__all__ = ["collectives", "compression", "pipeline", "sharding"]

@@ -15,19 +15,26 @@ D = global tokens), 2·N·D for prefill, 2·N·B for one decode step.  The
 ratio MODEL_FLOPS / FLOPs(global) shows how much counted compute is
 "useful"; ``roofline_fraction`` = ideal_time / max(term).
 
-A record has the dry-run's keys (``n_layers``, ``cost_analysis.flops``,
-``cost_analysis["bytes accessed"]``, ``collectives.wire_bytes``), which
-:func:`extrapolate_terms` and :mod:`repro_torch.core.steptask` read.  The
-reference's ``analyze_record``/``analyze_all``/``load_artifacts`` read
-the dry-run's artifacts and ``roofline/analytic.py``, and wait for the
-port's dry-run (ROADMAP 1.7).
+A record is one the dry-run (:mod:`repro_torch.launch.dryrun`) writes,
+with the JAX dry-run's keys (``n_layers``, ``cost_analysis.flops``,
+``cost_analysis["bytes accessed"]``, ``collectives.wire_bytes``, …), which
+:func:`extrapolate_terms`, :func:`analyze_record` and
+:mod:`repro_torch.core.steptask` read; :func:`analyze_all` reads the
+dry-run's artifacts under ``build/dryrun/`` (:data:`ARTIFACTS`; the JAX
+package's live under ``benchmarks/artifacts/``), and the memory term is
+:func:`repro_torch.roofline.analytic.min_traffic_seconds`.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 from typing import Dict, List, Optional
 
 from ..core.hlsreport import H100_SXM
+
+#: Where the port's dry-run writes its records (``dryrun/`` under it).
+ARTIFACTS = Path(__file__).resolve().parents[3] / "build"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +138,71 @@ def extrapolate_terms(probe1: Dict, probe2: Dict,
             out[k] = t2[k] * full_layers / l2
         else:
             out[k] = t1[k] + slope * (full_layers - l1)
+    return out
+
+
+def analyze_record(record: Dict, hw: HW = H100,
+                   probes: Optional[List[Dict]] = None) -> CellRoofline:
+    if probes and len(probes) >= 2:
+        ps = sorted(probes, key=lambda r: r["n_layers"])
+        terms = extrapolate_terms(ps[0], ps[-1],
+                                  record.get("full_n_layers",
+                                             record["n_layers"]))
+        flops_dev, bytes_dev, wire_dev = (terms["flops"], terms["bytes"],
+                                          terms["wire"])
+    else:
+        t = _terms_of(record)
+        flops_dev, bytes_dev, wire_dev = t["flops"], t["bytes"], t["wire"]
+    from .analytic import min_traffic_seconds
+
+    n_dev = int(record["n_devices"])
+    compute_s = flops_dev / hw.peak_flops
+    memory_hlo_s = bytes_dev / hw.hbm_bw
+    memory_s = min_traffic_seconds(record, hw)
+    collective_s = wire_dev / hw.link_bw
+    mf = model_flops(record)
+    hlo_global = flops_dev * n_dev
+    # ideal: the intrinsic limit — model FLOPs at peak, or the HBM-traffic
+    # floor, whichever binds.  fraction = 1 ⇔ counted compute and
+    # collectives hide entirely under that limit.
+    ideal = max(mf / (n_dev * hw.peak_flops), memory_s)
+    bound = max(compute_s, memory_s, collective_s, 1e-30)
+    peak = record["memory"].get("peak_memory_in_bytes")
+    return CellRoofline(
+        arch=record["arch"], shape=record["shape"], mesh=record["mesh"],
+        kind=record["kind"], tag=record.get("tag", ""), n_devices=n_dev,
+        compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
+        memory_hlo_s=memory_hlo_s,
+        model_flops=mf, hlo_flops_global=hlo_global,
+        useful_ratio=mf / max(hlo_global, 1e-30),
+        ideal_s=ideal, roofline_fraction=min(ideal / bound, 1.0),
+        peak_mem_gb=(peak / 1e9 if peak is not None else None),
+        fits=(peak <= hw.hbm_bytes if peak is not None else None))
+
+
+def load_artifacts(pattern: str = "*.json",
+                   subdir: str = "dryrun") -> List[Dict]:
+    out = []
+    for fn in sorted((ARTIFACTS / subdir).glob(pattern)):
+        out.append(json.loads(fn.read_text()))
+    return out
+
+
+def analyze_all(mesh_filter: Optional[str] = None,
+                hw: HW = H100) -> List[CellRoofline]:
+    """Pair every full-depth artifact with its probes; one row per cell."""
+    records = load_artifacts()
+    fulls = [r for r in records if not r.get("tag") and "skipped" not in r]
+    probes: Dict[tuple, List[Dict]] = {}
+    for r in records:
+        if r.get("tag", "").startswith("probe"):
+            probes.setdefault((r["arch"], r["shape"], r["mesh"]), []).append(r)
+    out = []
+    for r in fulls:
+        if mesh_filter and r["mesh"] != mesh_filter:
+            continue
+        key = (r["arch"], r["shape"], r["mesh"])
+        out.append(analyze_record(r, hw, probes=probes.get(key)))
     return out
 
 

@@ -22,8 +22,9 @@ same bytes JAX's ``arr.tobytes()`` hashes; nothing here needs
 POSIX), so a crash mid-write never corrupts the latest checkpoint;
 :func:`latest_step` ignores incomplete ``*.tmp-*`` dirs.  Restores are
 logical: :func:`restore` puts each leaf on ``device`` (the leaf's own
-device by default), :func:`restore_into` copies into the tensors of a
-live tree in place.
+device by default), or lays it out as a DTensor on a mesh, which may
+differ from the one that wrote it (``shardings``, elastic restore);
+:func:`restore_into` copies into the tensors of a live tree in place.
 """
 from __future__ import annotations
 
@@ -185,14 +186,28 @@ def _dtype(proto: Any) -> torch.dtype:
 
 
 def restore(directory: str | Path, step: int, like: Tree, *,
-            device=None, verify: bool = True) -> Tree:
+            shardings: Optional[Tree] = None, device=None,
+            verify: bool = True) -> Tree:
     """Load step ``step`` into the structure of ``like`` (a tree of
     tensors or numpy arrays, of which only shapes and types are read):
     each leaf a tensor of its ``like`` leaf's type on ``device``, or on
     the ``like`` leaf's device when ``device`` is None (the CPU for a
-    numpy leaf)."""
+    numpy leaf).  ``shardings`` — a tree of the same structure whose
+    leaves are :class:`~repro_torch.parallel.sharding.NamedSharding`
+    objects (``param_shardings``, ``opt_shardings``) — lays each leaf out as a
+    DTensor on its sharding's mesh instead (every rank reads the same
+    checkpoint)."""
+    by_key = dict(_flatten(shardings)) if shardings is not None else None
     leaves = {}
     for k, proto, t in _load(directory, step, like, verify):
+        if by_key is not None:
+            if k not in by_key:
+                raise ValueError(f"leaf {k}: no sharding for it in "
+                                 f"shardings")
+            sh = by_key[k]
+            leaves[k] = sh.distribute(t.to(device=sh.mesh.device_type,
+                                           dtype=_dtype(proto)))
+            continue
         dev = device if device is not None else getattr(proto, "device",
                                                          "cpu")
         leaves[k] = t.to(device=dev, dtype=_dtype(proto))

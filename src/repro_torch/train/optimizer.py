@@ -63,9 +63,12 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(cfg: OptConfig, params: Params) -> OptState:
-    """Zero moments in ``cfg.moment_dtype`` beside each parameter."""
+    """Zero moments in ``cfg.moment_dtype`` beside each parameter, laid
+    out as it is (a DTensor parameter's moments are DTensors with its
+    placements)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+        return torch.zeros_like(p, dtype=cfg.moment_dtype,
+                                memory_format=torch.contiguous_format)
     device = next(iter(params.values())).device if params else None
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
                     mu={k: zeros(p) for k, p in params.items()},

@@ -74,8 +74,20 @@ def value_and_grad(loss_fn: Callable, model: T.Transformer, batch: Batch
     grads = torch.autograd.grad(total, list(params.values()),
                                 allow_unused=True)
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
-            {name: torch.zeros_like(p) if g is None else g
+            {name: torch.zeros_like(p) if g is None else laid_out_like(g, p)
              for (name, p), g in zip(params.items(), grads)})
+
+
+def laid_out_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` in the placements of its DTensor parameter ``p``: autograd
+    leaves a sharded step's weight gradient a partial sum over the batch
+    axes, and this is its one reduction (the data-parallel all-reduce, or
+    the reduce-scatter of an FSDP-sharded weight), which XLA inserts for
+    JAX from the shardings.  A plain tensor is returned as it is."""
+    want = getattr(p, "placements", None)
+    if want is None or g.placements == want:
+        return g
+    return g.redistribute(p.device_mesh, want)
 
 
 def check_routes(cfg: T.ModelConfig) -> None:
@@ -89,7 +101,10 @@ def check_routes(cfg: T.ModelConfig) -> None:
 
 
 def _on(batch: Batch, device: torch.device) -> Batch:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    """The batch on ``device``; a DTensor batch (a sharded step's) stays
+    as it is laid out."""
+    return {k: v if hasattr(v, "placements") else
+            torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
 def make_train_step(cfg: T.ModelConfig, tcfg: TrainConfig
@@ -104,8 +119,7 @@ def make_train_step(cfg: T.ModelConfig, tcfg: TrainConfig
             return value_and_grad(loss_fn, model, batch)
         n = tcfg.accum_steps
         loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-        grads = {name: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+        grads = {name: torch.zeros_like(p, dtype=torch.float32)
                  for name, p in model.named_parameters()}
         for i in range(n):
             loss, _, mb_grads = value_and_grad(loss_fn, model,

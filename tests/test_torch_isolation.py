@@ -4,7 +4,8 @@
   ``jax``, ``jaxlib`` or any ``repro`` module (an AST scan of every
   import, lazy ones inside functions included).
 * A CPU sweep, CPU runs of the serving launcher (a dense arch, mixtral,
-  RWKV6 and pixtral), and the sweep service's CLI and one torch request through it,
+  RWKV6 and pixtral), the dry-run's CLI on qwen3-0.6b's train_4k cell,
+  and the sweep service's CLI and one torch request through it,
   through the port leave ``jax`` and ``repro`` out of ``sys.modules``
   (a fresh interpreter each); the sweep service leaves CUDA
   uninitialised.
@@ -62,8 +63,13 @@ def test_port_files_exist():
             "model.py", "hlsreport.py", "whisper_tiny.py",
             "pixtral_12b.py", "optimizer.py", "step.py", "data.py",
             "checkpoint.py", "supervisor.py", "compression.py",
-            "train.py"} <= names
+            "train.py", "sharding.py", "collectives.py", "pipeline.py",
+            "mesh.py", "dryrun.py", "analytic.py"} <= names
     port = REPO / "src" / "repro_torch"
+    for rel in ("parallel/sharding.py", "parallel/collectives.py",
+                "parallel/pipeline.py", "launch/mesh.py", "launch/dryrun.py",
+                "roofline/analytic.py"):
+        assert (port / rel).is_file(), rel
     assert (port / "serve" / "sweepd.py").is_file()
     assert (port / "serve" / "coalesce.py").is_file()
     assert (port / "core" / "paraver.py").is_file()
@@ -172,6 +178,33 @@ def test_cpu_pixtral_serve_launcher_leaves_jax_and_repro_unimported():
     out = serve_launcher_imports("pixtral-12b")
     assert "arch=pixtral-12b-smoke" in out
     assert "served 2 requests, 6 tokens" in out
+
+
+def test_cpu_dryrun_cli_leaves_jax_and_repro_unimported():
+    """``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape
+    train_4k --device cpu`` (the published config on a fake 16×16 mesh)
+    writes its record under ``build/dryrun/`` and imports neither
+    ``jax`` nor ``repro``."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['dryrun', '--arch', 'qwen3-0.6b', '--shape',\n"
+        "            'train_4k', '--device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.launch.dryrun',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as done:\n"
+        "    assert done.code == 0, done.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "             in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr[-3000:]
+    assert "[ok] qwen3-0.6b × train_4k × data=16×model=16" in out.stdout
+    assert (REPO / "build" / "dryrun"
+            / "qwen3-0.6b__train_4k__data=16×model=16.json").is_file()
 
 
 def test_import_reference_round_trip(tmp_path):
