@@ -95,7 +95,7 @@ from .hlsreport import KernelReport, ReportMap, ZYNQ_7045_BUDGET, fits
 from .simulator import SimResult, simulate
 from .taskgraph import TaskGraph
 from .trace import Trace
-from .. import DeviceError
+from .. import DeviceError, tracing
 from ..testing import faults
 
 # --- fault-tolerance bounds (see docs/architecture.md "Failure model") ---
@@ -1655,6 +1655,7 @@ class Explorer:
             return self._explore(candidates, top_k=top_k, prune=prune,
                                  deadline_s=deadline_s)
 
+    @tracing.spanned("sweep")
     def _explore(self, candidates: Sequence[Candidate], *,
                  top_k: Optional[int], prune: bool,
                  deadline_s: Optional[float]) -> ExplorationResult:
@@ -1704,43 +1705,44 @@ class Explorer:
                 n_workers)
             for base in range(0, len(cands), chunk):
                 batch: List[Tuple[int, Candidate]] = []
-                for i in range(base, min(base + chunk, len(cands))):
-                    cand = cands[i]
-                    tc = time.perf_counter()
-                    infeasible = self._infeasible_outcome(cand, tc)
-                    if infeasible is not None:
-                        outcomes[i] = infeasible
-                        continue
-                    if energy_cap is not None:
-                        # exact pre-cut composed with the lower-bound
-                        # machinery: energy >= static_w × makespan >=
-                        # static_w × lower_bound, so exceeding the cap
-                        # here is provable infeasibility, not a heuristic
-                        # prune (the graph/bound is cached work anyway)
-                        _, _, crit, lb, ghit = self._graph_for(cand)
-                        floor = self.hwspec.annotate(
-                            cand.system, 0.0, {}).static_w * lb
-                        if floor > energy_cap:
-                            outcomes[i] = CandidateOutcome(
-                                name=cand.name, status="infeasible",
-                                critical_path_s=crit, lower_bound_s=lb,
-                                cached_graph=ghit,
-                                error=f"energy_j lower bound {floor:.6g} "
-                                      f"exceeds budget {energy_cap:.6g}",
-                                analysis_seconds=time.perf_counter() - tc)
+                with tracing.span("sweep.prepare"):
+                    for i in range(base, min(base + chunk, len(cands))):
+                        cand = cands[i]
+                        tc = time.perf_counter()
+                        infeasible = self._infeasible_outcome(cand, tc)
+                        if infeasible is not None:
+                            outcomes[i] = infeasible
                             continue
-                    cut = threshold()
-                    if cut is not None:
-                        # the graph (hence the bound) is cached work anyway
-                        _, _, crit, lb, ghit = self._graph_for(cand)
-                        if lb > cut:
-                            outcomes[i] = CandidateOutcome(
-                                name=cand.name, status="pruned",
-                                critical_path_s=crit, lower_bound_s=lb,
-                                cached_graph=ghit,
-                                analysis_seconds=time.perf_counter() - tc)
-                            continue
-                    batch.append((i, cand))
+                        if energy_cap is not None:
+                            # exact pre-cut composed with the lower-bound
+                            # machinery: energy >= static_w × makespan >=
+                            # static_w × lower_bound, so exceeding the cap
+                            # here is provable infeasibility, not a heuristic
+                            # prune (the graph/bound is cached work anyway)
+                            _, _, crit, lb, ghit = self._graph_for(cand)
+                            floor = self.hwspec.annotate(
+                                cand.system, 0.0, {}).static_w * lb
+                            if floor > energy_cap:
+                                outcomes[i] = CandidateOutcome(
+                                    name=cand.name, status="infeasible",
+                                    critical_path_s=crit, lower_bound_s=lb,
+                                    cached_graph=ghit,
+                                    error=f"energy_j lower bound {floor:.6g} "
+                                          f"exceeds budget {energy_cap:.6g}",
+                                    analysis_seconds=time.perf_counter() - tc)
+                                continue
+                        cut = threshold()
+                        if cut is not None:
+                            # the graph (hence the bound) is cached work anyway
+                            _, _, crit, lb, ghit = self._graph_for(cand)
+                            if lb > cut:
+                                outcomes[i] = CandidateOutcome(
+                                    name=cand.name, status="pruned",
+                                    critical_path_s=crit, lower_bound_s=lb,
+                                    cached_graph=ghit,
+                                    analysis_seconds=time.perf_counter() - tc)
+                                continue
+                        batch.append((i, cand))
                 # engine demotion may have dropped self.fast / self.batch
                 # since the last chunk — re-resolve the dispatch each time.
                 # the lockstep batch engine composes with pruning now:
@@ -1805,18 +1807,21 @@ class Explorer:
         # sweep must account for its own batch only
         cache = {k: v - stats_before[k]
                  for k, v in self.stats.as_dict().items()}
-        result = ExplorationResult(
-            outcomes=done, wall_seconds=time.perf_counter() - t0,
-            policy=self.policy, n_workers=n_workers, top_k=top_k,
-            cache=cache, estimates=estimates,
-            objectives=list(self.objectives)
-            if self.objectives is not None else None,
-            budgets=self.budgets.as_dict()
-            if self.budgets is not None else None)
-        for rank, o in enumerate(result.ranked):
-            o.rank = rank
-        self._materialise_schedules(result, cands, estimates, kk)
-        self._save_orders()
+        with tracing.span("sweep.assemble"):
+            result = ExplorationResult(
+                outcomes=done, wall_seconds=time.perf_counter() - t0,
+                policy=self.policy, n_workers=n_workers, top_k=top_k,
+                cache=cache, estimates=estimates,
+                objectives=list(self.objectives)
+                if self.objectives is not None else None,
+                budgets=self.budgets.as_dict()
+                if self.budgets is not None else None)
+            for rank, o in enumerate(result.ranked):
+                o.rank = rank
+        with tracing.span("sweep.schedules"):
+            self._materialise_schedules(result, cands, estimates, kk)
+        with tracing.span("sweep.save_orders"):
+            self._save_orders()
         return result
 
     def _chunk_size(self, n_cands: int, prune: bool, procs: int,
@@ -1881,18 +1886,20 @@ class Explorer:
         # graph_key -> [(pos, cand, mem_key, disk_text, ghit)]
         pending: Dict[Tuple, List[Tuple]] = {}
         graph_info: Dict[Tuple, Tuple] = {}
-        for pos, (_, cand) in enumerate(batch):
-            tc = time.perf_counter()
-            gkey = _graph_key(cand.system, cand.eligibility)
-            payload, stats, crit, lb, ghit = self._graph_for(cand, gkey)
-            key, text, hit = self._sim_lookup(cand, gkey)
-            if hit is not None:
-                results[pos] = self._outcome_from_sim(
-                    cand, stats, crit, lb, ghit, True, hit,
-                    time.perf_counter() - tc)
-                continue
-            graph_info[gkey] = (payload, stats, crit, lb)
-            pending.setdefault(gkey, []).append((pos, cand, key, text, ghit))
+        with tracing.span("sweep.prepare"):
+            for pos, (_, cand) in enumerate(batch):
+                tc = time.perf_counter()
+                gkey = _graph_key(cand.system, cand.eligibility)
+                payload, stats, crit, lb, ghit = self._graph_for(cand, gkey)
+                key, text, hit = self._sim_lookup(cand, gkey)
+                if hit is not None:
+                    results[pos] = self._outcome_from_sim(
+                        cand, stats, crit, lb, ghit, True, hit,
+                        time.perf_counter() - tc)
+                    continue
+                graph_info[gkey] = (payload, stats, crit, lb)
+                pending.setdefault(gkey, []).append(
+                    (pos, cand, key, text, ghit))
 
         if not use_procs:                      # serial lockstep evaluation
             if self.engine == "torch" and self.torch_megabatch and pending:
@@ -1923,13 +1930,16 @@ class Explorer:
                                              items, results)
                     continue
                 share = (time.perf_counter() - t0) / max(len(items), 1)
-                for (pos, cand, key, text, ghit), sim in zip(items, sims):
-                    if not isinstance(sim, Retired):
-                        # a retirement marker is not a result: it must
-                        # never satisfy a later (possibly unpruned) lookup
-                        self._sim_store(key, text, sim)
-                    results[pos] = self._outcome_from_sim(
-                        cand, stats, crit, lb, ghit, False, sim, share)
+                with tracing.span("sweep.assemble"):
+                    for (pos, cand, key, text, ghit), sim in zip(items,
+                                                                 sims):
+                        if not isinstance(sim, Retired):
+                            # a retirement marker is not a result: it
+                            # must never satisfy a later (possibly
+                            # unpruned) lookup
+                            self._sim_store(key, text, sim)
+                        results[pos] = self._outcome_from_sim(
+                            cand, stats, crit, lb, ghit, False, sim, share)
             return results
         return self._evaluate_process_chunks(pending, graph_info, results)
 
@@ -2158,14 +2168,15 @@ class Explorer:
             **kw)
         n_total = sum(len(v) for v in pending.values()) or 1
         share = (time.perf_counter() - t0) / n_total
-        for gkey, sims in zip(gkeys, fam_sims):
-            _, stats, crit, lb = graph_info[gkey]
-            for (pos, cand, key, text, ghit), sim in zip(pending[gkey],
-                                                         sims):
-                if not isinstance(sim, Retired):
-                    self._sim_store(key, text, sim)
-                results[pos] = self._outcome_from_sim(
-                    cand, stats, crit, lb, ghit, False, sim, share)
+        with tracing.span("sweep.assemble"):
+            for gkey, sims in zip(gkeys, fam_sims):
+                _, stats, crit, lb = graph_info[gkey]
+                for (pos, cand, key, text, ghit), sim in zip(pending[gkey],
+                                                             sims):
+                    if not isinstance(sim, Retired):
+                        self._sim_store(key, text, sim)
+                    results[pos] = self._outcome_from_sim(
+                        cand, stats, crit, lb, ghit, False, sim, share)
         return results
 
     def _family_caps(self, cands: Sequence[Candidate]) \

@@ -65,6 +65,7 @@ from typing import (Callable, Dict, List, Mapping, Optional, Sequence, Set,
 
 import numpy as np
 
+from .. import tracing
 from .devices import SystemConfig
 from .fastsim import FrozenGraph, LanePruned, pool_layout, simulate_fast
 from .simulator import SimResult
@@ -416,6 +417,31 @@ def _serial_sim(fg: FrozenGraph, system, policy: str,
         return Retired(float(e.bound))
 
 
+def _exact(fg: FrozenGraph, system, policy: str,
+           prune: Optional[PruneContext], lane: int, **kw):
+    """:func:`_serial_sim` as span ``replay.exact``; returns the result
+    and the span, for :func:`_note`."""
+    with tracing.span("replay.exact") as sp:
+        return _serial_sim(fg, system, policy, prune, lane, **kw), sp
+
+
+#: The :class:`BatchStats` counter of each cause of an exact run.
+CAUSES = {"discover": "reference_lanes", "pinned": "order_pinned_lanes",
+          "small_group": "small_group_lanes",
+          "fallback": "serial_fallback_lanes"}
+
+
+def _note(stats: Optional[BatchStats], sp, cause: str) -> None:
+    """Count one lane's exact run under ``cause``: the ``cause`` of its
+    ``replay.exact`` span and the :class:`BatchStats` counter of
+    :data:`CAUSES`, together.  A retired run has none, but in a small
+    group, which counts its lanes whole."""
+    sp.set(cause=cause)
+    if stats is not None:
+        field = CAUSES[cause]
+        setattr(stats, field, getattr(stats, field) + 1)
+
+
 # ---------------------------------------------------------------------------
 # The multi-order replay library
 # ---------------------------------------------------------------------------
@@ -744,16 +770,15 @@ def simulate_grouped(fg: FrozenGraph, systems: Sequence[SystemConfig],
             stats.groups += 1
         if len(lanes) < min_lockstep:
             for i in lanes:
-                res = _serial_sim(fg, systems[i], policy, prune, i,
-                                  with_schedule=with_schedule)
+                res, sp = _exact(fg, systems[i], policy, prune, i,
+                                 with_schedule=with_schedule)
+                _note(stats, sp, "small_group")
                 results[i] = res
                 if isinstance(res, Retired):
                     if stats is not None:
                         stats.retired_lanes += 1
                 elif prune is not None:
                     prune.offer(systems[i].name, res.makespan)
-            if stats is not None:
-                stats.small_group_lanes += len(lanes)
             continue
         for i, sim in zip(lanes, replay_group(
                 fg, [systems[i] for i in lanes],
@@ -834,18 +859,17 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
             prune.offer(systems[i].name, results[i].makespan)
 
     def pinned_serial(i: int, hit: bool) -> None:
-        res = _serial_sim(fg, systems[i], policy, prune, i,
-                          with_schedule=with_schedule)
+        res, sp = _exact(fg, systems[i], policy, prune, i,
+                         with_schedule=with_schedule)
         results[i] = res
         if isinstance(res, Retired):
             if stats is not None:
                 stats.retired_lanes += 1
             return
         offer(i)
-        if stats is not None:
-            stats.order_pinned_lanes += 1
-            if hit:
-                stats.order_hits += 1
+        _note(stats, sp, "pinned")
+        if stats is not None and hit:
+            stats.order_hits += 1
 
     def sweep(lanes: List[int], position: int,
               from_cache: bool) -> List[int]:
@@ -898,9 +922,9 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
                 out0: List[int] = []
                 # the incumbent is still infinite here, but static energy
                 # caps can already retire a seed (budgeted mode)
-                res = _serial_sim(fg, systems[i], policy, prune, i,
-                                  with_schedule=with_schedule,
-                                  order_out=out0)
+                res, sp = _exact(fg, systems[i], policy, prune, i,
+                                 with_schedule=with_schedule,
+                                 order_out=out0)
                 results[i] = res
                 if isinstance(res, Retired):
                     if stats is not None:
@@ -910,11 +934,7 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
                 pos = lib.record(key, out0, sig_of[i])
                 if pos is not None:
                     order_by_pos[pos] = tuple(out0)
-                if stats is not None:
-                    if pos is None:
-                        stats.serial_fallback_lanes += 1
-                    else:
-                        stats.reference_lanes += 1
+                _note(stats, sp, "fallback" if pos is None else "discover")
             taken = set(seeds)
             pending = [i for i in pending if i not in taken]
 
@@ -973,22 +993,21 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
     while pending:
         if rounds >= max_rounds:
             for i in pending:
-                res = _serial_sim(fg, systems[i], policy, prune, i,
-                                  with_schedule=with_schedule)
+                res, sp = _exact(fg, systems[i], policy, prune, i,
+                                 with_schedule=with_schedule)
                 results[i] = res
                 if isinstance(res, Retired):
                     if stats is not None:
                         stats.retired_lanes += 1
                     continue
                 offer(i)
-                if stats is not None:
-                    stats.serial_fallback_lanes += 1
+                _note(stats, sp, "fallback")
             break
         i = max(pending, key=lambda j: (totals[j], j))
         pending.remove(i)
         out: List[int] = []
-        res = _serial_sim(fg, systems[i], policy, prune, i,
-                          with_schedule=with_schedule, order_out=out)
+        res, sp = _exact(fg, systems[i], policy, prune, i,
+                         with_schedule=with_schedule, order_out=out)
         results[i] = res
         rounds += 1
         if isinstance(res, Retired):
@@ -1004,23 +1023,18 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
             # provably a conservative false positive — pin the signature so
             # warm sweeps go straight to serial instead of re-diverging
             lib.pin_sig(key, sig_of[i])
-        if stats is not None:
-            if position is None:
-                stats.serial_fallback_lanes += 1    # key full: not recorded
-            else:
-                stats.reference_lanes += 1
+        _note(stats, sp, "fallback" if position is None else "discover")
         if position is None:
             for j in pending:
-                res = _serial_sim(fg, systems[j], policy, prune, j,
-                                  with_schedule=with_schedule)
+                res, sp = _exact(fg, systems[j], policy, prune, j,
+                                 with_schedule=with_schedule)
                 results[j] = res
                 if isinstance(res, Retired):
                     if stats is not None:
                         stats.retired_lanes += 1
                     continue
                 offer(j)
-                if stats is not None:
-                    stats.serial_fallback_lanes += 1
+                _note(stats, sp, "fallback")
             break
         order_by_pos[position] = tuple(out)
         # the first discovery's re-batch is the classic reference sweep;
@@ -1093,18 +1107,18 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
     def pr_of(gi: int) -> Optional[PruneContext]:
         return prunes[gi] if prunes is not None else None
 
-    def serial(gi: int, i: int, out: Optional[List[int]] = None
-               ) -> Union[SimResult, Retired]:
+    def serial(gi: int, i: int, out: Optional[List[int]] = None):
+        """The lane's exact run and its span (:func:`_exact`)."""
         fg, systems = items[gi]
         pr = pr_of(gi)
-        res = _serial_sim(fg, systems[i], policy, pr, i,
-                          with_schedule=with_schedule, order_out=out)
+        res, sp = _exact(fg, systems[i], policy, pr, i,
+                         with_schedule=with_schedule, order_out=out)
         if isinstance(res, Retired):
             if stats is not None:
                 stats.retired_lanes += 1
         elif pr is not None:
             pr.offer(systems[i].name, res.makespan)
-        return res
+        return res, sp
 
     # ---- plan: route every group's lanes to (order, cohort) ------------
     cohorts: List[Dict] = []
@@ -1118,9 +1132,8 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                 stats.groups += 1
             if len(lanes) < min_lockstep:
                 for i in lanes:
-                    results[gi][i] = serial(gi, i)
-                if stats is not None:
-                    stats.small_group_lanes += len(lanes)
+                    results[gi][i], sp = serial(gi, i)
+                    _note(stats, sp, "small_group")
                 continue
             key = lib.key(fg, layouts[lanes[0]], policy)
             pr = pr_of(gi)
@@ -1132,15 +1145,12 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                                                      i))[:pr.deficit()]
                 for i in seeds:
                     out0: List[int] = []
-                    results[gi][i] = serial(gi, i, out0)
+                    results[gi][i], sp = serial(gi, i, out0)
                     if isinstance(results[gi][i], Retired):
                         continue            # partial order: never recorded
                     pos0 = lib.record(key, out0, tuple(layouts[i][1]))
-                    if stats is not None:
-                        if pos0 is None:
-                            stats.serial_fallback_lanes += 1
-                        else:
-                            stats.reference_lanes += 1
+                    _note(stats, sp,
+                          "fallback" if pos0 is None else "discover")
                 taken = set(seeds)
                 lanes = [i for i in lanes if i not in taken]
                 if not lanes:
@@ -1154,11 +1164,11 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
             for i in lanes:
                 sig = tuple(layouts[i][1])
                 if sig in pins:
-                    results[gi][i] = serial(gi, i)
-                    if stats is not None and \
-                            not isinstance(results[gi][i], Retired):
-                        stats.order_pinned_lanes += 1
-                        stats.order_hits += 1
+                    results[gi][i], sp = serial(gi, i)
+                    if not isinstance(results[gi][i], Retired):
+                        _note(stats, sp, "pinned")
+                        if stats is not None:
+                            stats.order_hits += 1
                     continue
                 pos = sig_map.get(sig)
                 if pos is not None and 0 <= pos < len(orders):
@@ -1172,17 +1182,16 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                 # into the main dispatch
                 if max_rounds <= 0:
                     for i in unrouted:
-                        results[gi][i] = serial(gi, i)
-                        if stats is not None and \
-                                not isinstance(results[gi][i], Retired):
-                            stats.serial_fallback_lanes += 1
+                        results[gi][i], sp = serial(gi, i)
+                        if not isinstance(results[gi][i], Retired):
+                            _note(stats, sp, "fallback")
                     unrouted = []
                 else:
                     j = max(unrouted,
                             key=lambda i: (sum(layouts[i][1]), i))
                     unrouted.remove(j)
                     out: List[int] = []
-                    results[gi][j] = serial(gi, j, out)
+                    results[gi][j], sp = serial(gi, j, out)
                     grp["discoveries"] += 1
                     if isinstance(results[gi][j], Retired):
                         # the group's likeliest winner is already beaten:
@@ -1191,17 +1200,13 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                         pos = None
                     else:
                         pos = lib.record(key, out, tuple(layouts[j][1]))
-                        if stats is not None:
-                            if pos is None:
-                                stats.serial_fallback_lanes += 1
-                            else:
-                                stats.reference_lanes += 1
+                        _note(stats, sp,
+                              "fallback" if pos is None else "discover")
                     if pos is None:         # key full (shared library)
                         for i in unrouted:
-                            results[gi][i] = serial(gi, i)
-                            if stats is not None and \
-                                    not isinstance(results[gi][i], Retired):
-                                stats.serial_fallback_lanes += 1
+                            results[gi][i], sp = serial(gi, i)
+                            if not isinstance(results[gi][i], Retired):
+                                _note(stats, sp, "fallback")
                         unrouted = []
                     else:
                         order_by_pos[pos] = tuple(out)
@@ -1223,11 +1228,11 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
             grp = c["grp"]
             gi = grp["gi"]
             for i in c["lanes"]:
-                results[gi][i] = serial(gi, i)
-                if stats is not None and \
-                        not isinstance(results[gi][i], Retired):
-                    stats.order_pinned_lanes += 1
-                    if c["position"] < grp["n_cached"]:
+                results[gi][i], sp = serial(gi, i)
+                if not isinstance(results[gi][i], Retired):
+                    _note(stats, sp, "pinned")
+                    if stats is not None and \
+                            c["position"] < grp["n_cached"]:
                         stats.order_hits += 1
         cohorts = []
 
@@ -1267,29 +1272,26 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                 if stats is not None:
                     stats.diverged_lanes += 1
                 if grp["discoveries"] >= max_rounds:
-                    results[gi][i] = serial(gi, i)
-                    if stats is not None and \
-                            not isinstance(results[gi][i], Retired):
-                        stats.serial_fallback_lanes += 1
+                    results[gi][i], sp = serial(gi, i)
+                    if not isinstance(results[gi][i], Retired):
+                        _note(stats, sp, "fallback")
                     continue
                 # serial discovery: the lane's own order is recorded so
                 # the next sweep routes it (no rescue re-batch here)
                 out2: List[int] = []
-                results[gi][i] = serial(gi, i, out2)
+                results[gi][i], sp = serial(gi, i, out2)
                 grp["discoveries"] += 1
                 if isinstance(results[gi][i], Retired):
                     continue                # partial order: never recorded
                 pos2 = lib.record(key, out2, sig)
                 if pos2 is None:
-                    if stats is not None:
-                        stats.serial_fallback_lanes += 1
+                    _note(stats, sp, "fallback")
                     continue
                 if pos2 == c["position"]:
                     # its own recorded order is the one it just failed:
                     # provably a conservative false positive — pin it
                     lib.pin_sig(key, sig)
-                if stats is not None:
-                    stats.reference_lanes += 1
+                _note(stats, sp, "discover")
     return results  # type: ignore[return-value]
 
 

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from .. import DeviceError, default_device, require_cuda
+from .. import tracing
 from ..kernels import build as kbuild
 from ..kernels import lockstep_step as ls
 from ..kernels.lockstep_step import step_commit
@@ -230,8 +231,10 @@ class _State:
 
     def outputs(self) -> Tuple[np.ndarray, ...]:
         """Host copies of ``(div, makespan, busy, seen, placement)``."""
-        return tuple(t.to("cpu", copy=True).numpy() for t in (
-            self.div, self.makespan, self.busy, self.seen, self.placement))
+        with tracing.span("step.readback"):
+            return tuple(t.to("cpu", copy=True).numpy() for t in (
+                self.div, self.makespan, self.busy, self.seen,
+                self.placement))
 
 
 def _steps(xi: torch.Tensor, xf: torch.Tensor, xb: torch.Tensor,
@@ -614,6 +617,7 @@ _DEV_XS_CACHE_CAP = 16
 # ---------------------------------------------------------------------------
 
 
+@tracing.spanned("step_loop")
 def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
                                           Sequence[Layout],
                                           Optional[np.ndarray]]],
@@ -655,23 +659,26 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
     eft = policy == "eft"
 
     per = []
-    for fg, order, layouts, cuts in cohorts:
-        pool_names, _, kind_pool = layouts[0]           # template-shared
-        kinds = fg.kinds
-        caps = _pool_caps(fg, order, kind_pool, len(pool_names))
-        lane_counts = [lay[1] for lay in layouts]
-        per.append({
-            "fg": fg, "xs": _group_xs(fg, order, kind_pool), "cuts": cuts,
-            "pool_names": pool_names, "kind_pool": list(kind_pool),
-            "smp_kid": kinds.index("smp") if "smp" in kinds else -1,
-            "lane_counts": lane_counts,
-            # slot-axis need per lane: pool slot counts clamped to the
-            # dispatch caps (exact — see _pool_caps)
-            "needs": [max(1, max((min(int(c), int(caps[p]))
-                                  for p, c in enumerate(cnt)), default=1))
-                      for cnt in lane_counts],
-            "n": fg.n, "P": len(pool_names),
-        })
+    with tracing.span("step.stage"):
+        for fg, order, layouts, cuts in cohorts:
+            pool_names, _, kind_pool = layouts[0]       # template-shared
+            kinds = fg.kinds
+            caps = _pool_caps(fg, order, kind_pool, len(pool_names))
+            lane_counts = [lay[1] for lay in layouts]
+            per.append({
+                "fg": fg, "xs": _group_xs(fg, order, kind_pool),
+                "cuts": cuts,
+                "pool_names": pool_names, "kind_pool": list(kind_pool),
+                "smp_kid": kinds.index("smp") if "smp" in kinds else -1,
+                "lane_counts": lane_counts,
+                # slot-axis need per lane: pool slot counts clamped to
+                # the dispatch caps (exact — see _pool_caps)
+                "needs": [max(1, max((min(int(c), int(caps[p]))
+                                      for p, c in enumerate(cnt)),
+                                     default=1))
+                          for cnt in lane_counts],
+                "n": fg.n, "P": len(pool_names),
+            })
     G = len(per)
     n_max = max(c["n"] for c in per)
     P_max = max(c["P"] for c in per)
@@ -806,60 +813,65 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
 
     for sl, S_sl in slices:
         B = _bucket(len(sl), cap=chunk)
-        # pad lanes replicate the last real lane: finite, well-defined
-        # state whose results are simply dropped before assembly
-        padded = sl + [sl[-1]] * (B - len(sl))
-        g_np = np.fromiter((gi for gi, _ in padded), dtype=np.int64, count=B)
-        clocks = np.full((P_max, S_sl, B), np.inf)
-        for li, (gi, pos) in enumerate(padded):
-            for p, cnt in enumerate(per[gi]["lane_counts"][pos]):
-                clocks[p, :cnt, li] = 0.0
         try:
-            xi_d, xf_d, xb_d, kp_d, sk_d = _lane_aligned(g_np)
-            if cache is None:
-                st = _State(P_max, S_sl, B, n_max + 1, device)
-                st.reset(clocks)
-                _steps(xi_d, xf_d, xb_d, st, kp_d, sk_d, eft, K)
-                out = st.outputs()
-            else:
-                runner = _load_runner(cache, (P_max, S_sl, B, n_max + 1,
-                                              xi_d.shape[1], NK, K),
-                                      device, eft)
-                out = runner.run(xi_d, xf_d, xb_d, clocks, kp_d, sk_d)
+            with tracing.span("step.stage"):
+                # pad lanes replicate the last real lane: finite, well-
+                # defined state whose results are dropped before assembly
+                padded = sl + [sl[-1]] * (B - len(sl))
+                g_np = np.fromiter((gi for gi, _ in padded), dtype=np.int64,
+                                   count=B)
+                clocks = np.full((P_max, S_sl, B), np.inf)
+                for li, (gi, pos) in enumerate(padded):
+                    for p, cnt in enumerate(per[gi]["lane_counts"][pos]):
+                        clocks[p, :cnt, li] = 0.0
+                xi_d, xf_d, xb_d, kp_d, sk_d = _lane_aligned(g_np)
+                runner = None if cache is None else _load_runner(
+                    cache, (P_max, S_sl, B, n_max + 1, xi_d.shape[1], NK, K),
+                    device, eft)
+            with tracing.span("step.run"):
+                if runner is None:
+                    st = _State(P_max, S_sl, B, n_max + 1, device)
+                    st.reset(clocks)
+                    _steps(xi_d, xf_d, xb_d, st, kp_d, sk_d, eft, K)
+                    out = st.outputs()
+                else:
+                    out = runner.run(xi_d, xf_d, xb_d, clocks, kp_d, sk_d)
             div_np, mk_np, busy_np, seen_np, place_np = out
         except _CARD_ERRORS as exc:
             raise DeviceError(f"the device failed in the torch step loop "
                               f"on {device}: {exc}") from exc
-        for li, (gi, pos) in enumerate(sl):
-            if div_np[li]:
-                diverged[gi].append(pos)
-                continue
-            acc, c = accs[gi], per[gi]
-            cuts = c["cuts"]
-            if cuts is not None and mk_np[li] > cuts[pos]:
-                # post-scan retirement: the final makespan is its own
-                # (exact) bound, and it exceeds the incumbent cutoff
-                retired[gi][pos] = float(mk_np[li])
-                continue
-            acc["kept"].append(pos)
-            acc["mk"].append(mk_np[li:li + 1])
-            acc["busy"].append(busy_np[:c["P"], li:li + 1])
-            acc["seen"].append(seen_np[:c["P"], li:li + 1])
-            acc["place"].append(place_np[:c["n"], li:li + 1])
+        with tracing.span("step.classify"):
+            for li, (gi, pos) in enumerate(sl):
+                if div_np[li]:
+                    diverged[gi].append(pos)
+                    continue
+                acc, c = accs[gi], per[gi]
+                cuts = c["cuts"]
+                if cuts is not None and mk_np[li] > cuts[pos]:
+                    # post-scan retirement: the final makespan is its own
+                    # (exact) bound, and it exceeds the incumbent cutoff
+                    retired[gi][pos] = float(mk_np[li])
+                    continue
+                acc["kept"].append(pos)
+                acc["mk"].append(mk_np[li:li + 1])
+                acc["busy"].append(busy_np[:c["P"], li:li + 1])
+                acc["seen"].append(seen_np[:c["P"], li:li + 1])
+                acc["place"].append(place_np[:c["n"], li:li + 1])
 
     results: List[Tuple[Dict[int, SimResult], List[int],
                         Dict[int, float]]] = []
-    for gi, c in enumerate(per):
-        acc = accs[gi]
-        done: Dict[int, SimResult] = {}
-        if acc["kept"]:
-            done = lane_results(
-                c["fg"], c["pool_names"], c["lane_counts"], acc["kept"],
-                policy, np.concatenate(acc["mk"]),
-                np.concatenate(acc["busy"], axis=1),
-                np.concatenate(acc["seen"], axis=1),
-                np.concatenate(acc["place"], axis=1).astype(np.int64))
-        results.append((done, diverged[gi], retired[gi]))
+    with tracing.span("step.classify"):
+        for gi, c in enumerate(per):
+            acc = accs[gi]
+            done: Dict[int, SimResult] = {}
+            if acc["kept"]:
+                done = lane_results(
+                    c["fg"], c["pool_names"], c["lane_counts"], acc["kept"],
+                    policy, np.concatenate(acc["mk"]),
+                    np.concatenate(acc["busy"], axis=1),
+                    np.concatenate(acc["seen"], axis=1),
+                    np.concatenate(acc["place"], axis=1).astype(np.int64))
+            results.append((done, diverged[gi], retired[gi]))
     return results
 
 
