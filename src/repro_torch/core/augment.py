@@ -25,9 +25,13 @@ zero-costs them (meta ``conditional_on``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
+
 from .devices import SystemConfig
+from .fastsim import FrozenGraph
 from .hlsreport import KernelReport, ReportMap
 from .regions import Access, Direction, Region
 from .taskgraph import Task, TaskGraph
@@ -110,6 +114,8 @@ def build_graph(trace: Trace,
     data_pred = {t.uid: set(g.pred.get(t.uid, ())) for t in main}
 
     # ---- pass 2: augmentation tasks ---------------------------------------
+    # (mirrored as arrays by _Structure and TraceAnalysis.frozen_graph, held
+    # to this bit for bit by tests/test_torch_graphbuild.py)
     prev_create: Optional[int] = None
     for t in main:
         accel_kinds = tuple(k for k in t.devices if k != "smp")
@@ -190,8 +196,9 @@ def lower_bound_cost(task: Task) -> float:
     Conditional augmentation tasks (DMA submits/transfers that vanish when
     the compute task lands on the SMP) count zero — the simulator may
     zero-cost them, so charging them would overestimate and make pruning
-    unsafe.  The single source of truth for both the reference engine's
-    ``lower_bound_seconds`` and ``FrozenGraph.freeze``.
+    unsafe.  The single source of truth for the reference engine's
+    ``lower_bound_seconds`` and ``FrozenGraph.freeze``;
+    ``TraceAnalysis.frozen_graph`` applies the same rule to its rows.
     """
     if task.meta.get("conditional_on") is not None:
         return 0.0
@@ -213,3 +220,316 @@ def _writes_region(t: Task, key: object) -> bool:
 
 def _touches_region(t: Task, key: object) -> bool:
     return any(a.region.key == key for a in t.accesses)
+
+
+# ---------------------------------------------------------------------------
+# Direct assembly of FrozenGraph payloads
+# ---------------------------------------------------------------------------
+
+
+class TraceAnalysis:
+    """Everything :func:`build_graph` derives from the trace alone, once.
+
+    A co-design sweep builds one augmented graph per graph key (available
+    kinds × eligibility × the system's cost knobs), and every one of them
+    re-derives the same trace facts: each event's accesses, pass 1's
+    OmpSs edges, the producers of each read region and the consumers of
+    each written region, each event's SMP cost.  This holds them, and
+    :meth:`frozen_graph` assembles a key's :class:`FrozenGraph` arrays
+    straight from them, with no :class:`Task` or :class:`TaskGraph` on the
+    way.  The payload equals ``FrozenGraph.freeze(build_graph(...))`` with
+    the same arguments bit for bit, errors included; ``build_graph`` and
+    ``freeze`` stay the definition it is tested against.
+
+    The row structure (rows, edges, topological order) depends only on
+    which kernels have an accelerator kind and ``overlap_outputs``, so it
+    is kept per structure; a key adds its kinds, costs and the two
+    longest paths.  An :class:`Explorer` holds one analysis for its
+    lifetime and nothing outlives it.
+    """
+
+    def __init__(self, trace: Trace, *, smp_scale: float = 1.0,
+                 smp_cost: str = "per_instance", smp_seconds_fn=None):
+        events = trace.events
+        self.events = events
+        self.names = [ev.name for ev in events]
+        self.kernels = trace.names()
+        kidx = {k: i for i, k in enumerate(self.kernels)}
+        self.kernel_of = [kidx[name] for name in self.names]
+
+        # pass 1 of build_graph, through the same TaskGraph inference
+        g = TaskGraph()
+        for ev in events:
+            g.add_task(Task(uid=g.new_uid(), name=ev.name,
+                            accesses=accesses_of(ev)), infer_deps=True)
+        tasks = g.tasks
+        self.data_succ = [frozenset(g.succ.get(e, ()))
+                          for e in range(len(events))]
+        # (producers per read access, consumers per write access), in
+        # access order: what pass 2 links each DMA task to
+        self.reads: List[List[Tuple[int, ...]]] = []
+        self.writes: List[List[Tuple[int, ...]]] = []
+        for e in range(len(events)):
+            accs = tasks[e].accesses
+            pred = g.pred.get(e, ())
+            succ = self.data_succ[e]
+            self.reads.append([
+                tuple(p for p in pred
+                      if _writes_region(tasks[p], a.region.key))
+                for a in accs if a.reads])
+            self.writes.append([
+                tuple(s for s in succ
+                      if _touches_region(tasks[s], a.region.key))
+                for a in accs if a.writes])
+
+        # each event's SMP cost; None where smp_seconds_fn raised, called
+        # again where build_graph would ask for it, to raise afresh there
+        self.smp_seconds_fn = smp_seconds_fn
+        self.smp: List[Optional[float]] = []
+        mean_cost = trace.mean_smp_cost()
+        for ev in events:
+            if smp_seconds_fn is not None:
+                try:
+                    self.smp.append(float(smp_seconds_fn(ev)))
+                except Exception:           # noqa: BLE001 — deferred
+                    self.smp.append(None)
+            else:
+                base = (ev.elapsed_smp if smp_cost == "per_instance"
+                        else mean_cost[ev.name])
+                self.smp.append(base * smp_scale)
+        self._structures: Dict[Tuple, "_Structure"] = {}
+
+    def frozen_graph(self, system: SystemConfig, reports: ReportMap,
+                     eligibility: Eligibility) -> FrozenGraph:
+        """``FrozenGraph.freeze(build_graph(trace, system, reports,
+        eligibility, ...))`` with this analysis's trace and SMP model."""
+        available = set(system.all_kinds()) | {r.name for r in system.shared}
+        kinds_of = [tuple(k for k in eligibility.kinds_for(name)
+                          if k in available) for name in self.kernels]
+        accel_cost: List[Dict[str, float]] = []
+        for name, kinds in zip(self.kernels, kinds_of):
+            got = {}
+            for k in kinds:
+                rep = reports.get((name, k)) if k != "smp" else None
+                if rep is not None:
+                    got[k] = (rep.folded_cost if system.overlap_inputs
+                              else rep.compute_s)
+            accel_cost.append(got)
+
+        # the compute rows, event by event as pass 1 raises and costs them
+        n_ev = len(self.events)
+        ccosts: List[Dict[str, float]] = []
+        for e in range(n_ev):
+            ki = self.kernel_of[e]
+            kinds = kinds_of[ki]
+            if not kinds:
+                name = self.names[e]
+                raise ValueError(
+                    f"task {name!r}: no eligible device kind present in "
+                    f"system {system.name!r} (wanted "
+                    f"{eligibility.kinds_for(name)})")
+            acc = accel_cost[ki]
+            costs: Dict[str, float] = {}
+            for k in kinds:
+                if k == "smp":
+                    v = self.smp[e]
+                    costs["smp"] = v if v is not None else float(
+                        self.smp_seconds_fn(self.events[e]))
+                else:
+                    v = acc.get(k)
+                    if v is None:
+                        raise KeyError(f"no KernelReport for "
+                                       f"({self.names[e]!r}, {k!r})")
+                    costs[k] = v
+            ccosts.append(costs)
+
+        accel_of = [tuple(k for k in ks if k != "smp") for ks in kinds_of]
+        skey = (tuple(bool(a) for a in accel_of), system.overlap_outputs)
+        st = self._structures.get(skey)
+        if st is None:
+            st = self._structures.setdefault(skey, _Structure(self, *skey))
+        n = st.n
+
+        kinds: List[str] = []
+        kind_id: Dict[str, int] = {}
+        for k in [k for ks in kinds_of for k in ks] + list(st.aug_kinds):
+            if k not in kind_id:
+                kind_id[k] = len(kinds)
+                kinds.append(k)
+        ids_of = [[kind_id[k] for k in ks] for ks in kinds_of]
+        act_of = [[kind_id[k] for k in ks] for ks in accel_of]
+        # one cost per augmentation row: create → task_creation_cost,
+        # submit → dma_submit_cost, xfer_out → its kernel's first report's
+        # dma_out_s (build_graph's rep0)
+        dma_out = [reports[(name, acc[0])].dma_out_s if acc else None
+                   for name, acc in zip(self.kernels, accel_of)]
+        aug_val = (system.task_creation_cost, system.dma_submit_cost)
+        aug_cost = [aug_val[t] if t < 2 else dma_out[k]
+                    for t, k in zip(st.aug_type, st.aug_kernel)]
+
+        dev_kids = [k for ki in self.kernel_of for k in ids_of[ki]]
+        aug_kid = (kind_id.get("smp"), kind_id.get("submit"),
+                   kind_id.get("dma_out"))
+        dev_kids.extend(aug_kid[t] for t in st.aug_type)
+        dev_len = [len(ids_of[ki]) for ki in self.kernel_of]
+        dev_len.extend([1] * (n - n_ev))
+        act_kids = [k for ki in st.cond_kernel for k in act_of[ki]]
+        act_len = [0] * n
+        for r, ki in zip(st.cond_rows, st.cond_kernel):
+            act_len[r] = len(act_of[ki])
+
+        cost = np.full((n, len(kinds)), np.nan, dtype=np.float64)
+        ri: List[int] = []
+        ci: List[int] = []
+        cv: List[float] = []
+        cmin: List[float] = []
+        for e, costs in enumerate(ccosts):
+            for k, v in costs.items():
+                ri.append(e)
+                ci.append(kind_id[k])
+                cv.append(v)
+            cmin.append(min(costs.values()))
+        if n > n_ev:
+            ri.extend(range(n_ev, n))
+            ci.extend(aug_kid[t] for t in st.aug_type)
+            cv.extend(aug_cost)
+        if ri:
+            cost[ri, ci] = cv
+        cmin.extend(aug_cost)
+        # lower_bound_cost: conditional rows count zero
+        lmin = [0.0 if c >= 0 else m for c, m in zip(st.cond_of, cmin)]
+
+        # both longest paths in one pass over one topological order: a
+        # row's entry is the max over its predecessors (0.0 at a root),
+        # then its own cost is added
+        dc = list(st.entry)
+        dl = list(st.entry)
+        succ = st.succ
+        for u in st.order:
+            a = dc[u] = dc[u] + cmin[u]
+            b = dl[u] = dl[u] + lmin[u]
+            for v in succ[u]:
+                if a > dc[v]:
+                    dc[v] = a
+                if b > dl[v]:
+                    dl[v] = b
+
+        return FrozenGraph(
+            n=n, uid=np.arange(n, dtype=np.int64), names=st.names,
+            roles=st.roles, is_compute=st.is_compute.copy(),
+            creation_index=st.creation_index.copy(), cond=st.cond.copy(),
+            act_indptr=_indptr(act_len),
+            act_kids=np.asarray(act_kids, dtype=np.int64),
+            dev_indptr=_indptr(dev_len),
+            dev_kids=np.asarray(dev_kids, dtype=np.int64),
+            cost=cost, succ_indptr=st.succ_indptr.copy(),
+            succ_rows=st.succ_rows.copy(), n_pred=st.n_pred.copy(),
+            kinds=tuple(kinds),
+            stats={"n_tasks": n, "n_edges": st.n_edges,
+                   "per_name": dict(st.per_name), "n_roots": st.n_roots},
+            critical_path_s=max(dc, default=0.0),
+            lower_bound_s=max(dl, default=0.0))
+
+
+def _indptr(lengths: Sequence[int]) -> np.ndarray:
+    out = np.zeros(len(lengths) + 1, dtype=np.int64)
+    np.cumsum(lengths, out=out[1:])
+    return out
+
+
+class _Structure:
+    """The rows and edges of every graph whose kernels with an accelerator
+    kind and ``overlap_outputs`` are ``accel`` and ``overlap_outputs``:
+    pass 2 of :func:`build_graph` in the same row order, as indices.
+    Augmentation rows carry a type (0 create, 1 submit, 2 xfer_out) and
+    their kernel."""
+
+    def __init__(self, an: TraceAnalysis, accel: Tuple[bool, ...],
+                 overlap_outputs: bool):
+        n_ev = len(an.events)
+        names = list(an.names)
+        roles = ["compute"] * n_ev
+        owner = list(range(n_ev))
+        cond = [-1] * n_ev
+        succ = [set(s) for s in an.data_succ]
+        aug_type: List[int] = []
+        seen_kinds: List[str] = []
+
+        def row(role: str, typ: int, of: int, c: int) -> int:
+            names.append(f"{role}:{an.names[of]}")
+            roles.append(role)
+            owner.append(of)
+            cond.append(c)
+            succ.append(set())
+            aug_type.append(typ)
+            kind = ("smp", "submit", "dma_out")[typ]
+            if kind not in seen_kinds:
+                seen_kinds.append(kind)
+            return len(names) - 1
+
+        prev = None
+        for t in range(n_ev):
+            c = row("create", 0, t, -1)
+            if prev is not None:
+                succ[prev].add(c)
+            succ[c].add(t)
+            prev = c
+            if not accel[an.kernel_of[t]]:
+                continue
+            for producers in an.reads[t]:
+                s = row("submit_in", 1, t, t)
+                succ[c].add(s)
+                for p in producers:
+                    succ[p].add(s)
+                succ[s].add(t)
+            if not overlap_outputs:
+                for consumers in an.writes[t]:
+                    so = row("submit_out", 1, t, t)
+                    succ[t].add(so)
+                    xo = row("xfer_out", 2, t, t)
+                    succ[so].add(xo)
+                    for q in consumers:
+                        succ[xo].add(q)
+
+        n = len(names)
+        self.n = n
+        self.names = tuple(names)
+        self.roles = tuple(roles)
+        self.is_compute = np.zeros(n, dtype=bool)
+        self.is_compute[:n_ev] = True
+        self.creation_index = np.asarray(
+            [an.events[o].index for o in owner], dtype=np.int64)
+        self.cond_of = cond
+        self.cond = np.asarray(cond, dtype=np.int64)
+        self.aug_type = aug_type
+        self.aug_kernel = [an.kernel_of[o] for o in owner[n_ev:]]
+        self.aug_kinds = tuple(seen_kinds)
+        self.cond_rows = [r for r in range(n_ev, n) if cond[r] >= 0]
+        self.cond_kernel = [an.kernel_of[owner[r]] for r in self.cond_rows]
+
+        rows = [sorted(s) for s in succ]
+        self.succ = rows
+        self.succ_indptr = _indptr([len(s) for s in rows])
+        self.succ_rows = np.asarray([v for s in rows for v in s],
+                                    dtype=np.int64)
+        indeg = [0] * n
+        for v in self.succ_rows.tolist():
+            indeg[v] += 1
+        self.n_pred = np.asarray(indeg, dtype=np.int64)
+        self.n_edges = int(self.succ_rows.size)
+        self.n_roots = indeg.count(0)
+        self.entry = [-math.inf if d else 0.0 for d in indeg]
+        per_name: Dict[str, int] = {}
+        for name in names:
+            per_name[name] = per_name.get(name, 0) + 1
+        self.per_name = per_name
+
+        order = [u for u in range(n) if not indeg[u]]
+        for u in order:             # grows while it is walked (Kahn)
+            for v in rows[u]:
+                indeg[v] -= 1
+                if not indeg[v]:
+                    order.append(v)
+        if len(order) != n:
+            raise ValueError("task graph has a cycle")
+        self.order = order

@@ -81,7 +81,8 @@ from concurrent.futures.process import BrokenProcessPool
 from typing import (Any, Callable, Dict, Iterator, List, Mapping,
                     Optional, Sequence, Tuple, Union)
 
-from .augment import Eligibility, build_graph, lower_bound_cost
+from .augment import (Eligibility, TraceAnalysis, build_graph,
+                      lower_bound_cost)
 from .batchsim import BatchStats, simulate_batch
 from .devices import SystemConfig
 from .diskcache import DiskCache, sha256_text, trace_fingerprint
@@ -1142,6 +1143,9 @@ class Explorer:
                                         float, float]] = {}
         self._sims: Dict[Tuple, SimResult] = {}
         self._lock = threading.Lock()
+        # what every FrozenGraph of this trace shares, built on the first
+        # graph miss (see _graph_for); never shared between Explorers
+        self._analysis: Optional[TraceAnalysis] = None
         self._trace_fp: Optional[str] = None
         self._smp_tok: Optional[str] = None
         self._rep_tok: Optional[str] = None
@@ -1420,6 +1424,16 @@ class Explorer:
                 self.stats.graph_hits += 1
                 return (*self._graphs[key], True)
             self.stats.graph_misses += 1
+        with tracing.span("graph.build"):
+            return self._graph_miss(cand, key)
+
+    def _graph_miss(self, cand: Candidate, key: Tuple
+                     ) -> Tuple[object, Dict[str, object], float, float, bool]:
+        """A graph-cache miss: the disk tier, else a build.  The array
+        engines assemble their ``FrozenGraph`` straight from the trace
+        analysis (``TraceAnalysis.frozen_graph``, equal to freezing
+        ``build_graph``'s output); the reference engine builds the
+        ``TaskGraph`` it walks."""
         text = None
         if self._disk is not None:
             text = self._graph_disk_text(key)
@@ -1433,13 +1447,15 @@ class Explorer:
                 return (*entry, True)
             with self._lock:
                 self.stats.disk_misses += 1
-        g = build_graph(self.trace, cand.system, self.reports,
-                        cand.eligibility, smp_scale=self.smp_scale,
-                        smp_cost="mean", smp_seconds_fn=self.smp_seconds_fn)
         if self.fast:
-            fg = FrozenGraph.freeze(g)
+            fg = self._trace_analysis().frozen_graph(
+                cand.system, self.reports, cand.eligibility)
             entry = (fg, fg.stats, fg.critical_path_s, fg.lower_bound_s)
         else:
+            g = build_graph(self.trace, cand.system, self.reports,
+                            cand.eligibility, smp_scale=self.smp_scale,
+                            smp_cost="mean",
+                            smp_seconds_fn=self.smp_seconds_fn)
             entry = (g, g.subgraph_stats(), g.critical_path(),
                      lower_bound_seconds(g))
         if text is not None:
@@ -1448,6 +1464,14 @@ class Explorer:
             with self._lock:
                 self._graphs[key] = entry
         return (*entry, False)
+
+    def _trace_analysis(self) -> TraceAnalysis:
+        with self._lock:
+            if self._analysis is None:
+                self._analysis = TraceAnalysis(
+                    self.trace, smp_scale=self.smp_scale, smp_cost="mean",
+                    smp_seconds_fn=self.smp_seconds_fn)
+            return self._analysis
 
     # ------------------------------------------------------------------
     def evaluate(self, cand: Candidate) -> PerfEstimate:

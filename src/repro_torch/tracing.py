@@ -21,7 +21,9 @@ the workers of a process pool are not collected.
 
 The spans the port takes: ``sweep`` (``Explorer._explore``) with its
 children ``sweep.prepare``, ``sweep.assemble``, ``sweep.schedules`` and
-``sweep.save_orders``; ``replay.exact``, one lane's exact serial run,
+``sweep.save_orders``; ``graph.build``, each graph-cache miss of
+``Explorer._graph_for`` (the disk tier, else the build), inside
+``sweep.prepare``; ``replay.exact``, one lane's exact serial run,
 with ``cause`` one of ``discover``, ``pinned``, ``small_group`` and
 ``fallback`` (the :class:`~repro_torch.core.replay.BatchStats` counter
 that counts the lane; a run the pruning cutoff retired has none, but in

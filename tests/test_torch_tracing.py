@@ -126,6 +126,8 @@ def test_spans_nest_on_the_wall_clock(cholesky):
         assert pa <= a and b <= pb and pthread == thread
         if name in SWEEP_CHILDREN:
             assert pname == "sweep", name
+        elif name == "graph.build":
+            assert pname == "sweep.prepare"
         elif name == "step.readback":
             assert pname == "step.run"
         else:
