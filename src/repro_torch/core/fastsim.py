@@ -175,6 +175,8 @@ class FrozenGraph:
         state.pop("_batch_aux", None)   # batchsim constants likewise
         state.pop("_torch_xs", None)    # torchsim scan inputs likewise
         state.pop("_torch_caps", None)  # torchsim slot caps likewise
+        state.pop("_torch_own", None)   # torchsim own-order tables likewise
+        state.pop("_torch_rows", None)  # torchsim per-row inputs likewise
         state.pop("_bound_aux", None)   # retirement bound tables likewise
         state.pop("_serial_tails", None)    # serial-abort tail list likewise
         return state
@@ -182,7 +184,12 @@ class FrozenGraph:
     def _runtime(self):
         """Plain-python mirror of the hot arrays (numpy scalar indexing is
         ~10× slower than list indexing inside the event loop).  Adjacency and
-        device options come pre-sliced per row so the loop never re-slices."""
+        device options come pre-sliced per row so the loop never re-slices.
+        Per-row sequences are tuples (a row's activated kinds sorted and
+        unique, so equal sets are equal keys): CPython stops tracking a
+        tuple of numbers at its first collection, so a mirror does not add
+        four containers a row to the collector's oldest generation (whose
+        full collections it would otherwise bring on sooner)."""
         rt = getattr(self, "_rt", None)
         if rt is None:
             n = self.n
@@ -197,10 +204,13 @@ class FrozenGraph:
                 self.creation_index.tolist(),
                 self.cond.tolist(),
                 [devk[devi[i]] for i in range(n)],                  # dev_first
-                [devk[devi[i]:devi[i + 1]] for i in range(n)],      # dev_opts
-                [frozenset(actk[acti[i]:acti[i + 1]]) for i in range(n)],
-                self.cost.tolist(),
-                [succr[succi[i]:succi[i + 1]] for i in range(n)],   # succs
+                [tuple(devk[devi[i]:devi[i + 1]])
+                 for i in range(n)],                                # dev_opts
+                [tuple(sorted(set(actk[acti[i]:acti[i + 1]])))
+                 for i in range(n)],                                # act sets
+                list(map(tuple, self.cost.tolist())),
+                [tuple(succr[succi[i]:succi[i + 1]])
+                 for i in range(n)],                                # succs
                 self.n_pred.tolist(),
                 self.is_compute.tolist(),
                 self._rankmaps(),

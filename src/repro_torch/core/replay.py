@@ -37,10 +37,28 @@ lockstep costs more than the serial loop it replaces, so the library's win
 for such a lane is skipping it out of a doomed lockstep, not vectorising
 it.
 
+**Own-order lanes.**  A backend that can step a lane through its *own*
+heap order on its lane axis (the torch engine: a cohort whose order is
+``None``) supplies that as the ``own_order_fn`` seam of
+:func:`simulate_grouped` and :func:`simulate_many`.  With it, a lane the
+protocol would send to the exact serial path without recording an order
+— a small group, a pinned signature, a routed cohort too thin to replay,
+a serial fallback — steps its own order in lockstep instead, and so do,
+in the megabatch, a cold group's lanes after its first discovery.
+Discoveries still run serially and record their orders (a group's first,
+which seeds the library, and a lane that diverged from a replayed order:
+in the megabatch one a group, the rest marked for the seam
+(:meth:`ReplayLibrary.mark_own`, which nothing else reads) and stepped in
+their own orders), as does a lane that live-dispatches a row the
+reference raises on.  Routed cohorts of at least ``min_lockstep`` lanes still replay.
+Without the seam (the numpy backend), under pruning or when schedules
+are asked for, the protocol is the one above.
+
 This module owns the protocol (grouping, order selection, rescue, fallback,
-per-lane result assembly, the per-graph auxiliary constants) so the two
+per-lane result assembly, the per-graph auxiliary constants) so the
 backends can never disagree on it; each backend supplies only the inner
-``lockstep_fn`` that advances the stacked per-candidate state.
+``lockstep_fn`` that advances the stacked per-candidate state, and the
+torch engine its own-order seam.
 
 It also owns the **engine equivalence tiers**: the exact engines
 (``fast``/``batch``) are pinned bit-identical to the reference object
@@ -144,6 +162,11 @@ CohortSpec = Tuple[FrozenGraph, Tuple[int, ...], List[Layout],
 LockstepManyFn = Callable[[Sequence[CohortSpec]],
                           List[Tuple[Dict[int, SimResult], List[int],
                                      Dict[int, float]]]]
+# The own-order seam is a LockstepFn / LockstepManyFn that also takes
+# ``order=None``: each lane of such a cohort steps its own heap order, so
+# none diverges; the lanes it reports in the diverged list live-dispatched
+# a row the reference raises on (or never ran every row), for the exact
+# path to report.
 
 
 @dataclasses.dataclass
@@ -175,6 +198,11 @@ class BatchStats:
     ``retire_sweeps`` counts lockstep sweeps that retired at least one
     lane; ``incumbent_updates`` counts cutoff tightenings folded in from
     :class:`Incumbent` trackers (local and worker-side).
+
+    ``own_order_lanes`` (an event counter, overlapping
+    ``lockstep_lanes``) counts lanes a backend stepped through their own
+    heap order on its lane axis (the ``own_order_fn`` seam), not through
+    a replayed order.
     """
 
     groups: int = 0
@@ -189,6 +217,7 @@ class BatchStats:
     retired_lanes: int = 0
     retire_sweeps: int = 0
     incumbent_updates: int = 0
+    own_order_lanes: int = 0
 
     def as_dict(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
@@ -442,6 +471,38 @@ def _note(stats: Optional[BatchStats], sp, cause: str) -> None:
         setattr(stats, field, getattr(stats, field) + 1)
 
 
+def _own_results(out, lanes: Sequence[int], systems, results: List,
+                 exact: Callable, stats: Optional[BatchStats]) -> None:
+    """The seam's ``(done, diverged, retired)`` for ``lanes`` (positions
+    into ``systems``/``results``) stepped in their own orders: each done
+    lane a lockstep lane and an own-order one; a lane reported diverged
+    runs ``exact(i)``, which raises the reference's error or completes (a
+    ``fallback``)."""
+    done, bad, _ = out
+    for pos, sim in done.items():
+        i = lanes[pos]
+        results[i] = dataclasses.replace(sim, system=systems[i].name)
+        if stats is not None:
+            stats.lockstep_lanes += 1
+            stats.own_order_lanes += 1
+    for pos in bad:
+        results[lanes[pos]], sp = exact(lanes[pos])
+        _note(stats, sp, "fallback")
+
+
+def _own_order(fg: FrozenGraph, systems, layouts: Sequence[Layout],
+               lanes: Sequence[int], policy: str,
+               stats: Optional[BatchStats], own_fn: LockstepFn,
+               results: List) -> None:
+    """``lanes`` of one group through the backend's own-order seam, one
+    call (:func:`_own_results`)."""
+    if lanes:
+        _own_results(own_fn(fg, None, [layouts[i] for i in lanes], policy,
+                            None), lanes, systems, results,
+                     lambda i: _exact(fg, systems[i], policy, None, i),
+                     stats)
+
+
 # ---------------------------------------------------------------------------
 # The multi-order replay library
 # ---------------------------------------------------------------------------
@@ -484,7 +545,7 @@ CountsSig = Tuple[int, ...]
 
 
 class _LibraryEntry:
-    __slots__ = ("orders", "index", "sigs", "pins")
+    __slots__ = ("orders", "index", "sigs", "pins", "own")
 
     def __init__(self) -> None:
         self.orders: List[Tuple[int, ...]] = []
@@ -495,6 +556,10 @@ class _LibraryEntry:
         # smaller tie-break than a predecessor even in the lane's true
         # heap order) — route these straight to the exact serial path
         self.pins: Set[CountsSig] = set()
+        # signatures that diverged from a library order and were stepped
+        # in their own orders through a backend's own-order seam: only that
+        # seam reads this set (never exported, never a pin)
+        self.own: Set[CountsSig] = set()
 
 
 class ReplayLibrary:
@@ -600,6 +665,21 @@ class ReplayLibrary:
                 e.pins.add(sig)
                 if mark:
                     self._dirty.add((key[0], key[2]))
+
+    def mark_own(self, key: LibraryKey, sig: CountsSig) -> None:
+        """Remember that ``sig`` diverged from a library order and went to
+        the own-order seam, so the seam takes its lanes at once next time.
+        Nothing proves the signature unreplayable, so it is not a pin: the
+        routing without the seam ignores the mark and :meth:`export` leaves
+        it out."""
+        with self._lock:
+            self._entries.setdefault(key, _LibraryEntry()).own.add(sig)
+
+    def own_sigs(self, key: LibraryKey) -> Set[CountsSig]:
+        """Snapshot of the signatures :meth:`mark_own` marked."""
+        with self._lock:
+            e = self._entries.get(key)
+            return set() if e is None else set(e.own)
 
     def drop_graph(self, graph_hash: str) -> None:
         """Forget every entry (and pending write-back) of one graph — the
@@ -739,7 +819,8 @@ def simulate_grouped(fg: FrozenGraph, systems: Sequence[SystemConfig],
                      rescue_min: int = RESCUE_MIN,
                      schedule_free: bool = True,
                      prune: Optional[PruneContext] = None,
-                     lockstep_fn: LockstepFn
+                     lockstep_fn: LockstepFn,
+                     own_order_fn: Optional[LockstepFn] = None
                      ) -> List[Union[SimResult, Retired]]:
     """Schedule-free :class:`SimResult` per system, in input order.
 
@@ -752,9 +833,16 @@ def simulate_grouped(fg: FrozenGraph, systems: Sequence[SystemConfig],
     With a :class:`PruneContext` (``prune``), lockstep lanes may be
     retired mid-sweep and come back as :class:`Retired` markers instead of
     results; without one this never happens.
+
+    ``own_order_fn`` is a backend's own-order seam (module docstring):
+    small groups step their own orders through it, and so does every lane
+    :func:`replay_group` would send to the exact path without a
+    discovery.  It is not used with ``prune`` (retirement keeps the
+    routing above) or when schedules are asked for.
     """
     if policy not in ("availability", "eft"):
         raise ValueError(f"unknown policy {policy!r}")
+    own_fn = own_order_fn if prune is None and schedule_free else None
     results: List[Optional[Union[SimResult, Retired]]] = \
         [None] * len(systems)
     groups: Dict[Tuple, List[int]] = {}
@@ -769,6 +857,10 @@ def simulate_grouped(fg: FrozenGraph, systems: Sequence[SystemConfig],
         if stats is not None:
             stats.groups += 1
         if len(lanes) < min_lockstep:
+            if own_fn is not None:
+                _own_order(fg, systems, layouts, lanes, policy, stats,
+                           own_fn, results)
+                continue
             for i in lanes:
                 res, sp = _exact(fg, systems[i], policy, prune, i,
                                  with_schedule=with_schedule)
@@ -786,7 +878,8 @@ def simulate_grouped(fg: FrozenGraph, systems: Sequence[SystemConfig],
                 library=library, min_lockstep=min_lockstep,
                 max_rounds=max_rounds, rescue_min=rescue_min,
                 schedule_free=schedule_free,
-                prune=prune.subset(lanes) if prune is not None else None)):
+                prune=prune.subset(lanes) if prune is not None else None,
+                own_order_fn=own_fn)):
             results[i] = sim
     return results  # type: ignore[return-value]
 
@@ -800,7 +893,8 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
                  max_rounds: int = MAX_RESCUE_ROUNDS,
                  rescue_min: int = RESCUE_MIN,
                  schedule_free: bool = True,
-                 prune: Optional[PruneContext] = None
+                 prune: Optional[PruneContext] = None,
+                 own_order_fn: Optional[LockstepFn] = None
                  ) -> List[Union[SimResult, Retired]]:
     """One pool-template group through the multi-order replay protocol.
 
@@ -838,6 +932,13 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
     sweep), a phase-0 seeding pass runs that many of the most-parallel
     lanes — the likeliest winners — through the exact serial path first,
     recording their orders, so the main sweep starts with a live cutoff.
+
+    With the own-order seam ``own_order_fn`` (never with ``prune``:
+    :func:`simulate_grouped` passes it only without), every lane the
+    phases above would send to the exact path without a discovery —
+    pinned, in a thin routed cohort, or a serial fallback once the
+    rounds are spent or the library key is full — steps its own order
+    through the seam, in one call at the end.
     """
     lib = library if library is not None else ReplayLibrary()
     key = lib.key(fg, layouts[0], policy)
@@ -853,12 +954,16 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
     ever_diverged: Set[int] = set()
     failed_at: Dict[int, Set[int]] = {}     # lane -> positions it diverged on
     with_schedule = not schedule_free
+    own: List[int] = []                     # lanes for the own-order seam
 
     def offer(i: int) -> None:
         if prune is not None:
             prune.offer(systems[i].name, results[i].makespan)
 
     def pinned_serial(i: int, hit: bool) -> None:
+        if own_order_fn is not None:
+            own.append(i)
+            return
         res, sp = _exact(fg, systems[i], policy, prune, i,
                          with_schedule=with_schedule)
         results[i] = res
@@ -907,6 +1012,19 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
                     stats.diverged_lanes += 1
         ever_diverged.update(failed)
         return failed
+
+    def fallback(lanes: List[int]) -> None:
+        """``lanes`` on the exact path, nothing recorded."""
+        for i in lanes:
+            res, sp = _exact(fg, systems[i], policy, prune, i,
+                             with_schedule=with_schedule)
+            results[i] = res
+            if isinstance(res, Retired):
+                if stats is not None:
+                    stats.retired_lanes += 1
+                continue
+            offer(i)
+            _note(stats, sp, "fallback")
 
     # ---- phase 0: incumbent seeding (prune mode) ----------------------
     pending = list(range(len(systems)))
@@ -992,17 +1110,9 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
     rebatch_ok = True
     while pending:
         if rounds >= max_rounds:
-            for i in pending:
-                res, sp = _exact(fg, systems[i], policy, prune, i,
-                                 with_schedule=with_schedule)
-                results[i] = res
-                if isinstance(res, Retired):
-                    if stats is not None:
-                        stats.retired_lanes += 1
-                    continue
-                offer(i)
-                _note(stats, sp, "fallback")
-            break
+            if own_order_fn is None:
+                fallback(pending)
+            break                       # with the seam: own orders, below
         i = max(pending, key=lambda j: (totals[j], j))
         pending.remove(i)
         out: List[int] = []
@@ -1025,16 +1135,8 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
             lib.pin_sig(key, sig_of[i])
         _note(stats, sp, "fallback" if position is None else "discover")
         if position is None:
-            for j in pending:
-                res, sp = _exact(fg, systems[j], policy, prune, j,
-                                 with_schedule=with_schedule)
-                results[j] = res
-                if isinstance(res, Retired):
-                    if stats is not None:
-                        stats.retired_lanes += 1
-                    continue
-                offer(j)
-                _note(stats, sp, "fallback")
+            if own_order_fn is None:
+                fallback(pending)
             break
         order_by_pos[position] = tuple(out)
         # the first discovery's re-batch is the classic reference sweep;
@@ -1048,6 +1150,9 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
             pending = sweep(pending, position, from_cache=False)
             if len(pending) == before and rounds > 1:
                 rebatch_ok = False
+    if own_order_fn is not None:
+        _own_order(fg, systems, layouts, own + pending, policy, stats,
+                   own_order_fn, results)
     return results  # type: ignore[return-value]
 
 
@@ -1059,7 +1164,8 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                   library: Optional[ReplayLibrary] = None,
                   max_rounds: int = MAX_RESCUE_ROUNDS,
                   schedule_free: bool = True,
-                  prunes: Optional[Sequence[Optional[PruneContext]]] = None
+                  prunes: Optional[Sequence[Optional[PruneContext]]] = None,
+                  own_order_fn: Optional[LockstepManyFn] = None
                   ) -> List[List[Union[SimResult, Retired]]]:
     """Every ``(graph, systems)`` family of a sweep through **one** backend
     call — the megabatch form of :func:`simulate_grouped`.
@@ -1096,11 +1202,36 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
     (sharing a live :class:`Incumbent` across them); cohorts then ship
     per-lane cutoffs into the megabatch dispatch, and retired lanes come
     back as :class:`Retired` markers exactly as in :func:`replay_group`.
+
+    ``own_order_fn`` is a megabatch backend's own-order seam (module
+    docstring), which takes the replayed cohorts too: with it, the one
+    dispatch goes through it and carries, beside the replayed cohorts,
+    one own-order cohort per group, where every lane goes that the plan
+    above would send to the exact path without a replay — small groups,
+    pinned signatures, cohorts under ``min_lockstep``, serial fallbacks —
+    and a cold group's lanes after its one discovery (which seeds the
+    library), instead of riding the fresh order.  Unrouted lanes of a
+    group whose key holds orders still try the first one, unless the seam
+    took their signature before (:meth:`ReplayLibrary.mark_own`); of those
+    that diverge, the group discovers one (its most parallel) on the exact
+    path, which records a second order, and marks the rest for the seam,
+    which steps their own orders in a second dispatch.  The marks are no
+    pins: the routing without the seam and :meth:`ReplayLibrary.export`
+    ignore them, so a later ``batch`` sweep on the same library or disk
+    cache routes as if no torch sweep had marked anything.  So a group
+    makes at most one
+    discovery a call: a call from an empty library runs no lane on the
+    exact path but each group's first discovery, the next one each
+    diverging group's, and one whose library knows every signature none.
+    The seam is not used when any family is pruned (retirement keeps the
+    routing above) or when schedules are asked for.
     """
     if policy not in ("availability", "eft"):
         raise ValueError(f"unknown policy {policy!r}")
     lib = library if library is not None else ReplayLibrary()
     with_schedule = not schedule_free
+    own_fn = own_order_fn if schedule_free and (
+        prunes is None or all(p is None for p in prunes)) else None
     results: List[List[Optional[Union[SimResult, Retired]]]] = \
         [[None] * len(systems) for _fg, systems in items]
 
@@ -1122,6 +1253,7 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
 
     # ---- plan: route every group's lanes to (order, cohort) ------------
     cohorts: List[Dict] = []
+    groups: List[Dict] = []     # with the seam: each group's own lanes
     for gi, (fg, systems) in enumerate(items):
         layouts = [pool_layout(fg.kinds, s) for s in systems]
         fams: Dict[Tuple, List[int]] = {}
@@ -1130,12 +1262,20 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
         for lanes in fams.values():
             if stats is not None:
                 stats.groups += 1
+            key = lib.key(fg, layouts[lanes[0]], policy)
+            grp = {"gi": gi, "fg": fg, "key": key, "layouts": layouts,
+                   "n_cached": 0, "discoveries": 0, "own": [], "again": [],
+                   "diverged": []}
+            if own_fn is not None:
+                groups.append(grp)
             if len(lanes) < min_lockstep:
+                if own_fn is not None:
+                    grp["own"].extend(lanes)
+                    continue
                 for i in lanes:
                     results[gi][i], sp = serial(gi, i)
                     _note(stats, sp, "small_group")
                 continue
-            key = lib.key(fg, layouts[lanes[0]], policy)
             pr = pr_of(gi)
             if pr is not None and pr.deficit():
                 # phase-0 incumbent seeding, as in replay_group: the most-
@@ -1156,13 +1296,16 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                 if not lanes:
                     continue
             orders, sig_map, pins = lib.lookup(key)
-            grp = {"gi": gi, "fg": fg, "key": key, "layouts": layouts,
-                   "n_cached": len(orders), "discoveries": 0}
+            own_sigs = lib.own_sigs(key) if own_fn is not None else set()
+            grp["n_cached"] = len(orders)
             order_by_pos: Dict[int, Tuple[int, ...]] = dict(enumerate(orders))
             routed: Dict[int, List[int]] = {}
             unrouted: List[int] = []
             for i in lanes:
                 sig = tuple(layouts[i][1])
+                if sig in pins and own_fn is not None:
+                    grp["own"].append(i)
+                    continue
                 if sig in pins:
                     results[gi][i], sp = serial(gi, i)
                     if not isinstance(results[gi][i], Retired):
@@ -1173,14 +1316,19 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                 pos = sig_map.get(sig)
                 if pos is not None and 0 <= pos < len(orders):
                     routed.setdefault(pos, []).append(i)
+                elif sig in own_sigs:
+                    grp["own"].append(i)
                 else:
                     unrouted.append(i)
             if unrouted and not orders:
                 # cold group: one serial reference discovery (the
                 # most-parallel lane), everyone else rides its fresh order
                 # in the megabatch — replay_group's reference sweep folded
-                # into the main dispatch
-                if max_rounds <= 0:
+                # into the main dispatch (with the seam: steps its own)
+                if max_rounds <= 0 and own_fn is not None:
+                    grp["own"].extend(unrouted)
+                    unrouted = []
+                elif max_rounds <= 0:
                     for i in unrouted:
                         results[gi][i], sp = serial(gi, i)
                         if not isinstance(results[gi][i], Retired):
@@ -1202,7 +1350,11 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                         pos = lib.record(key, out, tuple(layouts[j][1]))
                         _note(stats, sp,
                               "fallback" if pos is None else "discover")
-                    if pos is None:         # key full (shared library)
+                    if own_fn is not None:
+                        # the rest step their own orders in the one
+                        # dispatch, not gambling on the fresh one
+                        grp["own"].extend(unrouted)
+                    elif pos is None:       # key full (shared library)
                         for i in unrouted:
                             results[gi][i], sp = serial(gi, i)
                             if not isinstance(results[gi][i], Retired):
@@ -1217,13 +1369,18 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                 # (the original reference), like phase 2's first trial
                 routed.setdefault(0, []).extend(unrouted)
             for pos, cl in routed.items():
+                if own_fn is not None and len(cl) < min_lockstep:
+                    grp["own"].extend(cl)
+                    continue
                 cohorts.append({"grp": grp, "position": pos,
                                 "order": order_by_pos[pos], "lanes": cl})
 
     # A megabatch below min_lockstep is a doomed sweep (the same economics
     # as replay_group's thin routed cohorts): route its lanes straight to
-    # the exact serial path instead.
-    if cohorts and sum(len(c["lanes"]) for c in cohorts) < min_lockstep:
+    # the exact serial path instead.  (With the seam every replayed
+    # cohort has min_lockstep lanes.)
+    if own_fn is None and cohorts \
+            and sum(len(c["lanes"]) for c in cohorts) < min_lockstep:
         for c in cohorts:
             grp = c["grp"]
             gi = grp["gi"]
@@ -1236,14 +1393,45 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                         stats.order_hits += 1
         cohorts = []
 
+    def discover(grp: Dict, i: int, position: int) -> None:
+        """Lane ``i`` of ``grp``, which diverged from the order at
+        ``position``, on the exact path with its order recorded."""
+        gi, key = grp["gi"], grp["key"]
+        sig = tuple(grp["layouts"][i][1])
+        out: List[int] = []
+        results[gi][i], sp = serial(gi, i, out)
+        grp["discoveries"] += 1
+        if isinstance(results[gi][i], Retired):
+            return                          # partial order: never recorded
+        pos = lib.record(key, out, sig)
+        if pos is None:
+            _note(stats, sp, "fallback")
+            return
+        if pos == position:
+            # its own recorded order is the one it just failed: provably
+            # a conservative false positive — pin it
+            lib.pin_sig(key, sig)
+        _note(stats, sp, "discover")
+
+    def own_spec(grp: Dict, lanes: List[int]) -> CohortSpec:
+        return (grp["fg"], None, [grp["layouts"][i] for i in lanes], None)
+
+    def own_finish(grp: Dict, lanes: List[int], out) -> None:
+        gi = grp["gi"]
+        _own_results(out, lanes, items[gi][1], results[gi],
+                     lambda i: serial(gi, i), stats)
+
     # ---- one megabatch dispatch for every cohort of every family -------
-    if cohorts:
-        outs = lockstep_many_fn(
+    owns = [g for g in groups if g["own"]]
+    if cohorts or owns:
+        outs = (own_fn or lockstep_many_fn)(
             [(c["grp"]["fg"], c["order"],
               [c["grp"]["layouts"][i] for i in c["lanes"]],
               None if pr_of(c["grp"]["gi"]) is None
               else pr_of(c["grp"]["gi"]).cutoffs(c["lanes"]))
-             for c in cohorts])
+             for c in cohorts] + [own_spec(g, g["own"]) for g in owns])
+        for g, out in zip(owns, outs[len(cohorts):]):
+            own_finish(g, g["own"], out)
         for c, (done, diverged, retired) in zip(cohorts, outs):
             grp = c["grp"]
             gi, key, layouts = grp["gi"], grp["key"], grp["layouts"]
@@ -1268,30 +1456,38 @@ def simulate_many(items: Sequence[Tuple[FrozenGraph,
                         stats.order_hits += 1
             for pos_l in diverged:
                 i = c["lanes"][pos_l]
-                sig = tuple(layouts[i][1])
                 if stats is not None:
                     stats.diverged_lanes += 1
-                if grp["discoveries"] >= max_rounds:
+                if own_fn is not None:
+                    grp["diverged"].append((i, c["position"]))
+                elif grp["discoveries"] >= max_rounds:
                     results[gi][i], sp = serial(gi, i)
                     if not isinstance(results[gi][i], Retired):
                         _note(stats, sp, "fallback")
-                    continue
-                # serial discovery: the lane's own order is recorded so
-                # the next sweep routes it (no rescue re-batch here)
-                out2: List[int] = []
-                results[gi][i], sp = serial(gi, i, out2)
-                grp["discoveries"] += 1
-                if isinstance(results[gi][i], Retired):
-                    continue                # partial order: never recorded
-                pos2 = lib.record(key, out2, sig)
-                if pos2 is None:
-                    _note(stats, sp, "fallback")
-                    continue
-                if pos2 == c["position"]:
-                    # its own recorded order is the one it just failed:
-                    # provably a conservative false positive — pin it
-                    lib.pin_sig(key, sig)
-                _note(stats, sp, "discover")
+                else:
+                    # serial discovery: the lane's own order is recorded
+                    # so the next sweep routes it (no rescue re-batch)
+                    discover(grp, i, c["position"])
+    # ---- with the seam: one discovery for each group whose lanes
+    # diverged (its most parallel such lane), the rest marked and in their
+    # own orders in a second dispatch ------------------------------------
+    for grp in groups:
+        lanes_d = grp["diverged"]
+        if not lanes_d:
+            continue
+        if grp["discoveries"] < max_rounds:
+            j, position = max(lanes_d, key=lambda d: (
+                sum(grp["layouts"][d[0]][1]), d[0]))
+            discover(grp, j, position)
+            lanes_d = [d for d in lanes_d if d[0] != j]
+        for i, _ in lanes_d:
+            lib.mark_own(grp["key"], tuple(grp["layouts"][i][1]))
+            grp["again"].append(i)
+    again = [g for g in groups if g["again"]]
+    if again:
+        outs = own_fn([own_spec(g, g["again"]) for g in again])
+        for g, out in zip(again, outs):
+            own_finish(g, g["again"], out)
     return results  # type: ignore[return-value]
 
 
@@ -1327,12 +1523,10 @@ def lane_results(fg: FrozenGraph, pool_names: Sequence[str],
     position.  ``system`` is left empty for the caller
     (:func:`replay_group`) to fill.
     """
-    rt = fg._runtime()
-    uids, comp_rows = rt[0], rt[12]
     kinds = fg.kinds
     P = len(pool_names)
-    comp_arr = np.asarray(comp_rows, dtype=np.int64)
-    comp_uids = [uids[i] for i in comp_rows]
+    comp_arr = np.flatnonzero(fg.is_compute)
+    comp_uids = fg.uid[comp_arr].tolist()
     kinds_obj = np.asarray(kinds, dtype=object)
     comp_place = placement[comp_arr]                   # [C, L]
     done: Dict[int, SimResult] = {}

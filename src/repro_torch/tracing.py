@@ -28,7 +28,8 @@ with ``cause`` one of ``discover``, ``pinned``, ``small_group`` and
 ``fallback`` (the :class:`~repro_torch.core.replay.BatchStats` counter
 that counts the lane; a run the pruning cutoff retired has none, but in
 a small group, which ``small_group_lanes`` counts whole);
-``step_loop`` (``torchsim._scan_cohorts``) with ``step.stage``,
+``step_loop`` (``torchsim._scan_cohorts``) with ``step.tables`` (one
+own-order cohort's tables, staged on the host), ``step.stage``,
 ``step.run`` (its ``step.readback``) and ``step.classify``.  Every span
 is the host's wall time: ``step.run`` includes the wait for the card,
 not the card's busy time, which only a device trace gives.

@@ -10,6 +10,7 @@ it with no other; each miss is one ``graph.build`` span inside
 ``sweep.prepare``.
 """
 import dataclasses
+import gc
 import importlib
 import itertools
 
@@ -91,6 +92,26 @@ def test_cholesky_fig9_keys_equal_the_definition(cholesky_trace):
         assert_same_graph(an.frozen_graph(system, reports, elig), ref)
     # a structure is kept per (accelerated kernels, output model) only
     assert len(an._structures) < len(keys)
+
+
+def test_runtime_mirror_rows_leave_the_collector(cholesky_trace):
+    """The plain-Python mirror ``simulate_fast`` runs on holds its rows'
+    options, activated kinds, costs and successors as tuples of numbers,
+    which the collector stops tracking: a sweep's mirrors bring on no
+    full collection.  Each row's activated kinds are its ``act_kids``,
+    sorted and unique."""
+    reports, keys = cholesky_keys()
+    system, elig = keys[-1]
+    fg = FrozenGraph.freeze(build_graph(cholesky_trace, system, reports,
+                                        elig))
+    rt = fg._runtime()
+    gc.collect()
+    rows = [x for field in rt[4:8] for x in field]
+    assert len(rows) == 4 * fg.n
+    assert all(type(x) is tuple and not gc.is_tracked(x) for x in rows)
+    for i in range(fg.n):
+        acts = fg.act_kids[fg.act_indptr[i]:fg.act_indptr[i + 1]]
+        assert rt[5][i] == tuple(sorted(set(acts.tolist())))
 
 
 @pytest.mark.parametrize("bs", [64, 128])

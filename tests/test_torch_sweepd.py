@@ -240,15 +240,22 @@ def test_repeat_requests_reuse_warm_library(engine):
     assert orders_after_first > 0              # first sweep discovered
     s, doc = svc.submit(body(engine=engine))
     assert s == 200
+    if engine == "torch":
+        # a torch sweep's replay counters are its own document's.  From
+        # an empty library it records one order a group (the rest of the
+        # group steps its own orders); the next records one more for
+        # each group whose lanes diverged from it, and the third none
+        assert doc["replay"]["order_hits"] > 0
+        assert doc["replay"]["own_order_lanes"] > 0
+        orders_after_first = svc.library.counts()["orders"]
+        s, doc = svc.submit(body(engine=engine))
+        assert s == 200
+        assert doc["replay"]["reference_lanes"] == 0
     assert svc.library.counts()["orders"] == orders_after_first
     if engine == "batch":
         # coalesced batches own the replay counters service-wide
         assert svc.coalescer.replay_stats()["order_hits"] > 0
         assert svc.health_doc()["replay"]["order_hits"] > 0
-    else:
-        # a torch sweep's replay counters are its own document's (its
-        # megabatch re-discovers pinned signatures, as the reference's does)
-        assert doc["replay"]["order_hits"] > 0
 
 
 def test_concurrent_torch_requests_share_the_engine(monkeypatch):

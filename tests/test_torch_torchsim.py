@@ -39,6 +39,16 @@ from repro_torch.testing import synth
 RTOL = 1e-6
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The step loop's tensors are small: one intra-op thread runs them
+    about as fast and leaves the cores to the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def jaxsim(monkeypatch):
     """``repro.core.jaxsim``, runnable on the installed JAX.
@@ -195,8 +205,21 @@ def test_torch_matches_jax_lax_engine(jaxsim, policy, smp):
                                   min_lockstep=2, stats=stats)
     assert_tier(got, want, ref_systems)
     assert_tier(got, fast_refs(fg_ref, ref_systems, policy), ref_systems)
-    # the same replay protocol routed the same lanes the same way
-    assert stats.as_dict() == stats_ref.as_dict()
+    # the same replay protocol routed the same lanes the same way, but
+    # that every lane the JAX engine finished on the exact path after a
+    # group's first discovery stepped its own order on the torch lane axis
+    exact = ("reference_lanes", "order_pinned_lanes",
+             "serial_fallback_lanes", "small_group_lanes")
+    moved = exact + ("lockstep_lanes", "own_order_lanes")
+    got_d, want_d = stats.as_dict(), stats_ref.as_dict()
+    assert {k: v for k, v in got_d.items() if k not in moved} == \
+        {k: v for k, v in want_d.items() if k not in moved}
+    assert got_d["reference_lanes"] >= 1
+    assert all(got_d[k] == 0 for k in exact[1:])
+    assert got_d["own_order_lanes"] == \
+        sum(want_d[k] for k in exact) - got_d["reference_lanes"]
+    assert got_d["lockstep_lanes"] == \
+        want_d["lockstep_lanes"] + got_d["own_order_lanes"]
     assert stats.lockstep_lanes > 0
 
 
@@ -255,9 +278,9 @@ def test_torch_pruned_top_k_matches_jax(jaxsim):
 
 
 def test_torch_divergent_lanes_fall_back_exactly():
-    """A wide slot ramp forces event-order divergence; diverged lanes are
-    re-simulated through the exact path (bit-identical), the rest stay in
-    the loop."""
+    """A wide slot ramp forces event-order divergence; diverged lanes
+    step their own heap orders in the loop, within the tier, and every
+    lane is counted once."""
     fg_ref, fg = both_frozen(40, True)
     ref_systems, systems = zynq_pair(range(1, 25))
     stats = replay.BatchStats()
@@ -315,7 +338,9 @@ def test_torch_raises_reference_error_on_live_bad_dispatch():
         torchsim.simulate_torch(fg, systems, device="cpu", min_lockstep=2)
 
 
-def test_scan_inputs_memoised_and_dropped_on_pickling():
+def test_scan_inputs_memoised_and_dropped_on_pickling(monkeypatch):
+    # inputs are staged where the process-wide device cache lacks them
+    monkeypatch.setattr(torchsim, "_DEV_XS_CACHE", collections.OrderedDict())
     _, fg = both_frozen(12, False)
     _, systems = zynq_pair(range(1, 9))
     first = torchsim.simulate_torch(fg, systems, device="cpu",
@@ -328,6 +353,7 @@ def test_scan_inputs_memoised_and_dropped_on_pickling():
     clone = pickle.loads(pickle.dumps(fg))
     assert not hasattr(clone, "_torch_xs")
     assert not hasattr(clone, "_torch_caps")
+    assert hasattr(fg, "_torch_rows") and not hasattr(clone, "_torch_rows")
 
 
 @pytest.mark.parametrize("n,cap,want", [

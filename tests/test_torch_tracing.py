@@ -16,13 +16,15 @@ import time
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch import tracing
 from repro_torch.apps import cholesky as ch
-from repro_torch.core import Explorer, a9_smp_seconds, devices, torchsim
-from repro_torch.core.augment import Eligibility
+from repro_torch.core import Explorer, a9_smp_seconds, torchsim
 from repro_torch.core import replay
 from repro_torch.core.replay import BatchStats, ReplayLibrary
+
+from own_order_common import cholesky_candidates
 
 #: ``replay.exact`` causes and the ``BatchStats`` counter of each.
 CAUSES = {"discover": "reference_lanes", "pinned": "order_pinned_lanes",
@@ -31,6 +33,16 @@ CAUSES = {"discover": "reference_lanes", "pinned": "order_pinned_lanes",
 
 SWEEP_CHILDREN = {"sweep.prepare", "sweep.assemble", "sweep.schedules",
                   "sweep.save_orders", "replay.exact", "step_loop"}
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The step loop's tensors are small: one intra-op thread runs them
+    about as fast and leaves the cores to the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -47,24 +59,11 @@ def cholesky():
     """The trace, the reports and ``(slots, candidate)`` pairs: each
     Fig. 9 design at 1..8 slots a pool, with the SMP and FPGA only (the
     SMP kept where a kernel has nothing else)."""
-    cands = []
-    for base in ch.candidates(bs=64):
-        for k in range(1, 9):
-            counts = {kind: n * k for kind, n
-                      in base.system.meta["accelerators"].items()}
-            fpga_only = Eligibility({
-                op: tuple(d for d in kinds if d != "smp") or kinds
-                for op, kinds in base.eligibility.kinds_by_kernel.items()})
-            for smp in (True, False):
-                name = f"{base.name}x{k}{'' if smp else '-fpga'}"
-                elig = base.eligibility if smp else fpga_only
-                cands.append((k, type(base)(
-                    name=name, system=devices.zynq_system(name, counts),
-                    eligibility=elig)))
-    return ch.trace_cholesky(n=512, bs=64), ch.report_map(bs=64), cands
+    return (ch.trace_cholesky(n=512, bs=64), ch.report_map(bs=64),
+            cholesky_candidates())
 
 
-def sweep(cholesky, library=None, slots=8, **kw):
+def sweep(cholesky, library=None, slots=8, prune=False, **kw):
     """One traced sweep; returns ``(records, batch stats, t0, t1)``, the
     two ``time.time_ns()`` reads taken around it."""
     trace, reports, cands = cholesky
@@ -75,7 +74,7 @@ def sweep(cholesky, library=None, slots=8, **kw):
     tracing.reset()
     tracing.enable()
     t0 = time.time_ns()
-    ex.explore(mine, top_k=3)
+    ex.explore(mine, top_k=3, prune=prune)
     t1 = time.time_ns()
     tracing.disable()
     return tracing.snapshot(), ex.batch_stats.as_dict(), t0, t1
@@ -134,6 +133,28 @@ def test_spans_nest_on_the_wall_clock(cholesky):
             assert pname == "step_loop", name
 
 
+@pytest.mark.parametrize("megabatch", [True, False],
+                         ids=["megabatch", "per_graph"])
+def test_own_order_tables_nest_inside_the_step_loop(cholesky, megabatch,
+                                                   monkeypatch):
+    """Each own-order cohort's tables are staged inside a ``step.tables``
+    span, a child of ``step_loop`` beside ``step.stage``, before the
+    cohort's slices run; groups under ``MIN_LOCKSTEP`` (4 slot counts)
+    step their own orders.  (Tables are staged where the device cache
+    lacks a call's blocks: here it starts empty.)"""
+    monkeypatch.setattr(torchsim, "_DEV_XS_CACHE", collections.OrderedDict())
+    records, stats, *_ = sweep(cholesky, slots=4, torch_megabatch=megabatch)
+    assert stats["own_order_lanes"] > 0
+    tables = [(i, r) for i, r in enumerate(records) if r[0] == "step.tables"]
+    assert tables
+    for i, (_, _, a, b, _, parent) in tables:
+        pname, _, pa, pb, _, _ = records[parent]
+        assert pname == "step_loop" and pa <= a <= b <= pb
+        runs = [r for r in records[i + 1:] if r[0] == "step.run"
+                and r[5] == parent]
+        assert runs and all(r[2] >= b for r in runs)
+
+
 def test_one_step_loop_span_per_scan(cholesky, monkeypatch):
     calls = []
     scan = torchsim._scan_cohorts
@@ -155,28 +176,45 @@ def test_one_step_loop_span_per_scan(cholesky, monkeypatch):
 @pytest.mark.parametrize("case", ["warm", "small_group", "fallback"])
 def test_exact_spans_count_as_batch_stats(cholesky, case, megabatch):
     """Each cause's ``replay.exact`` spans equal its ``BatchStats``
-    counter, sweep by sweep: a cold sweep, then two warm ones (the
-    library pins what the second discovers), sweeps of groups under
-    ``MIN_LOCKSTEP`` (4 slot counts), and with no discovery rounds."""
+    counter, sweep by sweep: a cold sweep, then two warm ones, then
+    pruned ones on the same library, until the library's pins run on the
+    exact path (per graph the first pruned sweep pins and runs them; the
+    megabatch pins what it discovers in the second and runs it in the
+    third), sweeps of groups under
+    ``MIN_LOCKSTEP`` (4 slot counts), and with no discovery rounds.  The
+    second warm sweep's diverged lanes, and the last two causes' lanes,
+    step their own orders on the lane axis (``own_order_lanes``); pinned,
+    small-group and fallback lanes reach the exact path only under
+    pruning, which keeps the routing without the own-order seam (a run
+    the cutoff retired has no cause)."""
     kw = {"torch_megabatch": megabatch}
     if case == "warm":
         lib = ReplayLibrary()
-        runs = [sweep(cholesky, lib, **kw) for _ in range(3)]
-    elif case == "small_group":
-        runs = [sweep(cholesky, slots=4, **kw)]
+        pruned = [False] * 3 + [True] * (3 if megabatch else 1)
+        runs = [sweep(cholesky, lib, prune=p, **kw) for p in pruned]
     else:
-        runs = [sweep(cholesky, max_rescue_rounds=0, **kw)]
+        extra = {"slots": 4} if case == "small_group" \
+            else {"max_rescue_rounds": 0}
+        pruned = [False, True]
+        runs = [sweep(cholesky, prune=p, **extra, **kw) for p in pruned]
     seen = collections.Counter()
-    for records, stats, _, _ in runs:
+    for (records, stats, _, _), p in zip(runs, pruned):
         got = exact_causes(records)
-        assert set(got) <= set(CAUSES)
+        assert set(got) <= set(CAUSES) | ({None} if p else set())
         for cause, counter in CAUSES.items():
             assert got[cause] == stats[counter], (cause, got, stats)
         seen.update(got)
     want = {"warm": {"discover"}, "small_group": {"small_group"},
             "fallback": {"fallback"}}[case]
     assert want <= set(seen)
-    if case == "warm" and megabatch:
+    if case != "warm":
+        records, stats, _, _ = runs[0]
+        assert not want & set(exact_causes(records))
+        assert stats["own_order_lanes"] > 0
+    else:
+        # the lanes that diverged in the second sweep step their own
+        # orders in the third; pruning runs the library's pins serially
+        assert runs[2][1]["own_order_lanes"] > 0
         assert seen["pinned"] > 0
 
 
