@@ -7,9 +7,9 @@ against its plain PyTorch version:
 * the co-design sweep (``repro_torch``: trace -> augmented task graph ->
   FrozenGraph -> candidate-axis lockstep replay -> ranked
   ExplorationResult) with ``Explorer(engine="torch")``, through the
-  hand-written step-commit kernel (each lane's pool split across a group
-  of up to 32 threads that reduce by warp shuffles), each result held
-  against the port's exact host engine (``engine="batch"``);
+  hand-written fused step kernel (a whole step of the scan, one block a
+  lane, one launch a step), each result held against the port's exact
+  host engine (``engine="batch"``);
 * the same sweep as a service (``repro_torch.serve.sweepd``): torch
   requests over HTTP to a server on the card, eight at once, and the
   CLI's server drained by SIGTERM;
@@ -74,8 +74,8 @@ Phases, one line each or more:
    registers and spills): ``lockstep_step.cu``, ``tiles.cu`` at ``TILE``
    64 and 128, ``flash_attention.cu``, ``flash_attention_wgmma.cu``,
    ``linear_attn.cu`` and ``linear_attn_tc.cu``;
-3. step_commit == plain PyTorch version, bit for bit, on seeded states at
-   the main path's shapes, with all-``inf`` pools and ties;
+3. the standalone step_commit == plain PyTorch version, bit for bit, on
+   seeded states, with all-``inf`` pools and ties;
 4. the tile kernels == plain versions within tolerance at every path
    shape: ``block_matmul`` at (64,64,64) and (128,128,128) in f32 and
    bf16, ``syrk_tile`` and ``gemm_update`` at (64, 64), ``trsm_tile`` at
@@ -115,13 +115,13 @@ Phases, one line each or more:
    ``matmul512_200_warm`` and ``cholesky512_48_cold`` eagerly
    (``torch_graphs=False``) and through the graphs of a fresh compile
    cache with a disk tier, then again warm: every result bit for bit,
-   the replay protocol's counts and the step-commit launches equal both
+   the replay protocol's counts and the fused step's launches equal both
    ways, steps/s and candidates/s each way, captures, replays and capture
    seconds, 0 captures on the warm repeat, and each graph's device time
    a step by CUDA events; then a second Python process sweeps the
    Cholesky ramp on that store with 0 ``nvcc`` builds and every runner a
    disk hit;
-6. the sweep service, with the step-commit counts set to 0 just before
+6. the sweep service, with the step launch counts set to 0 just before
    each torch request phase and read just after: (a) an in-process
    ``SweepServer`` on the card answers one torch request over HTTP, the
    matmul trace inline with its bs = 64 report, ``accs "1-100"`` (200
@@ -137,11 +137,19 @@ Phases, one line each or more:
    with the same best, and exits 0; (d) (b)'s best design through
    ``estimate`` (its makespan equal to ``batch``'s) and ``write_prv`` into
    ``chiprun_out/sweepd/``, and its Gantt chart;
-7. step_commit at every ``(P, S, B)`` the sweeps and the service launched
-   it at: kernel == plain version; per wrapper call and per bare launch
-   by CUDA events (two passes in turns), the device time of one bare
-   launch behind a device spin and by ``torch.profiler``'s rows, and the
-   bound at each;
+7. the fused step at every ``(P, S, B)`` the sweeps and the service
+   launched it at (phases 5 and 6 record the first slice of each step
+   runner's shape): kernel == the plain body (``torchsim._plain_step``:
+   on the card ~150 PyTorch kernels and the standalone commit a step)
+   through that whole slice, every field of the state bit for bit after
+   every 32 steps; a step through the wrapper, per bare launch and by
+   the plain body by CUDA events, the device time of one bare launch
+   behind a device spin and by ``torch.profiler``'s rows, and the whole
+   step's byte bound at each.
+   Then the standalone step_commit, which the path no longer launches:
+   kernel == plain version at the same ``(P, S, B)``, per wrapper call
+   and per bare launch by CUDA events (two passes in turns), the device
+   time of one bare launch and the bound, at the commonest;
 8. a warm Cholesky sweep plain and under ``torch.profiler`` (device busy
    share, kernels per step, the costliest host operations);
 9. Fig. 6 at n = 512: the estimator (traces plus ``Explorer(engine=
@@ -726,11 +734,206 @@ def kernel_times(ls, torch, np, shape):
             "bytes": commit_bytes(S, B, n_live)}
 
 
+def record_slices(torch, torchsim, slices):
+    """From now until the returned function is called, the first slice
+    each step runner's shape ``(P, S, B, rows)`` runs is kept in
+    ``slices``: copies, on the runner's device and taken before the slice
+    runs, of its packed step inputs, initial clocks, own-order lanes and
+    cohorts, pool map and SMP kinds, with the runner's ``eft`` and
+    ``K``."""
+    run = torchsim.StepRunner.run
+
+    def recorded(self, xi, xf, xb, clocks, kind_pool, smp_kid, npred=None,
+                 own=None, cohort=None):
+        st = self.state
+        key = (*st.clocks.shape, st.ready.shape[0])
+        if key not in slices:
+            dev = st.clocks.device
+
+            def copy(t):
+                return None if t is None else t.to(dev, copy=True)
+
+            slices.setdefault(key, {
+                "xi": copy(xi), "xf": copy(xf), "xb": copy(xb),
+                "clocks": clocks.copy(), "npred": copy(npred),
+                "own": copy(own), "cohort": copy(cohort),
+                "kind_pool": torch.empty_like(self.kind_pool).copy_(
+                    kind_pool),
+                "smp_kid": torch.empty_like(self.smp_kid).copy_(smp_kid),
+                "eft": self.eft, "K": self.K})
+        return run(self, xi, xf, xb, clocks, kind_pool, smp_kid, npred, own,
+                   cohort)
+
+    def stop():
+        torchsim.StepRunner.run = run
+
+    torchsim.StepRunner.run = recorded
+    return stop
+
+
+#: The fields a step writes (``torchsim._State``), compared bit for bit.
+STEP_FIELDS = ("clocks", "ready", "placement", "busy", "seen", "makespan",
+               "prev_rt", "prev_tb", "div", "npred", "key", "t")
+
+
+def same_on_card(a, b) -> bool:
+    """Equal bit for bit as values, NaN where the other has NaN."""
+    if a.dtype.is_floating_point:
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return bool((a == b).all())
+
+
+def fused_step_bytes(P: int, S: int, B: int, rows: int, K: int, NK: int,
+                     SC: int, n_own: int) -> int:
+    """Bytes a whole step must move, each read once and written once: the
+    heap keys of the ``n_own`` own-order lanes (the pop's first minimum);
+    and per lane its row's packed words (``4 + 2K + SC`` int64, ``2 NK``
+    f64, ``3 + NK`` bools), every pool's S clocks (each pool's first free
+    slot for ``choose``), its pool map row and SMP kind, its scalars
+    (``cohort``, ``own``, ``ran``, ``gone`` read; ``t``, ``makespan``,
+    ``prev_rt``, ``prev_tb``, ``div`` read and written), ``ready[r]`` and
+    the conditional parent's placement read and ``r``'s written, the
+    commit (a clock and a seen entry written, a busy entry read and
+    written), the leaving row's key and npred written, and each
+    successor's ready and npred read and written and its key written."""
+    row = (4 + 2 * K + SC) * 8 + 2 * NK * 8 + (3 + NK)
+    scalars = 8 + 1 + 4 + 8 + 2 * (8 + 8 + 8 + 8 + 1)
+    lane = (row + P * S * 8 + NK * 8 + 8 + scalars + 8 + 4 + 4
+            + (8 + 1 + 16) + (8 + 4) + SC * (16 + 8 + 8))
+    return n_own * rows * 8 + B * lane
+
+
+def fused_states(torchsim, key, snap):
+    """Two scan states of shape ``key`` at ``snap``'s slice start."""
+    P, S, B, rows = key
+    out = []
+    for _ in range(2):
+        st = torchsim._State(P, S, B, rows, snap["xi"].device)
+        st.reset(snap["clocks"], snap["npred"], snap["own"], snap["cohort"])
+        out.append(st)
+    return out
+
+
+def fused_check(torch, torchsim, ls, key, snap):
+    """The fused step against the plain body on the card (~150 PyTorch
+    kernels and the standalone commit a step) through a whole recorded
+    slice from the same start: every field of the state
+    bit for bit after every ``STEPS`` steps.  Returns ``(bit-identical,
+    steps, first step and field that differ or None)``."""
+    fused, plain = fused_states(torchsim, key, snap)
+    ops = (snap["xi"], snap["xf"], snap["xb"])
+    rest = (snap["kind_pool"], snap["smp_kid"], snap["eft"], snap["K"])
+    T = ops[0].shape[0]
+    for t0 in range(0, T, torchsim.STEPS):
+        for _ in range(min(torchsim.STEPS, T - t0)):
+            ls.step_fused(*ops, fused, *rest)
+            torchsim._plain_step(*ops, plain, *rest)
+        for name in STEP_FIELDS:
+            if not same_on_card(getattr(fused, name), getattr(plain, name)):
+                return False, T, (t0, name)
+    return True, T, None
+
+
+def fused_times(torch, torchsim, ls, key, snap):
+    """The fused step at ``key`` on a recorded slice, each way from the
+    slice's start by CUDA events: per step through the wrapper, per bare
+    launch (the packed arguments, no checks) over the slice's steps, and
+    the plain body per step over up to 256 of them; the device time of
+    one bare launch by ``torch.profiler``'s rows and behind a device spin
+    (past the slice's end, which the kernel reads as row 0 and flags);
+    and the whole step's bound."""
+    P, S, B, rows = key
+    ops = (snap["xi"], snap["xf"], snap["xb"])
+    rest = (snap["kind_pool"], snap["smp_kid"], snap["eft"], snap["K"])
+    T, WI, G = ops[0].shape
+    K, NK = snap["K"], ops[1].shape[1] // 2
+    SC = WI - 4 - 2 * K
+    lib = ls.step_library()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+
+    def per_step(fn, st, n):
+        torch.cuda.synchronize()
+        t0.record()
+        for _ in range(n):
+            fn(st)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / n
+
+    st, _ = fused_states(torchsim, key, snap)
+    n_own = int(st.own.sum())
+    wrapper_ms = per_step(lambda s: ls.step_fused(*ops, s, *rest), st, T)
+    st, plain = fused_states(torchsim, key, snap)
+    args = ls.FUSED_ARGS.pack(
+        *(t.data_ptr() for t in ops), rest[0].data_ptr(), rest[1].data_ptr(),
+        *(getattr(st, name).data_ptr() for name in ls.FUSED_STATE),
+        torch.cuda.current_stream().cuda_stream, P, S, B, rows, T, G, K, NK,
+        SC, int(snap["eft"]))
+
+    def bare(_=None):
+        return lib.step_fused_launch(args)
+
+    if bare() != 0:
+        raise SystemExit(f"bare step_fused launch failed at {key}")
+    st.reset(snap["clocks"], snap["npred"], snap["own"], snap["cohort"])
+    bare_ms = per_step(bare, st, T)
+    plain_ms = per_step(lambda s: torchsim._plain_step(*ops, s, *rest),
+                        plain, min(T, 256))
+    us, dev_rows = device_us(torch, bare)
+    q_us, enqueue, spin = queued_us(torch, bare)
+    nbytes = fused_step_bytes(P, S, B, rows, K, NK, SC, n_own)
+    return {"shape": [P, S, B, rows], "K": K, "NK": NK, "SC": SC,
+            "steps": T, "own_lanes": n_own, "ms": wrapper_ms,
+            "kernel_only_ms": bare_ms, "plain_ms": plain_ms,
+            "device_us": us, "device_kernels": dev_rows, "queued_us": q_us,
+            "queued_enqueue_us": enqueue, "queued_spin_us": spin,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+
+
+def fused_path(torch, torchsim, ls, slices, path_shapes):
+    """The fused step at every shape ``(P, S, B, rows)`` of ``slices``,
+    which must cover each ``(P, S, B)`` the sweeps and the service
+    launched it at: held to the plain body through the recorded slice
+    (exits at the first difference), and timed.  Returns the rows by
+    shape, the commonest first."""
+    missing = set(path_shapes) - {key[:3] for key in slices}
+    if missing:
+        raise SystemExit(f"step_fused: no slice recorded at P,S,B "
+                         f"{sorted(missing)}")
+    out = []
+    for key in sorted(slices, key=lambda k: (-path_shapes[k[:3]], k)):
+        launches = path_shapes[key[:3]]
+        ok, steps, where = fused_check(torch, torchsim, ls, key, slices[key])
+        if not ok:
+            raise SystemExit(f"step_fused differs from the plain body at "
+                             f"{key}: step {where[0]}, field {where[1]}")
+        t = fused_times(torch, torchsim, ls, key, slices[key])
+        t.update(launches=launches, bit_identical=ok)
+        out.append(t)
+        qu = ("not measured (enqueue past half the spin)"
+              if t["queued_us"] is None else f"{t['queued_us']:.2f} us")
+        rows_us = ("not measured" if t["device_us"] is None
+                   else f"{t['device_us']:.2f} us")
+        phase("fused step", f"P,S,B,rows={list(key)} ({launches} path "
+              f"launches at its P,S,B; {t['own_lanes']} own-order lanes, "
+              f"K={t['K']} NK={t['NK']} SC={t['SC']}): == plain body "
+              f"through a recorded slice of {steps} steps, every field "
+              f"bit for bit: {ok}; CUDA events {t['ms'] * 1e3:.2f} us a "
+              f"step through the wrapper, {t['kernel_only_ms'] * 1e3:.2f} "
+              f"us per bare "
+              f"launch, plain body {t['plain_ms'] * 1e3:.2f} us a step; "
+              f"device time of one bare launch behind a spin {qu}, by "
+              f"torch.profiler {rows_us}; bound "
+              f"{t['bound_ms'] * 1e3:.4f} us ({t['bytes']} B at 3.35 TB/s)")
+    return out
+
+
 def profile_sweep(torch, Explorer, trace, reports, a9, cands, library, ls):
     """Where a warm sweep's time goes on the card: the sweep once plain and
     once under ``torch.profiler``, both from ``library``'s recorded orders.
     Returns the plain wall, the device time of the profiled run's kernels,
-    their count, the steps (step-commit launches) and the busiest ops."""
+    their count, the steps (fused step launches) and the busiest ops."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import torchsim
     cc = torchsim._DEFAULT_CACHE
@@ -766,7 +969,8 @@ def profile_sweep(torch, Explorer, trace, reports, a9, cands, library, ls):
             "kernels": n_kernels,
             "kernels_per_step": n_kernels / max(steps, 1),
             # the profiler sees the kernels inside the replayed graphs
-            # when it counts one step_commit a step
+            # when it counts one fused step (step_commit_fused_kernel) a
+            # step
             "profiler_sees_graph_kernels": commits == steps,
             "step_commit_rows": commits,
             "top_host_ops": [[e.key, e.count, e.self_cpu_time_total * 1e-6]
@@ -828,7 +1032,7 @@ def graph_sweep(torch, Explorer, ls, label, trace, reports, a9, cands,
     graphs on a fresh compile cache with a disk tier, then again on the
     warm cache, in one call and each from a copy of ``library``: every
     torch-tier result bit for bit, the replay protocol's counts and the
-    step-commit launches (by shape) equal both ways; the warm repeat
+    fused step's launches (by shape) equal both ways; the warm repeat
     captures nothing.  Each run's wall is split between the step loop
     (``torchsim._scan_cohorts``, timed around each call: staging, the
     loop or its replays, the copy-out) and the rest (graphs, host order
@@ -1254,7 +1458,7 @@ def fig6_flow(torch, np, mm, Explorer, a9_smp_seconds, tr, bm, ls):
     summary = {"n": TILE_N, "candidates": len(runs),
                "estimator_s": est_s, "estimator_trace_s": trace_s,
                "estimator_explore_s": explore_s, "estimator_best": best,
-               "estimator_step_commit_launches": est_steps,
+               "estimator_step_launches": est_steps,
                "traditional_s": trad_s,
                "traditional_build_s": sum(r["build_s"] for r in runs),
                "traditional_run_s": sum(r["run_s"] for r in runs),
@@ -1262,7 +1466,7 @@ def fig6_flow(torch, np, mm, Explorer, a9_smp_seconds, tr, bm, ls):
                "launch_shapes": {str(k): v for k, v in shapes.items()},
                "runs": runs}
     phase("fig6", f"estimator {est_s:.3f} s (traces {trace_s:.3f} s + "
-          f"torch sweep {explore_s:.3f} s, {est_steps} step_commit "
+          f"torch sweep {explore_s:.3f} s, {est_steps} fused step "
           f"launches) vs traditional build-and-run "
           f"{trad_s:.3f} s over {len(runs)} candidates: ratio "
           f"{trad_s / est_s:.2f}x (printed, not gated)")
@@ -1949,7 +2153,7 @@ def sweepd_flow(torch, np, ls, device, mm_case, ch_case, one_shot,
     repro_torch.explore serve`` in its own process, one request of (b)'s
     body through ``client``, then SIGTERM while a second is in flight;
     (d) (b)'s best candidate through ``estimate`` and ``write_prv``.  The
-    step-commit counts are set to 0 just before (a)'s and (b)'s torch
+    step launch counts are set to 0 just before (a)'s and (b)'s torch
     requests and read just after.  Every failed check is appended to
     ``failures``.  ``one_shot`` is the earlier one-shot sweep of (a)'s
     trace (its row), printed beside (a)."""
@@ -2007,7 +2211,7 @@ def sweepd_flow(torch, np, ls, device, mm_case, ch_case, one_shot,
             and check("a", same_ranking(doc_a, want_a, rankings_equivalent,
                                         TORCH_RTOL),
                       "the torch ranking differs from batch's"))
-    check("a", launches > 0, "no step_commit launch")
+    check("a", launches > 0, "no fused step launch")
     if status_b == 200:
         span, est_span = best_estimate(estimate, build_candidates,
                                        parse_accs, mm_tr, mm_rep, mm_accs,
@@ -2066,7 +2270,7 @@ def sweepd_flow(torch, np, ls, device, mm_case, ch_case, one_shot,
     check("b", reqs["done"] == SWEEPD_CLIENTS and reqs["errors"] == 0
           and health["faults"]["engine_demotions"] == 0,
           f"/healthz {reqs}, {health['faults']}")
-    check("b", launches > 0, "no step_commit launch")
+    check("b", launches > 0, "no fused step launch")
     n_b = SWEEPD_CLIENTS * 2 * len(parse_accs(ch_accs))
     p50, p99 = np.percentile(lat, [50, 99])
     phase("sweepd", json.dumps({
@@ -3213,7 +3417,7 @@ def train_flow(torch, np, configs, T, failures):
     kept = sorted(d.name for d in SLICE_CKPT.iterdir())
     peak = torch.cuda.max_memory_allocated()
     launched = {**fa.LAUNCHES, **la.LAUNCHES, **bm.LAUNCHES, **ct.LAUNCHES,
-                "step_commit": ls.LAUNCHES}
+                "step_fused": ls.LAUNCHES}
     step_ms = [a.elapsed_time(b) for a, b in events]
     steady = sorted(step_ms[1:])
     med = steady[len(steady) // 2]
@@ -3754,7 +3958,7 @@ def main() -> int:
             bm.tiles_library().tiles_tile_edge() != 64:
         raise SystemExit("tiles.cu builds have the wrong TILE")
 
-    # 3. step_commit vs plain version on the card
+    # 3. the standalone step_commit vs plain version on the card
     worst_err = kernel_check(ls, torch, np, KERNEL_SHAPES, "kernel==plain", 0)
 
     # 4. the tile kernels vs plain versions at every path shape
@@ -3777,8 +3981,11 @@ def main() -> int:
     ch_a9 = a9_smp_seconds("float64")
     ch_cands = cholesky_ramp(ch, zynq_system, Candidate, 8)
     libs = {}
-    path_shapes = Counter()     # (P, S, B) of the sweeps' kernel launches
+    path_shapes = Counter()     # (P, S, B) of the sweeps' step launches
     default_cache = torchsim._DEFAULT_CACHE
+    # the first slice of each step shape, for the fused step's checks (7)
+    slices = {}
+    stop_recording = record_slices(torch, torchsim, slices)
 
     def sweep(label, trace, reports, a9, cands, *, top_k, prune=False,
               warm_from=None):
@@ -3874,26 +4081,30 @@ def main() -> int:
         ("sweepd_cholesky512_16_8clients", ch_tr, ch_rep, "1-8"),
         sweeps[0], failures)
     path_shapes.update(served["shapes"])
+    stop_recording()
 
-    # 7. the kernel at the shapes the sweeps launched it at: kernel ==
-    # plain version at each, times at each (and at the first check shape,
-    # for comparison), the line's at the commonest
+    # 7. the fused step at the shapes the sweeps launched it at: == the
+    # plain body through a recorded slice of each, times at each; then the
+    # standalone commit (no longer on the path) == its plain version at
+    # the same (P, S, B), timed at the commonest and the first check shape
     shapes = [sh for sh, _ in path_shapes.most_common()]
     phase("path shapes", "; ".join(f"P,S,B={sh}: {n} launches"
                                    for sh, n in path_shapes.most_common()))
-    worst_err = max(worst_err, kernel_check(ls, torch, np, shapes,
-                                            "kernel==plain on path", 2))
+    fused_rows = fused_path(torch, torchsim, ls, slices, path_shapes)
+    slices.clear()
+    worst_err = max(worst_err, kernel_check(
+        ls, torch, np, shapes, "step_commit==plain at path P,S,B", 2))
     by_shape = []
-    for sh in shapes + [x for x in KERNEL_SHAPES[:1] if x not in shapes]:
+    for sh in shapes[:1] + [x for x in KERNEL_SHAPES[:1]
+                            if x not in shapes[:1]]:
         t = kernel_times(ls, torch, np, sh)
-        t["launches"] = path_shapes[sh]
         by_shape.append(t)
         qu = ("not measured (enqueue past half the spin)"
               if t["queued_us"] is None else f"{t['queued_us']:.2f} us")
         rows_us = ("not measured" if t["device_us"] is None
                    else f"{t['device_us']:.2f} us")
-        phase("kernel", f"step_commit at P,S,B={sh} ({t['launches']} path "
-              f"launches, {t['group']} threads a lane): CUDA events (two "
+        phase("kernel", f"step_commit (standalone) at P,S,B={sh} "
+              f"({t['group']} threads a lane): CUDA events (two "
               f"passes in turns) {t['ms'] * 1e3:.2f} us per call through "
               f"the wrapper, {t['kernel_only_ms'] * 1e3:.2f} us per bare "
               f"launch; device time of one bare launch behind a spin {qu} "
@@ -3902,12 +4113,33 @@ def main() -> int:
               f"plain version {t['plain_ms'] * 1e3:.2f} us, bound "
               f"{t['bound_ms'] * 1e3:.4f} us ({t['bytes']} B at 3.35 TB/s)")
     top = by_shape[0]
+    ftop = fused_rows[0] if fused_rows else {}
+    fused_kern = {
+        "name": "step_fused", "route": "cuda",
+        "kernel": "step_commit_fused_kernel",
+        "source": "src/repro_torch/kernels/csrc/lockstep_step.cu",
+        "replaces": "src/repro/core/jaxsim.py:272 (the scan's step)",
+        "launches": sum(s["launches"] for s in sweeps)
+        + sum(served["launches"].values()),
+        "bit_identical": all(r["bit_identical"] for r in fused_rows),
+        **{k: ftop.get(k) for k in (
+            "ms", "plain_ms", "bound_ms", "kernel_only_ms", "device_us",
+            "queued_us", "queued_enqueue_us", "queued_spin_us", "bytes")},
+        "bound_by": "bytes", "library_ms": None,
+        "timed_shape": ftop.get("shape"),
+        "graph_step_device_time": {row["sweep"]: row["step_graphs"]
+                                   for row in graph_rows[:2]},
+        "launches_by_sweep": {**{s["sweep"]: s["launches"]
+                                 for s in sweeps}, **served["launches"]},
+        "by_shape": fused_rows,
+    }
     kern = {
         "name": "step_commit", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lockstep_step.cu",
         "replaces": "src/repro/kernels/lockstep_step.py:67",
-        "launches": sum(s["launches"] for s in sweeps)
-        + sum(served["launches"].values()),
+        # the path commits inside the fused step; this kernel is checked
+        # and timed on its own
+        "launches": 0,
         "max_abs_err": worst_err,
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": "bytes",
@@ -3917,10 +4149,6 @@ def main() -> int:
         "queued_enqueue_us": top["queued_enqueue_us"],
         "queued_spin_us": top["queued_spin_us"], "group": top["group"],
         "timed_shape": top["shape"],
-        "graph_step_device_time": {row["sweep"]: row["step_graphs"]
-                                   for row in graph_rows[:2]},
-        "launches_by_sweep": {**{s["sweep"]: s["launches"]
-                                 for s in sweeps}, **served["launches"]},
         "by_shape": by_shape,
     }
 
@@ -4103,8 +4331,9 @@ def main() -> int:
     }
 
     # 14. the kernels line
-    kernels_line = json.dumps({"kernels": [kern] + tile_kernel_rows(
-        rows, fig6, chol) + [flash, linear]})
+    kernels_line = json.dumps({"kernels": [fused_kern, kern]
+                               + tile_kernel_rows(rows, fig6, chol)
+                               + [flash, linear]})
     print(kernels_line)
     with PHASE_LOG.open("a") as f:
         f.write(kernels_line + "\n")

@@ -4,7 +4,7 @@ A second package beside the JAX one: the same trace -> augmented task
 graph -> ``FrozenGraph`` -> candidate-axis lockstep replay -> ranked
 ``ExplorationResult`` chain, with the accelerator-resident engine
 (:mod:`repro_torch.core.torchsim`) running on an NVIDIA card through the
-hand-written step-commit kernel of :mod:`repro_torch.kernels.lockstep_step`.
+hand-written fused step kernel of :mod:`repro_torch.kernels.lockstep_step`.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``).  A missing card is an error, never a silent switch to

@@ -6,10 +6,12 @@ advances through one replayed reference event order with per-candidate
 state stacked on a candidate ("lane") axis.  This module runs the same
 per-step semantics as a Python loop over the steps whose body is a fixed
 sequence of tensor operations on the chosen ``device``, with the full
-per-candidate state resident there.  On a CUDA device the step's commit
-(pool select + slot argmin + clock/busy/seen update) is the hand-written
-kernel :func:`repro_torch.kernels.lockstep_step.step_commit`; every other
-operation of the step is a PyTorch operation.
+per-candidate state resident there.  On a CUDA device a whole step, for
+every lane, is one launch of the hand-written kernel
+:func:`repro_torch.kernels.lockstep_step.step_fused`; on the CPU it is
+the plain PyTorch body :func:`_plain_step`, whose commit (pool select +
+slot argmin + clock/busy/seen update) is
+:func:`~repro_torch.kernels.lockstep_step.step_commit`'s plain version.
 
 A lane steps one of two ways, in the same loop:
 
@@ -66,13 +68,14 @@ executable per shape signature (``repro/core/jaxsim.py``, through
 :class:`StepRunner` of :class:`~repro_torch.core.graphcache.CompileCache`,
 keyed by its shapes (:func:`_signature`): static buffers for the carried
 state and a slice's step inputs, and on the card a CUDA graph of
-:data:`STEPS` steps captured once, so that one host call replays some
-5,000 kernels.  The step inputs are packed into three cohort-last blocks
-(:func:`_pack`) and copied into the runner's buffers once a slice; the
-task axis is padded to a multiple of :data:`STEPS` with inert steps, so
-that one capture serves every slice of a lane and slot bucket.  Off the
-card the runner runs its eager body; ``graphs=False`` runs the loop
-eagerly without a runner, the other side of an A/B check.
+:data:`STEPS` steps captured once, so that one host call replays
+:data:`STEPS` launches of the fused step.  The step inputs are packed
+into three cohort-last blocks (:func:`_pack`) and copied into the
+runner's buffers once a slice; the task axis is padded to a multiple of
+:data:`STEPS` with inert steps, so that one capture serves every slice of
+a lane and slot bucket.  Off the card the runner runs its eager body;
+``graphs=False`` runs the loop eagerly without a runner, the other side
+of an A/B check.
 
 The device is never chosen here: ``device`` defaults to
 :func:`repro_torch.default_device` (the card), a missing card raises
@@ -231,12 +234,13 @@ class _State:
     have, on the dummy row and on every row of a replayed lane, so that
     such a row never joins the heap; and ``key [B, rows]`` f64
     (lane-first, so that a lane's minimum reduces contiguous memory), a
-    row's ready time while it is on the heap and ``inf`` otherwise.  ``t`` is
-    the step counter, at which a replayed lane reads its step inputs, and
-    ``cohort [B]`` the column of the step inputs each lane reads.  Every
-    step updates the state in place, so that a captured graph reads and
-    writes the same buffers at every replay.  A new state holds valid
-    values (a graph's warm-up runs on it)."""
+    row's ready time while it is on the heap and ``inf`` otherwise.  ``t
+    [B]`` is each lane's step counter, at which a replayed lane reads its
+    step inputs (one a lane, so that the fused step's blocks never share
+    a word), and ``cohort [B]`` the column of the step inputs each lane
+    reads.  Every step updates the state in place, so that a captured
+    graph reads and writes the same buffers at every replay.  A new state
+    holds valid values (a graph's warm-up runs on it)."""
 
     def __init__(self, P: int, S: int, B: int, rows: int,
                  device: torch.device):
@@ -254,7 +258,7 @@ class _State:
         self.npred = torch.ones((rows, B), dtype=torch.int32, device=device)
         self.own = torch.zeros((B,), dtype=torch.bool, device=device)
         self.key = torch.full((B, rows), torch.inf, dtype=f64, device=device)
-        self.t = torch.zeros((), dtype=torch.int64, device=device)
+        self.t = torch.zeros((B,), dtype=torch.int64, device=device)
         self.ran = torch.ones((B,), dtype=torch.int32, device=device)
         self.gone = torch.full((B,), torch.inf, dtype=f64, device=device)
         self.cohort = torch.arange(B, device=device)
@@ -310,12 +314,27 @@ def _steps(xi: torch.Tensor, xf: torch.Tensor, xb: torch.Tensor,
            st: _State, kind_pool: torch.Tensor, smp_kid: torch.Tensor,
            eft: bool, K: int, n_steps: Optional[int] = None) -> None:
     """``n_steps`` steps of the scan on ``st`` (default: one per row of
-    the blocks), in place; the port of jaxsim's scan body.
+    the blocks), in place; the port of jaxsim's scan body.  On the card
+    each step is one launch of the fused kernel
+    (:func:`repro_torch.kernels.lockstep_step.step_fused`); on the CPU it
+    is :func:`_plain_step`, the plain PyTorch body the kernel is held to
+    bit for bit."""
+    n_steps = xi.shape[0] if n_steps is None else n_steps
+    step = ls.step_fused if ls.on_card("step_fused", st.clocks) \
+        else _plain_step
+    for _ in range(n_steps):
+        step(xi, xf, xb, st, kind_pool, smp_kid, eft, K)
+
+
+def _plain_step(xi: torch.Tensor, xf: torch.Tensor, xb: torch.Tensor,
+                st: _State, kind_pool: torch.Tensor, smp_kid: torch.Tensor,
+                eft: bool, K: int) -> None:
+    """One step of the scan on ``st``, in place, in PyTorch operations.
 
     Step inputs are the packed cohort-last blocks of :func:`_pack`
     (staged by :func:`_scan_cohorts`), ``K`` option rows wide; each lane
     reads its cohort's column (``st.cohort``).  A replayed lane reads the
-    row of the step counter ``st.t``; per-step ``valid`` masks make the
+    row of its step counter ``st.t``; per-step ``valid`` masks make the
     task-axis padding inert.  An own-order lane (``st.own``) reads the
     row it pops: the first minimum of ``st.key`` — the ready times of the
     rows on its heap, rows in heap tie-break order, so the first minimum
@@ -324,13 +343,9 @@ def _steps(xi: torch.Tensor, xf: torch.Tensor, xb: torch.Tensor,
     the heap and pushes the successors it was the last predecessor of.
     Every operation is a PyTorch operation except the commit,
     :func:`~repro_torch.kernels.lockstep_step.step_commit`."""
-    B = st.clocks.shape[2]
-    dev = st.clocks.device
-    f64 = st.clocks.dtype
     NK = xf.shape[1] // 2
     clocks, ready, placement = st.clocks, st.ready, st.placement
     dummy = ready.shape[0] - 1
-    n_steps = xi.shape[0] if n_steps is None else n_steps
 
     def choose(opts, cost, rt, minc):
         """Vectorised reference `_choose_kind` over all lanes and options
@@ -359,82 +374,79 @@ def _steps(xi: torch.Tensor, xf: torch.Tensor, xb: torch.Tensor,
         ``[W, B]``."""
         return block.permute(1, 0, 2)[:, at, st.cohort]
 
-    for _ in range(n_steps):
-        # ---- the row each lane runs: its own heap's minimum, or its
-        # cohort's order at the step counter -----------------------------
-        kmin, popped = torch.min(st.key, dim=1)
-        at = torch.where(st.own, popped, st.t)
-        xiu, xfu, xbu = row(xi, at), row(xf, at), row(xb, at)
-        r, tbv, c, k_first = xiu[0], xiu[1], xiu[2], xiu[3]
-        own_opts, par_opts = xiu[4:4 + K], xiu[4 + K:4 + 2 * K]
-        succ = xiu[4 + 2 * K:]                              # [SC, B]
-        own_cost, par_cost = xfu[:NK], xfu[NK:]
-        valid = torch.where(st.own, kmin < torch.inf, xbu[0])
-        is_comp, bad_row, act = xbu[1], xbu[2], xbu[3:]
-        rt = _gather_row(ready, r)      # r: dummy row on invalid steps
-        # heap-key monotonicity: a replayed lane whose popped (ready_t, tb)
-        # key ever fails to strictly increase is not executing its own
-        # heap order — flag it (and any lane that live-executes a bad
-        # row, below).  An own-order lane pops its heap: a zero-cost row
-        # may push an equal ready_t with a smaller tb, which it pops next.
-        st.div |= valid & ~st.own & ((rt < st.prev_rt)
-                                     | ((rt == st.prev_rt)
-                                        & (tbv <= st.prev_tb)))
+    # ---- the row each lane runs: its own heap's minimum, or its
+    # cohort's order at the step counter -----------------------------
+    kmin, popped = torch.min(st.key, dim=1)
+    at = torch.where(st.own, popped, st.t)
+    xiu, xfu, xbu = row(xi, at), row(xf, at), row(xb, at)
+    r, tbv, c, k_first = xiu[0], xiu[1], xiu[2], xiu[3]
+    own_opts, par_opts = xiu[4:4 + K], xiu[4 + K:4 + 2 * K]
+    succ = xiu[4 + 2 * K:]                              # [SC, B]
+    own_cost, par_cost = xfu[:NK], xfu[NK:]
+    valid = torch.where(st.own, kmin < torch.inf, xbu[0])
+    is_comp, bad_row, act = xbu[1], xbu[2], xbu[3:]
+    rt = _gather_row(ready, r)      # r: dummy row on invalid steps
+    # heap-key monotonicity: a replayed lane whose popped (ready_t, tb)
+    # key ever fails to strictly increase is not executing its own
+    # heap order — flag it (and any lane that live-executes a bad
+    # row, below).  An own-order lane pops its heap: a zero-cost row
+    # may push an equal ready_t with a smaller tb, which it pops next.
+    st.div |= valid & ~st.own & ((rt < st.prev_rt)
+                                 | ((rt == st.prev_rt)
+                                    & (tbv <= st.prev_tb)))
 
-        # earliest-free slot per (pool, lane), shared by both choose passes
-        minc = torch.amin(clocks, dim=1)                    # [P, B]
+    # earliest-free slot per (pool, lane), shared by both choose passes
+    minc = torch.amin(clocks, dim=1)                    # [P, B]
 
-        # ---- conditional pass-through (per-lane mask) -------------------
-        has_cond = (c >= 0) & valid
-        cmax = c.clamp(min=0)
-        pk_old = _gather_row(placement, cmax).long()        # [B]
-        chosen_p = choose(par_opts, par_cost, rt, minc)
-        pk = torch.where(pk_old < 0, chosen_p, pk_old)
-        _set_row(placement, cmax,
-                 torch.where(has_cond, pk, pk_old).to(placement.dtype))
-        live = (~has_cond | _gather_row(act, pk.clamp(min=0))) & valid
+    # ---- conditional pass-through (per-lane mask) -------------------
+    has_cond = (c >= 0) & valid
+    cmax = c.clamp(min=0)
+    pk_old = _gather_row(placement, cmax).long()        # [B]
+    chosen_p = choose(par_opts, par_cost, rt, minc)
+    pk = torch.where(pk_old < 0, chosen_p, pk_old)
+    _set_row(placement, cmax,
+             torch.where(has_cond, pk, pk_old).to(placement.dtype))
+    live = (~has_cond | _gather_row(act, pk.clamp(min=0))) & valid
 
-        # ---- dispatch + commit for the lanes executing the row ----------
-        k_own = _gather_row(placement, r).long()
-        und = k_own < 0
-        chosen_o = choose(own_opts, own_cost, rt, minc)
-        k = torch.where(is_comp, torch.where(und, chosen_o, k_own), k_first)
-        _set_row(placement, r,
-                 torch.where(is_comp & live & und, k, k_own
-                             ).to(placement.dtype))
-        st.div |= live & (bad_row | (k < 0))
-        kk = k.clamp(min=0)
-        p = _gather_lane(kind_pool, kk).clamp(min=0)        # [B]
-        base = _gather_row(own_cost, kk)                    # [B]
-        end = step_commit(clocks, st.busy, st.seen, p, rt, base, live)
-        end_eff = torch.where(live, end, torch.where(valid, rt, 0.0))
-        torch.maximum(st.makespan, end_eff, out=st.makespan)
-        ready.scatter_reduce_(0, succ, end_eff.unsqueeze(0).expand_as(succ),
-                              reduce="amax", include_self=True)
-        torch.where(valid, rt, st.prev_rt, out=st.prev_rt)
-        torch.where(valid, tbv, st.prev_tb, out=st.prev_tb)
-        # ---- the heap of an own-order lane: the row leaves it, each
-        # successor waits for one predecessor fewer, and those that wait
-        # for none join it at their ready time --------------------------
-        ran = torch.where(valid, r, dummy)
-        _set_lane(st.key, ran, st.gone)
-        _set_row(st.npred, ran, st.ran)
-        st.npred.scatter_add_(0, succ, valid.to(torch.int32).unsqueeze(0)
-                              .expand_as(succ))
-        # a successor not joining keeps inf: it waits, ran, or is the dummy
-        st.key.scatter_(1, succ.T, torch.where(
-            torch.gather(st.npred, 0, succ) == 0,
-            torch.gather(ready, 0, succ), torch.inf).T)
-        st.t += 1
+    # ---- dispatch + commit for the lanes executing the row ----------
+    k_own = _gather_row(placement, r).long()
+    und = k_own < 0
+    chosen_o = choose(own_opts, own_cost, rt, minc)
+    k = torch.where(is_comp, torch.where(und, chosen_o, k_own), k_first)
+    _set_row(placement, r,
+             torch.where(is_comp & live & und, k, k_own
+                         ).to(placement.dtype))
+    st.div |= live & (bad_row | (k < 0))
+    kk = k.clamp(min=0)
+    p = _gather_lane(kind_pool, kk).clamp(min=0)        # [B]
+    base = _gather_row(own_cost, kk)                    # [B]
+    end = step_commit(clocks, st.busy, st.seen, p, rt, base, live)
+    end_eff = torch.where(live, end, torch.where(valid, rt, 0.0))
+    torch.maximum(st.makespan, end_eff, out=st.makespan)
+    ready.scatter_reduce_(0, succ, end_eff.unsqueeze(0).expand_as(succ),
+                          reduce="amax", include_self=True)
+    torch.where(valid, rt, st.prev_rt, out=st.prev_rt)
+    torch.where(valid, tbv, st.prev_tb, out=st.prev_tb)
+    # ---- the heap of an own-order lane: the row leaves it, each
+    # successor waits for one predecessor fewer, and those that wait
+    # for none join it at their ready time --------------------------
+    ran = torch.where(valid, r, dummy)
+    _set_lane(st.key, ran, st.gone)
+    _set_row(st.npred, ran, st.ran)
+    st.npred.scatter_add_(0, succ, valid.to(torch.int32).unsqueeze(0)
+                          .expand_as(succ))
+    # a successor not joining keeps inf: it waits, ran, or is the dummy
+    st.key.scatter_(1, succ.T, torch.where(
+        torch.gather(st.npred, 0, succ) == 0,
+        torch.gather(ready, 0, succ), torch.inf).T)
+    st.t += 1
 
 
-#: Steps in one replay of a captured step graph.  A matmul slice runs on
-#: the order of 10³ steps at ~155 kernels a step, so one graph of the
-#: whole scan would hold over 10⁵ nodes and be captured anew for every
-#: task count.  32 steps make a graph of ~5,000 nodes: a replay carries
-#: ~10 ms of device work at ~2 µs a kernel against some 10 µs of host work
-#: (the launch), and a slice pads by at most 31 inert steps — under 3 % of
-#: a 10³-step matmul slice, 7 % of the 120-step Cholesky one.
+#: Steps in one replay of a captured step graph: 32 nodes, one fused step
+#: each.  One graph of the whole scan would be captured anew for every
+#: task count; 32 steps are captured once for every slice of a lane and
+#: slot bucket, and a slice pads by at most 31 inert steps — under 1 % of
+#: a 3,584-step matmul slice, 7 % of the 120-step Cholesky one.
 STEPS = 32
 
 
@@ -446,7 +458,7 @@ class StepRunner:
     over the slice's own inputs.
 
     :meth:`run` copies a slice's initial state and step inputs in,
-    replays once every :data:`STEPS` steps, credits the step-commit
+    replays once every :data:`STEPS` steps, credits the fused-step
     launches recorded at capture at each replay, and copies the results
     out, all under the runner's lock: two threads never share its buffers
     at once.

@@ -19,11 +19,20 @@ the same slot chosen).
 
 Both update ``clocks``, ``busy`` and ``seen`` in place and return ``end``.
 
-A launch costs the host little: the operand checks are one expression
-(the precise refusal is worked out only when it fails), the cached
-library is bound once and held here, the stream is read by PyTorch's raw
-current-stream call, and the arguments go to the kernel as one packed
-block.
+:func:`step_fused` launches the same source's fused step: one launch runs
+one whole step of the torch scan (:func:`repro_torch.core.torchsim._steps`)
+for every lane, the commit above among its phases, in place of the plain
+body's ~150 PyTorch operations.  Each lane is one block, whose width
+the source picks from the lane's rows and pools.  The plain version it
+is held to is that body, which the CPU runs; the fused step has no CPU
+route of its own.
+
+A commit launch costs the host little: the operand checks are one
+expression (the precise refusal is worked out only when it fails), the
+cached library is bound once and held here, the stream is read by
+PyTorch's raw current-stream call, and the arguments go to the kernel as
+one packed block.  A fused step checks its operands in full at every
+launch (~30 µs of host time), which a captured step graph pays once.
 """
 from __future__ import annotations
 
@@ -32,7 +41,7 @@ import ctypes
 import struct
 import threading
 from collections import Counter
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -69,10 +78,24 @@ STEP_ARGS = struct.Struct("@9P2q")
 #: ``B`` at or above this does not fit the kernel's 32-bit thread count.
 MAX_LANES = 2 ** 26
 
+#: The fused step's packed arguments, ``StepFusedArgs`` of the source:
+#: pointers ``xi, xf, xb, kind_pool, smp_kid``, the state's
+#: :data:`FUSED_STATE` and the stream, then 64-bit ``P, S, B, rows, T, G,
+#: K, NK, SC, eft``.
+FUSED_ARGS = struct.Struct("@22P10q")
+
+#: The scan state a fused step takes (attributes of
+#: ``torchsim._State``), in the packed block's order: the first four it
+#: only reads, the others it updates in place.
+FUSED_STATE = ("cohort", "own", "ran", "gone", "clocks", "ready",
+               "placement", "busy", "seen", "makespan", "prev_rt", "prev_tb",
+               "div", "npred", "key", "t")
+
 #: The cached build of ``lockstep_step.cu``, bound by the first launch.
 _CACHED: Optional[ctypes.CDLL] = None
 
-_F64, _I64, _BOOL = torch.float64, torch.int64, torch.bool
+_F64, _I64, _I32, _BOOL = (torch.float64, torch.int64, torch.int32,
+                           torch.bool)
 
 
 def group_size(S: int) -> int:
@@ -109,7 +132,7 @@ def step_commit_ref(clocks: torch.Tensor, busy: torch.Tensor,
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``lockstep_step.cu``) with its entry points'
-    argument types declared, its packed-argument size checked, and its
+    argument types declared, its packed-argument sizes checked, its
     group sizes held to :func:`group_size` (the mirror the tests hold the
     kernel's reduction to) at every S up to past a warp; marked on the
     object under :data:`build.BIND_LOCK`, so each library is bound once,
@@ -131,6 +154,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                     raise DeviceError(f"step_commit_group({S}) is "
                                       f"{lib.step_commit_group(S)}, but "
                                       f"group_size({S}) is {group_size(S)}")
+            lib.step_fused_launch.argtypes = [ctypes.c_char_p]
+            lib.step_fused_launch.restype = ctypes.c_int
+            lib.step_fused_args_bytes.argtypes = []
+            lib.step_fused_args_bytes.restype = ctypes.c_int
+            if lib.step_fused_args_bytes() != FUSED_ARGS.size:
+                raise DeviceError(f"step_fused_args_bytes() is "
+                                  f"{lib.step_fused_args_bytes()}, but "
+                                  f"{FUSED_ARGS.size} bytes are packed")
             lib.step_commit_error_string.argtypes = [ctypes.c_int]
             lib.step_commit_error_string.restype = ctypes.c_char_p
             lib._repro_torch_bound = True
@@ -240,7 +271,6 @@ def step_commit(clocks: torch.Tensor, busy: torch.Tensor, seen: torch.Tensor,
 
     CUDA tensors launch the Hopper kernel on the current stream (no
     synchronisation); CPU tensors run :func:`step_commit_ref`."""
-    global LAUNCHES
     refuse_grad("step_commit", clocks, busy, seen, p, rt, base, live)
     if not on_card("step_commit", clocks):
         return step_commit_ref(clocks, busy, seen, p, rt, base, live)
@@ -258,11 +288,111 @@ def step_commit(clocks: torch.Tensor, busy: torch.Tensor, seen: torch.Tensor,
         msg = lib.step_commit_error_string(rc).decode(errors="replace")
         raise DeviceError(f"step_commit kernel launch failed: {msg} "
                           f"(cudaError {rc}) at P={P} S={S} B={B}")
+    _count((P, S, B))
+    return end
+
+
+def _count(shape: Tuple[int, int, int]) -> None:
+    """One launch at ``shape``: in the thread's :func:`recording` tally if
+    one is open, else in :data:`LAUNCHES` and :data:`SHAPES`."""
+    global LAUNCHES
     tally = getattr(_TALLY, "shapes", None)
     if tally is not None:
-        tally[P, S, B] += 1
-        return end
+        tally[shape] += 1
+        return
     with COUNT_LOCK:
         LAUNCHES += 1
-        SHAPES[P, S, B] += 1
-    return end
+        SHAPES[shape] += 1
+
+
+def fused_dims(xi: torch.Tensor, xf: torch.Tensor, xb: torch.Tensor, state,
+               kind_pool: torch.Tensor, smp_kid: torch.Tensor,
+               K: int) -> Tuple[int, ...]:
+    """``(P, S, B, rows, T, G, K, NK, SC)`` of a fused step's operands, or
+    a :class:`DeviceError` naming the first operand the kernel cannot
+    take: off the state's device, of another dtype or shape than the
+    scan's (``torchsim._State``, the packed blocks of ``torchsim._pack``),
+    not contiguous, or of sizes past the kernel's."""
+    clocks = state.clocks
+    for name, t, dims in (("clocks", clocks, 3), ("ready", state.ready, 2),
+                          ("xi", xi, 3), ("xf", xf, 3)):
+        if t.dim() != dims:
+            raise DeviceError(f"{name} must have {dims} dimensions, got "
+                              f"{tuple(t.shape)}")
+    P, S, B = clocks.shape
+    rows = state.ready.shape[0]
+    T, WI, G = xi.shape
+    NK = xf.shape[1] // 2
+    SC = WI - 4 - 2 * K
+    lane, pb, rb = (B,), (P, B), (rows, B)
+    want = {"xi": (xi, _I64, (T, WI, G)), "xf": (xf, _F64, (T, 2 * NK, G)),
+            "xb": (xb, _BOOL, (T, 3 + NK, G)),
+            "kind_pool": (kind_pool, _I64, (B, NK)),
+            "smp_kid": (smp_kid, _I64, lane)}
+    kinds = {"cohort": (_I64, lane), "own": (_BOOL, lane),
+             "ran": (_I32, lane), "gone": (_F64, lane),
+             "clocks": (_F64, (P, S, B)), "ready": (_F64, rb),
+             "placement": (_I32, rb), "busy": (_F64, pb),
+             "seen": (_BOOL, pb), "makespan": (_F64, lane),
+             "prev_rt": (_F64, lane), "prev_tb": (_I64, lane),
+             "div": (_BOOL, lane), "npred": (_I32, rb),
+             "key": (_F64, (B, rows)), "t": (_I64, lane)}
+    for name in FUSED_STATE:
+        want[name] = (getattr(state, name), *kinds[name])
+    for name, (t, dtype, shape) in want.items():
+        if t.device != clocks.device:
+            raise DeviceError(f"{name} is on {t.device}, clocks on "
+                              f"{clocks.device}")
+        if t.dtype != dtype:
+            raise DeviceError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise DeviceError(f"{name} must have shape {shape}, got "
+                              f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise DeviceError(f"{name} must be contiguous")
+    lim = 2 ** 31
+    if min(S, rows, T, G, K, NK) < 1 or SC < 0:
+        raise DeviceError(f"the fused step needs a slot, a row, a step, a "
+                          f"cohort, an option and a kind, and {4 + 2 * K} "
+                          f"int64 rows before the successors: got S={S}, "
+                          f"rows={rows}, T={T}, G={G}, K={K}, NK={NK}, "
+                          f"WI={WI}")
+    if max(P * S, B, rows, T, G) >= lim or max(K, NK, SC) >= 2 ** 20:
+        raise DeviceError(f"P={P} S={S} B={B} rows={rows} T={T} G={G} "
+                          f"K={K} NK={NK} SC={SC} is too large for the "
+                          f"fused step")
+    return P, S, B, rows, T, G, K, NK, SC
+
+
+def step_fused(xi: torch.Tensor, xf: torch.Tensor, xb: torch.Tensor, state,
+               kind_pool: torch.Tensor, smp_kid: torch.Tensor, eft: bool,
+               K: int) -> None:
+    """One whole step of the torch scan for every lane of ``state`` (a
+    ``torchsim._State``), in place: one launch of the fused kernel on the
+    current stream (no synchronisation), counted as one launch at ``(P,
+    S, B)`` like :func:`step_commit`'s.  Arguments as
+    ``torchsim._steps``'.
+
+    The plain version is ``torchsim._steps``' body, which the CPU runs: a
+    tensor off the card is refused here, as is any operand the kernel
+    cannot take (:func:`fused_dims`), before anything is launched."""
+    clocks = state.clocks
+    refuse_grad("step_fused", xf, clocks, state.ready, state.busy,
+                state.key)
+    if not on_card("step_fused", clocks):
+        raise DeviceError("step_fused runs on the card only; the CPU runs "
+                          "torchsim._steps' plain body")
+    P, S, B, rows, T, G, K, NK, SC = fused_dims(xi, xf, xb, state,
+                                                kind_pool, smp_kid, K)
+    lib = _CACHED or step_library()
+    rc = lib.step_fused_launch(FUSED_ARGS.pack(
+        xi.data_ptr(), xf.data_ptr(), xb.data_ptr(), kind_pool.data_ptr(),
+        smp_kid.data_ptr(),
+        *(getattr(state, name).data_ptr() for name in FUSED_STATE),
+        current_stream(clocks), P, S, B, rows, T, G, K, NK, SC, int(eft)))
+    if rc:
+        msg = lib.step_commit_error_string(rc).decode(errors="replace")
+        raise DeviceError(f"step_fused kernel launch failed: {msg} "
+                          f"(cudaError {rc}) at P={P} S={S} B={B} "
+                          f"rows={rows} K={K} NK={NK} SC={SC}")
+    _count((P, S, B))

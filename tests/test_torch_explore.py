@@ -286,23 +286,23 @@ def test_engine_faults_on_the_card_raise_and_never_demote(monkeypatch,
 @pytest.mark.parametrize("megabatch", [True, False])
 def test_bad_tensor_for_the_kernel_fails_the_sweep_on_the_card(monkeypatch,
                                                                megabatch):
-    """A tensor the kernel's wrapper refuses (here ``p`` as int32) stops a
-    sweep on the card with DeviceError and no demotion."""
+    """A tensor the fused step's wrapper refuses (here ``kind_pool`` as
+    int32) stops a sweep on the card with DeviceError and no demotion."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    fused = lockstep_step.step_fused
 
-    def int32_pools(clocks, busy, seen, p, *rest):
-        return lockstep_step.step_commit(clocks, busy, seen,
-                                         p.to(torch.int32), *rest)
+    def int32_pools(xi, xf, xb, state, kind_pool, *rest):
+        return fused(xi, xf, xb, state, kind_pool.to(torch.int32), *rest)
 
-    monkeypatch.setattr(torchsim, "step_commit", int32_pools)
+    monkeypatch.setattr(lockstep_step, "step_fused", int32_pools)
     # the wrapper runs when a step graph is captured (a graph captured
     # earlier in the process replays without it): an empty compile cache
     monkeypatch.setattr(torchsim, "_DEFAULT_CACHE", torchsim.CompileCache())
     tr, rep = synth.synth_trace(24), synth.synth_reports()
     ex = Explorer(tr, rep, engine="torch", device="cuda",
                   torch_megabatch=megabatch)
-    with pytest.raises(DeviceError, match="p must be torch.int64"):
+    with pytest.raises(DeviceError, match="kind_pool must be torch.int64"):
         ex.explore(synth.synth_candidates(range(1, 9)), top_k=3)
     assert ex.engine == "torch" and ex.stats.engine_demotions == 0
 
@@ -317,7 +317,8 @@ def test_any_engine_fault_on_the_card_raises_and_never_demotes(monkeypatch,
     def broken(*args):
         raise RuntimeError("injected lockstep bug")
 
-    monkeypatch.setattr(torchsim, "step_commit", broken)
+    # the card's steps are the fused step's launches
+    monkeypatch.setattr(lockstep_step, "step_fused", broken)
     # as above: the fault is raised where a step graph is captured
     monkeypatch.setattr(torchsim, "_DEFAULT_CACHE", torchsim.CompileCache())
     tr, rep = synth.synth_trace(24), synth.synth_reports()

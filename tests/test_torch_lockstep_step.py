@@ -312,21 +312,30 @@ class StubEntry:
 
 class StubLibrary:
     """A stand-in for a build of ``lockstep_step.cu``: records each
-    launch's unpacked argument block and returns ``rc``; ``args_bytes`` is
-    the size of its packed arguments, ``group`` its thread group by S."""
+    launch's unpacked argument block (the commit's in ``calls``, the fused
+    step's in ``fused_calls``) and returns ``rc``; ``args_bytes`` and
+    ``fused_args_bytes`` are the sizes of its packed arguments, ``group``
+    its thread group by S."""
 
     def __init__(self, rc=0, args_bytes=ls.STEP_ARGS.size,
-                 group=ls.group_size):
+                 group=ls.group_size, fused_args_bytes=ls.FUSED_ARGS.size):
         self.calls = []
+        self.fused_calls = []
 
         def launch(packed):
             self.calls.append(ls.STEP_ARGS.unpack(packed))
+            return rc
+
+        def fused(packed):
+            self.fused_calls.append(ls.FUSED_ARGS.unpack(packed))
             return rc
 
         self.step_commit_launch = StubEntry(launch)
         self.step_commit_args_bytes = StubEntry(lambda: args_bytes)
         self.step_commit_group = StubEntry(group)
         self.step_commit_error_string = StubEntry(lambda rc: b"stub error")
+        self.step_fused_launch = StubEntry(fused)
+        self.step_fused_args_bytes = StubEntry(lambda: fused_args_bytes)
 
 
 @pytest.fixture
@@ -493,3 +502,257 @@ def test_kernel_at_every_group_size_on_the_card(S):
         torch.cuda.synchronize()
         for g, w in zip(dev[:3] + [end_dev], ref[:3] + [end_ref]):
             assert same_bits(g.cpu().numpy(), w.cpu().numpy()), S
+
+
+# ------------------------------------------- the fused step (a whole step) ---
+
+def random_scan(seed, P, S, B, rows, *, K=3, NK=4, SC=3, G=3, steps=6,
+                nan=True):
+    """A slice of the torch scan, every index in range and every path of
+    a step taken by some lane: ``(blocks, state, kind_pool, smp_kid)``
+    as numpy arrays, ``blocks`` the packed ``(xi, xf, xb)`` of
+    ``torchsim._pack``'s layout and ``state`` each ``torchsim._State``
+    field.  Own-order and replayed lanes are mixed, as are cohorts; small
+    integer costs, clocks, ready times and tie-breaks make ties; rows
+    name their conditional parent or themselves; successor lists repeat
+    entries and carry the dummy row; some option, pool and placement
+    entries are -1; one lane has an all-``inf`` pool, one (with ``nan``)
+    a NaN clock and one a NaN heap key; the last two lanes pad, copies
+    of lane 0."""
+    rng = np.random.default_rng(seed)
+    T, dummy, WI = rows + steps, rows - 1, 4 + 2 * K + SC
+
+    def ints(lo, hi, shape):
+        return rng.integers(lo, hi, shape)
+
+    def some(p, shape):
+        return rng.random(shape) < p
+
+    xi = np.empty((T, WI, G), dtype=np.int64)
+    xi[:, 0] = ints(0, rows, (T, G))
+    xi[:, 1] = ints(0, 4, (T, G))
+    xi[:, 2] = np.where(some(0.5, (T, G)), -1, ints(0, max(rows - 1, 1),
+                                                    (T, G)))
+    xi[:, 2] = np.where(some(0.1, (T, G)), xi[:, 0], xi[:, 2])
+    xi[:, 3] = ints(0, NK, (T, G))
+    xi[:, 4:4 + 2 * K] = np.where(some(0.25, (T, 2 * K, G)), -1,
+                                  ints(0, NK, (T, 2 * K, G)))
+    succ = ints(0, rows, (T, SC, G))
+    succ[:, -1] = np.where(some(0.5, (T, G)), succ[:, 0], succ[:, -1])
+    xi[:, 4 + 2 * K:] = np.where(some(0.3, (T, SC, G)), dummy, succ)
+    xf = ints(0, 3, (T, 2 * NK, G)).astype(np.float64)
+    xb = np.concatenate([some(0.85, (T, 1, G)), some(0.7, (T, 1, G)),
+                         some(0.1, (T, 1, G)), some(0.5, (T, NK, G))],
+                        axis=1)
+    clocks = ints(0, 4, (P, S, B)).astype(np.float64)
+    clocks[np.arange(S)[None, :, None] >= ints(1, S + 1, (P, 1, B))] = \
+        np.inf
+    clocks[P - 1, :, 1 % B] = np.inf
+    ready = ints(0, 5, (rows, B)).astype(np.float64)
+    npred = ints(-2, 2, (rows, B)).astype(np.int32)
+    key = np.where(npred.T == 0, ready.T, np.inf)
+    if nan and B > 4:
+        clocks[0, 0, 2] = np.nan
+        key[3, int(ints(0, rows, ()))] = np.nan
+    state = {
+        "clocks": clocks, "ready": ready,
+        "placement": ints(-1, NK, (rows, B)).astype(np.int32),
+        "busy": rng.random((P, B)), "seen": some(0.5, (P, B)),
+        "makespan": ints(0, 4, B).astype(np.float64),
+        "prev_rt": np.where(some(0.3, B), -np.inf,
+                            ints(0, 4, B).astype(np.float64)),
+        "prev_tb": ints(-1, 4, B), "div": some(0.1, B), "npred": npred,
+        "own": some(0.5, B), "key": key, "t": ints(0, T - steps + 1, B),
+        "ran": np.ones(B, dtype=np.int32), "gone": np.full(B, np.inf),
+        "cohort": ints(0, G, B)}
+    kind_pool = ints(-1, P, (B, NK))
+    smp_kid = ints(-1, NK, B)
+    for name, a in (*state.items(), ("kind_pool", kind_pool),
+                    ("smp_kid", smp_kid)):
+        if name in ("key", "kind_pool"):            # lane-first
+            a[B - 2:] = a[:1]
+        else:
+            a[..., B - 2:] = a[..., :1]             # pad lanes copy lane 0
+    return (xi, xf, xb), state, kind_pool, smp_kid
+
+
+def scan_state(state, device):
+    """A ``torchsim._State`` holding ``state``'s arrays on ``device``."""
+    from repro_torch.core import torchsim
+    P, S, B = state["clocks"].shape
+    st = torchsim._State(P, S, B, state["ready"].shape[0],
+                         torch.device(device))
+    for name, a in state.items():
+        getattr(st, name).copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return st
+
+
+#: ``(P, S, B, rows, K, NK, SC, eft)`` of the card's fused-step cases:
+#: every group size 1-33 of a pool's slots; rows on both sides of each
+#: block-width step and past the widest block's 4,096 keys (a block has
+#: the power of two from 32 to 256 threads that gives each thread at most
+#: 16 heap keys and each pool ``group_size(S)`` threads, so with P·group
+#: at most 32 the width steps at 512, 1024 and 2048 rows:
+#: ``fused_threads_for`` of the source); successor lists longer than a
+#: block; the benchmark's shapes.
+FUSED_CASES = (
+    [(3, S, 37, 40, 3, 4, 3, S % 2 == 0)
+     for S in (1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32, 33)]
+    + [(4, 8, 37, rows, 3, 4, 3, rows % 2 == 1)
+       for rows in (2, 512, 513, 1024, 1025, 2048, 2049, 4097, 6000)]
+    + [(9, 16, 40, 121, 6, 7, 70, eft) for eft in (False, True)]
+    + [(4, 8, 256, 3585, 4, 4, 2, False), (5, 16, 64, 121, 4, 6, 5, True)])
+
+
+def test_fused_cases_cover_every_width():
+    """The card's cases reach every group size the fused step compiles,
+    and rows on both sides of every block-width step."""
+    assert {ls.group_size(c[1]) for c in FUSED_CASES} == \
+        {1, 2, 4, 8, 16, 32}
+    rows = {c[3] for c in FUSED_CASES if c[0] * ls.group_size(c[1]) <= 32}
+    assert all({step, step + 1} <= rows for step in (512, 1024, 2048))
+    assert max(rows) > 4096
+
+
+@pytest.mark.parametrize("case", FUSED_CASES[::4], ids=str)
+def test_random_scans_run_in_the_plain_body(case):
+    """The card's random slices are slices the plain body takes: every
+    index in range, several steps, every field finite or as made."""
+    from repro_torch.core import torchsim
+    P, S, B, rows, K, NK, SC, eft = case
+    blocks, state, kp, sk = random_scan(sum(case), P, S, B, rows, K=K,
+                                        NK=NK, SC=SC)
+    st = scan_state(state, "cpu")
+    torchsim._steps(*(torch.from_numpy(b) for b in blocks), st,
+                    torch.from_numpy(kp), torch.from_numpy(sk), eft, K, 6)
+    assert st.t.tolist() == (state["t"] + 6).tolist()
+
+
+def fused_operands(seed=9, P=3, S=5, B=16, rows=20, K=2, NK=3, SC=4):
+    """A random slice on CPU tensors: ``(xi, xf, xb, state, kind_pool,
+    smp_kid, K)``."""
+    blocks, state, kp, sk = random_scan(seed, P, S, B, rows, K=K, NK=NK,
+                                        SC=SC)
+    return (*(torch.from_numpy(b) for b in blocks), scan_state(state, "cpu"),
+            torch.from_numpy(kp), torch.from_numpy(sk), K)
+
+
+def test_fused_route_passes_the_packed_argument_block(card_route):
+    """One fused step, one packed block, field for field: the step
+    inputs', pool map's and SMP kinds' addresses, the state's in
+    ``FUSED_STATE`` order, the stream, then the sizes and ``eft``;
+    counted once at ``(P, S, B)``, and no commit launched."""
+    xi, xf, xb, st, kp, sk, K = fused_operands()
+    ls.step_fused(xi, xf, xb, st, kp, sk, True, K)
+    (args,) = card_route.fused_calls
+    T, WI, G = xi.shape
+    assert args == (xi.data_ptr(), xf.data_ptr(), xb.data_ptr(),
+                    kp.data_ptr(), sk.data_ptr(),
+                    *(getattr(st, f).data_ptr() for f in ls.FUSED_STATE),
+                    7, 3, 5, 16, 20, T, G, K, 3, WI - 4 - 2 * K, 1)
+    assert not card_route.calls
+    assert ls.LAUNCHES == 1 and dict(ls.SHAPES) == {(3, 5, 16): 1}
+
+
+@pytest.mark.parametrize("field,bad", [
+    ("xi", lambda t: t.int()),
+    ("xf", lambda t: t[:, :-1]),
+    ("xb", lambda t: t.transpose(0, 2).contiguous().transpose(0, 2)),
+    ("kind_pool", lambda t: t[:-1]),
+    ("placement", lambda t: t.long()),
+    ("key", lambda t: t.T.contiguous()),
+    ("t", lambda t: t[0]),
+    ("npred", lambda t: t.to("meta")),
+])
+def test_fused_route_refuses_before_any_launch(card_route, field, bad):
+    """An operand the fused step cannot take — another dtype, shape or
+    device, or not contiguous — is a DeviceError naming it; nothing is
+    launched or counted."""
+    xi, xf, xb, st, kp, sk, K = fused_operands()
+    ops = {"xi": xi, "xf": xf, "xb": xb, "kind_pool": kp}
+    if field in ops:
+        ops[field] = bad(ops[field])
+    else:
+        setattr(st, field, bad(getattr(st, field)))
+    with pytest.raises(DeviceError, match=field):
+        ls.step_fused(ops["xi"], ops["xf"], ops["xb"], st, ops["kind_pool"],
+                      sk, False, K)
+    assert not card_route.fused_calls and ls.LAUNCHES == 0 and not ls.SHAPES
+
+
+def test_fused_refused_launch_raises_and_counts_nothing(card_route,
+                                                        monkeypatch):
+    """A fused launch the C entry refuses is a DeviceError with its
+    message; nothing is counted."""
+    monkeypatch.setattr(ls, "_CACHED", ls.bind(StubLibrary(rc=1)))
+    xi, xf, xb, st, kp, sk, K = fused_operands()
+    with pytest.raises(DeviceError, match="step_fused.*stub error"):
+        ls.step_fused(xi, xf, xb, st, kp, sk, False, K)
+    assert ls.LAUNCHES == 0 and not ls.SHAPES
+
+
+def test_fused_step_refuses_cpu_tensors_off_the_card_route():
+    """The fused step has no CPU route: the CPU runs the plain body."""
+    xi, xf, xb, st, kp, sk, K = fused_operands()
+    with pytest.raises(DeviceError, match="plain body"):
+        ls.step_fused(xi, xf, xb, st, kp, sk, False, K)
+
+
+def test_steps_launch_once_a_step_eager_and_credited_per_replay(card_route):
+    """On the card route ``_steps`` launches the fused step once a step
+    and nothing else; launches recorded as a graph capture records them
+    count at each replay, as ``StepRunner.run`` credits them: the
+    ``steps_per_s`` and roofline readers keep one launch a step."""
+    from repro_torch.core import torchsim
+    xi, xf, xb, st, kp, sk, K = fused_operands()
+    torchsim._steps(xi, xf, xb, st, kp, sk, False, K, 5)
+    assert len(card_route.fused_calls) == 5 and not card_route.calls
+    assert ls.LAUNCHES == 5 and dict(ls.SHAPES) == {(3, 5, 16): 5}
+    with ls.recording() as tally:
+        torchsim._steps(xi, xf, xb, st, kp, sk, False, K, torchsim.STEPS)
+    assert dict(tally) == {(3, 5, 16): torchsim.STEPS}
+    assert ls.LAUNCHES == 5
+    ls.credit(tally, 3)
+    assert ls.LAUNCHES == 5 + 3 * torchsim.STEPS
+    assert dict(ls.SHAPES) == {(3, 5, 16): 5 + 3 * torchsim.STEPS}
+
+
+def test_a_library_of_another_fused_argument_layout_is_refused():
+    """A build whose fused step packs another block is refused when
+    bound."""
+    with pytest.raises(DeviceError, match="step_fused_args_bytes"):
+        ls.bind(StubLibrary(fused_args_bytes=ls.FUSED_ARGS.size + 8))
+
+
+STATE_FIELDS = ("clocks", "ready", "placement", "busy", "seen", "makespan",
+                "prev_rt", "prev_tb", "div", "npred", "key", "t")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FUSED_CASES, ids=str)
+def test_fused_step_matches_the_plain_body_on_the_card(case):
+    """Step after step, every field of the scan's state after the fused
+    step on the card equals the plain body's on the CPU, bit for bit, on
+    random slices (:func:`random_scan`): replayed and own-order lanes,
+    conditional rows and act masks, bad rows, repeated and dummy
+    successors, an all-``inf`` pool, NaNs, pad lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import torchsim
+    P, S, B, rows, K, NK, SC, eft = case
+    blocks, state, kp, sk = random_scan(sum(case) + 1, P, S, B, rows, K=K,
+                                        NK=NK, SC=SC)
+    cpu, dev = scan_state(state, "cpu"), scan_state(state, "cuda")
+    args = {d: ([torch.from_numpy(b).to(d) for b in blocks],
+                torch.from_numpy(kp).to(d), torch.from_numpy(sk).to(d))
+            for d in ("cpu", "cuda")}
+    before = ls.LAUNCHES
+    for step in range(6):
+        (bc, kc, sc), (bd, kd, sd) = args["cpu"], args["cuda"]
+        torchsim._steps(*bc, cpu, kc, sc, eft, K, 1)
+        torchsim._steps(*bd, dev, kd, sd, eft, K, 1)
+        torch.cuda.synchronize()
+        for name in STATE_FIELDS:
+            assert same_bits(getattr(dev, name).cpu().numpy(),
+                             getattr(cpu, name).numpy()), (step, name)
+    assert ls.LAUNCHES == before + 6

@@ -1027,6 +1027,9 @@ class FailingLaunches:
     def step_commit_launch(self, packed):
         return 1
 
+    def step_fused_launch(self, packed):
+        return 1
+
     def step_commit_error_string(self, rc):
         return b"injected launch failure"
 
