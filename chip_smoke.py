@@ -112,13 +112,16 @@ Phases, one line each or more:
    agree with the batch engine's at ``TORCH_RTOL`` with the same best
    candidate, no engine demotion, kernel launches > 0 and lanes that went
    through the lockstep path; then ``[graph sweep]``:
-   ``matmul512_200_warm`` and ``cholesky512_48_cold`` eagerly
-   (``torch_graphs=False``) and through the graphs of a fresh compile
-   cache with a disk tier, then again warm: every result bit for bit,
-   the replay protocol's counts and the fused step's launches equal both
-   ways, steps/s and candidates/s each way, captures, replays and capture
-   seconds, 0 captures on the warm repeat, and each graph's device time
-   a step by CUDA events; then a second Python process sweeps the
+   ``matmul512_200_warm`` and ``cholesky512_48_cold`` through the graphs
+   of a fresh compile cache with a disk tier, then again warm: every
+   result bit for bit, the replay protocol's counts and the fused step's
+   launches equal both times; each slice of both sweeps run again
+   eagerly (``torchsim._steps`` on a fresh state) bit for bit the
+   runner's outputs, with the eager launches by shape equal to those
+   credited at the graphs' replays; steps/s and candidates/s each time,
+   captures, replays and capture seconds, 0 captures on the warm repeat,
+   and each graph's device time a step by CUDA events; then a second
+   Python process sweeps the
    Cholesky ramp on that store with 0 ``nvcc`` builds and every runner a
    disk hit;
 6. the sweep service, with the step launch counts set to 0 just before
@@ -1028,14 +1031,15 @@ def graph_step_times(torch, cc, STEPS, n: int = 20):
 
 def graph_sweep(torch, Explorer, ls, label, trace, reports, a9, cands,
                 top_k, library, failures):
-    """One sweep eagerly (``torch_graphs=False``) and through captured step
-    graphs on a fresh compile cache with a disk tier, then again on the
-    warm cache, in one call and each from a copy of ``library``: every
-    torch-tier result bit for bit, the replay protocol's counts and the
-    fused step's launches (by shape) equal both ways; the warm repeat
-    captures nothing.  Each run's wall is split between the step loop
-    (``torchsim._scan_cohorts``, timed around each call: staging, the
-    loop or its replays, the copy-out) and the rest (graphs, host order
+    """One sweep through captured step graphs on a fresh compile cache
+    with a disk tier, then again on the warm cache, in one call and each
+    from a copy of ``library``: every torch-tier result bit for bit, the
+    replay protocol's counts and the fused step's launches (by shape)
+    equal both times; the warm repeat captures nothing.  Each slice of
+    both sweeps is kept and, after them, run again eagerly
+    (:func:`eager_slices`).  Each run's wall is split between the step
+    loop (``torchsim._scan_cohorts``, timed around each call: staging,
+    the replays, the copy-out) and the rest (graphs, host order
     discovery, assembly).  Returns the phase's row and the cache."""
     from repro_torch.core import torchsim
     from repro_torch.core.diskcache import DiskCache
@@ -1044,6 +1048,8 @@ def graph_sweep(torch, Explorer, ls, label, trace, reports, a9, cands,
     runs = {}
     loop_s = [0.0]
     scan = torchsim._scan_cohorts
+    run = torchsim.StepRunner.run
+    kept = []
 
     def timed_scan(*args, **kwargs):
         t0 = time.perf_counter()
@@ -1052,26 +1058,65 @@ def graph_sweep(torch, Explorer, ls, label, trace, reports, a9, cands,
         finally:
             loop_s[0] += time.perf_counter() - t0
 
+    def kept_run(self, *args):
+        out = run(self, *args)
+        kept.append((self, args, out))
+        return out
+
     torchsim._scan_cohorts = timed_scan
+    torchsim.StepRunner.run = kept_run
     try:
         runs = graph_sweep_runs(torch, Explorer, ls, trace, reports, a9,
                                 cands, top_k, library, cc, loop_s)
     finally:
         torchsim._scan_cohorts = scan
-    return graph_sweep_row(torch, torchsim, label, cands, runs, cc,
+        torchsim.StepRunner.run = run
+    slices = eager_slices(torch, torchsim, ls, kept)
+    return graph_sweep_row(torch, torchsim, label, cands, runs, slices, cc,
                            failures), cc
+
+
+def eager_slices(torch, torchsim, ls, kept):
+    """Each kept slice ``(runner, arguments, outputs)`` of a sweep run
+    again eagerly: ``torchsim._steps`` on a fresh state, one fused launch
+    a step, tallied by shape.  Returns the slices compared, those whose
+    outputs differ from the runner's bit for bit, those whose eager
+    launches differ from the ones the runner credited at its replays,
+    the eager launches by shape and the eager seconds (synchronised)."""
+    bad_bits, bad_launches, shapes, secs = 0, 0, Counter(), 0.0
+    for runner, args, out in kept:
+        xi, xf, xb, clocks, kind_pool, smp_kid, *rest = args
+        P, S, B = runner.state.clocks.shape
+        st = torchsim._State(P, S, B, runner.state.ready.shape[0],
+                             xi.device)
+        st.reset(clocks, *rest)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ls.recording() as tally:
+            torchsim._steps(xi, xf, xb, st, kind_pool, smp_kid, runner.eft,
+                            runner.K)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        want = st.outputs()
+        if any(a.tobytes() != b.tobytes() for a, b in zip(out, want)):
+            bad_bits += 1
+        replays = xi.shape[0] // torchsim.STEPS
+        if tally != Counter({sh: n * replays
+                             for sh, n in runner.launches.items()}):
+            bad_launches += 1
+        shapes.update(tally)
+    return {"slices": len(kept), "bad_bits": bad_bits,
+            "bad_launches": bad_launches, "shapes": shapes, "seconds": secs}
 
 
 def graph_sweep_runs(torch, Explorer, ls, trace, reports, a9, cands, top_k,
                      library, cc, loop_s):
-    """The three runs of :func:`graph_sweep`, each from a copy of
+    """The two runs of :func:`graph_sweep`, each from a copy of
     ``library``; ``loop_s`` accumulates the step loop's seconds."""
     runs = {}
-    for name, kw in (("eager", {"torch_graphs": False}),
-                     ("graph", {"compile_cache": cc}),
-                     ("graph_warm", {"compile_cache": cc})):
+    for name in ("graph", "graph_warm"):
         ex = Explorer(trace, reports, engine="torch", smp_seconds_fn=a9,
-                      order_library=library_copy(library), **kw)
+                      order_library=library_copy(library), compile_cache=cc)
         before = cc.as_dict()
         ls.LAUNCHES = 0
         ls.SHAPES.clear()
@@ -1087,7 +1132,7 @@ def graph_sweep_runs(torch, Explorer, ls, trace, reports, a9, cands, top_k,
             "rest_s": wall - loop_s[0], "steps": ls.LAUNCHES,
             "steps_per_s": ls.LAUNCHES / wall,
             "cand_per_s": len(cands) / wall, "best": r.best_name,
-            "shapes": {str(k): n for k, n in sorted(ls.SHAPES.items())},
+            "shapes": Counter(ls.SHAPES),
             "batch_stats": ex.batch_stats.as_dict(),
             "cache": {k: after[k] - before[k] for k in after},
             "sims": sims_bits(ex), "engine": ex.engine,
@@ -1096,22 +1141,25 @@ def graph_sweep_runs(torch, Explorer, ls, trace, reports, a9, cands, top_k,
     return runs
 
 
-def graph_sweep_row(torch, torchsim, label, cands, runs, cc, failures):
+def graph_sweep_row(torch, torchsim, label, cands, runs, slices, cc,
+                    failures):
     """:func:`graph_sweep`'s checks and its ``[graph sweep]`` line."""
-    eager, graph, warm = runs["eager"], runs["graph"], runs["graph_warm"]
+    graph, warm = runs["graph"], runs["graph_warm"]
     checks = {
-        "ok_bitwise": graph["sims"] == eager["sims"] == warm["sims"]
-        and graph["spans"] == eager["spans"] == warm["spans"]
-        and len(eager["sims"]) > 0,
-        "ok_protocol": graph["batch_stats"] == eager["batch_stats"]
-        == warm["batch_stats"],
-        "ok_launches": graph["steps"] == eager["steps"] == warm["steps"] > 0
-        and graph["shapes"] == eager["shapes"] == warm["shapes"],
+        "ok_bitwise": graph["sims"] == warm["sims"]
+        and graph["spans"] == warm["spans"] and len(graph["sims"]) > 0,
+        "ok_slices_bitwise": slices["slices"] > 0
+        and slices["bad_bits"] == 0,
+        "ok_protocol": graph["batch_stats"] == warm["batch_stats"],
+        "ok_launches": graph["steps"] == warm["steps"] > 0
+        and graph["shapes"] == warm["shapes"]
+        and graph["shapes"] + warm["shapes"] == slices["shapes"]
+        and slices["bad_launches"] == 0,
         "ok_captured": graph["cache"]["captures"] >= 1
         and graph["cache"]["replays"] >= 1,
         "ok_warm_no_capture": warm["cache"]["captures"] == 0
         and warm["cache"]["compiles"] == 0 and warm["cache"]["mem_hits"] >= 1,
-        "ok_no_demotion": eager["engine"] == graph["engine"] == "torch",
+        "ok_no_demotion": graph["engine"] == warm["engine"] == "torch",
     }
     row = {"sweep": label, "candidates": len(cands), "best": graph["best"],
            "steps": graph["steps"],
@@ -1121,7 +1169,9 @@ def graph_sweep_row(torch, torchsim, label, cands, runs, cc, failures):
            "graph_cache": graph["cache"], "warm_cache": warm["cache"],
            "lockstep_lanes": graph["batch_stats"]["lockstep_lanes"],
            "diverged_lanes": graph["batch_stats"]["diverged_lanes"],
-           "results_compared": len(eager["sims"]),
+           "results_compared": len(graph["sims"]),
+           "slices_compared": slices["slices"],
+           "eager_slices_s": slices["seconds"],
            "step_graphs": graph_step_times(torch, cc, torchsim.STEPS),
            **checks}
     phase("graph sweep", json.dumps(row))
@@ -4056,9 +4106,9 @@ def main() -> int:
     sweep("matmul512_200_top5_prune", mm_tr, mm_rep, mm_a9, mm_cands,
           top_k=5, prune=True)
 
-    # 5b. the step loop's captured graphs against the eager loop, bit for
-    # bit, on a compile cache with a disk tier; then a second process on
-    # that store builds nothing
+    # 5b. the step loop's captured graphs against the eager loop, slice by
+    # slice and bit for bit, on a compile cache with a disk tier; then a
+    # second process on that store builds nothing
     failures = []
     shutil.rmtree(GRAPH_DIR, ignore_errors=True)
     graph_rows = [

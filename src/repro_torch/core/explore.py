@@ -899,8 +899,6 @@ class Explorer:
                  engine: Optional[str] = None,
                  device: Optional[str] = None,
                  torch_chunk: Optional[int] = None,
-                 torch_megabatch: Optional[bool] = None,
-                 torch_graphs: bool = True,
                  compile_cache: Optional["CompileCache"] = None,
                  order_library: Optional[ReplayLibrary] = None,
                  max_rescue_rounds: int = MAX_RESCUE_ROUNDS,
@@ -918,20 +916,17 @@ class Explorer:
         ``engine="reference"``, ``fast=True, batch=False`` is
         ``engine="fast"``, ``batch=True`` is ``engine="batch"``; the
         default is ``engine="torch"``).
-        ``engine="torch"`` evaluates each graph-sharing candidate family
-        through the torch step loop (:mod:`repro_torch.core.torchsim`,
-        rtol-tier, in-process only) on ``device`` — default
+        ``engine="torch"`` evaluates each evaluation chunk's *whole* graph
+        set through one lane axis of the torch step loop
+        (:func:`repro_torch.core.torchsim.simulate_torch_many`, rtol-tier,
+        in-process only) on ``device`` — default
         :func:`repro_torch.default_device`, the card; ``device="cpu"``
         asks for the host.  A missing card, a kernel that fails to build
         and a kernel launch that fails raise
         :class:`repro_torch.DeviceError`: they never demote.  On the card
         any other fault of the torch engine mid-sweep re-raises too.
         ``torch_chunk`` caps its lane-bucket width (non-power-of-two caps
-        round down to a power of two).  ``torch_megabatch`` (default on
-        for the torch engine) routes each evaluation chunk's *whole* graph
-        set through one lane axis
-        (:func:`repro_torch.core.torchsim.simulate_torch_many`) instead of
-        one loop per graph family.  The torch engine's step loop runs
+        round down to a power of two).  The torch engine's step loop runs
         through the runners of a compile cache
         (:class:`~repro_torch.core.graphcache.CompileCache`; on the card a
         captured CUDA graph per shape signature): ``compile_cache`` shares
@@ -939,8 +934,6 @@ class Explorer:
         ``cache_dir`` the Explorers of one root share one, whose disk tier
         keeps the kernel libraries under ``<cache_dir>/kernels``; without
         either, Explorers share torchsim's process-wide in-memory cache.
-        ``torch_graphs=False`` runs the step loop eagerly instead (the
-        other side of an A/B check on the card).
         ``processes`` > 0 fans chunks out to that many worker processes
         (exact fast/batch engines only).  ``cache_dir`` persists frozen
         graphs and schedule-free sims to disk, keyed by trace content
@@ -1034,21 +1027,12 @@ class Explorer:
                 raise ValueError(f"torch_chunk only applies to "
                                  f"engine='torch' (got engine={engine!r})")
         self.torch_chunk = torch_chunk
-        if torch_megabatch is not None and engine != "torch":
-            raise ValueError(f"torch_megabatch only applies to "
-                             f"engine='torch' (got engine={engine!r})")
         if device is not None and engine != "torch":
             raise ValueError(f"device only applies to engine='torch' "
                              f"(got engine={engine!r})")
         if compile_cache is not None and engine != "torch":
             raise ValueError(f"compile_cache only applies to engine='torch' "
                              f"(got engine={engine!r})")
-        if not torch_graphs and engine != "torch":
-            raise ValueError(f"torch_graphs only applies to engine='torch' "
-                             f"(got engine={engine!r})")
-        self.torch_graphs = bool(torch_graphs)
-        self.torch_megabatch = (engine == "torch") \
-            if torch_megabatch is None else bool(torch_megabatch)
         self._sim_tier = "torch" if engine == "torch" else "exact"
         self.device = None
         pending_demotion: Optional[BaseException] = None
@@ -1310,7 +1294,6 @@ class Explorer:
         self.engine = nxt
         self.fast = nxt != "reference"
         self.batch = nxt == "batch"
-        self.torch_megabatch = False
         self._sim_tier = "exact"
         if not self.fast:
             # cached FrozenGraph payloads are the wrong shape for the
@@ -1926,7 +1909,7 @@ class Explorer:
                     (pos, cand, key, text, ghit))
 
         if not use_procs:                      # serial lockstep evaluation
-            if self.engine == "torch" and self.torch_megabatch and pending:
+            if self.engine == "torch" and pending:
                 try:
                     return self._evaluate_megabatch(pending, graph_info,
                                                     results)
@@ -2168,8 +2151,8 @@ class Explorer:
                             graph_info: Mapping[Tuple, Tuple],
                             results: List) -> List:
         """Every graph family of one evaluation chunk through a single
-        lane axis (:func:`repro_torch.core.torchsim.simulate_torch_many`) —
-        one megabatch dispatch instead of one per-graph loop each."""
+        lane axis (:func:`repro_torch.core.torchsim.simulate_torch_many`):
+        the torch engine's only lane path."""
         from .torchsim import simulate_torch_many
         gkeys = list(pending)
         fams = []
@@ -2188,8 +2171,7 @@ class Explorer:
             fams, self.policy, device=self.device, stats=self.batch_stats,
             library=self.order_library, max_rounds=self.max_rescue_rounds,
             prunes=prunes if any(p is not None for p in prunes) else None,
-            compile_cache=self.compile_cache, graphs=self.torch_graphs,
-            **kw)
+            compile_cache=self.compile_cache, **kw)
         n_total = sum(len(v) for v in pending.values()) or 1
         share = (time.perf_counter() - t0) / n_total
         with tracing.span("sweep.assemble"):
@@ -2235,13 +2217,16 @@ class Explorer:
                          cands: Sequence[Candidate],
                          prune: Optional[PruneContext] = None) \
             -> List[Union[SimResult, Retired]]:
-        """One graph-sharing candidate family through the configured
-        candidate-axis backend (numpy lockstep or the torch loop), replaying
-        orders from the sweep's (disk-warmed) library.  With ``prune``,
-        lanes may come back as :class:`~repro_torch.core.replay.Retired`
-        markers (the ``family_runner`` seam stays unpruned in-flight —
-        its sweeps run out-of-process of the incumbent; the pre-cut in
-        ``_explore`` still applies to its candidates).
+        """One graph-sharing candidate family through the configured exact
+        engine (the numpy lockstep backend, ``fast`` or the reference),
+        replaying orders from the sweep's (disk-warmed) library.  The torch
+        engine never comes here: its families go through
+        :meth:`_evaluate_megabatch`, and after a fault it is ``batch``.
+        With ``prune``, lanes may come back as
+        :class:`~repro_torch.core.replay.Retired` markers (the
+        ``family_runner`` seam stays unpruned in-flight — its sweeps run
+        out-of-process of the incumbent; the pre-cut in ``_explore`` still
+        applies to its candidates).
 
         An engine fault demotes down :data:`~repro_torch.core.replay.
         ENGINE_FALLBACK` and re-runs the *whole family* on the next tier
@@ -2252,19 +2237,6 @@ class Explorer:
         systems = [c.system for c in cands]
         while True:
             try:
-                if self.engine == "torch":
-                    self._load_orders(payload)
-                    from .torchsim import simulate_torch
-                    kw = {} if self.torch_chunk is None \
-                        else {"chunk": self.torch_chunk}
-                    return simulate_torch(payload, systems, self.policy,
-                                          device=self.device,
-                                          stats=self.batch_stats,
-                                          library=self.order_library,
-                                          max_rounds=self.max_rescue_rounds,
-                                          prune=prune,
-                                          compile_cache=self.compile_cache,
-                                          graphs=self.torch_graphs, **kw)
                 if self.engine == "batch":
                     self._load_orders(payload)
                     if self.family_runner is not None:
@@ -2340,7 +2312,6 @@ def explore(trace: Trace, candidates: Sequence[Candidate], reports: ReportMap,
             engine: Optional[str] = None,
             device: Optional[str] = None,
             torch_chunk: Optional[int] = None,
-            torch_megabatch: Optional[bool] = None,
             order_library: Optional[ReplayLibrary] = None,
             max_rescue_rounds: int = MAX_RESCUE_ROUNDS,
             objectives: Optional[Sequence[str]] = None,
@@ -2359,7 +2330,6 @@ def explore(trace: Trace, candidates: Sequence[Candidate], reports: ReportMap,
                   max_workers=max_workers, cache=cache, fast=fast,
                   batch=batch, processes=processes, cache_dir=cache_dir,
                   engine=engine, device=device, torch_chunk=torch_chunk,
-                  torch_megabatch=torch_megabatch,
                   order_library=order_library,
                   max_rescue_rounds=max_rescue_rounds,
                   objectives=objectives, budgets=budgets, hwspec=hwspec)

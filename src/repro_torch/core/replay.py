@@ -37,22 +37,22 @@ lockstep costs more than the serial loop it replaces, so the library's win
 for such a lane is skipping it out of a doomed lockstep, not vectorising
 it.
 
-**Own-order lanes.**  A backend that can step a lane through its *own*
-heap order on its lane axis (the torch engine: a cohort whose order is
-``None``) supplies that as the ``own_order_fn`` seam of
-:func:`simulate_grouped` and :func:`simulate_many`.  With it, a lane the
-protocol would send to the exact serial path without recording an order
-— a small group, a pinned signature, a routed cohort too thin to replay,
-a serial fallback — steps its own order in lockstep instead, and so do,
-in the megabatch, a cold group's lanes after its first discovery.
-Discoveries still run serially and record their orders (a group's first,
-which seeds the library, and a lane that diverged from a replayed order:
-in the megabatch one a group, the rest marked for the seam
+**Own-order lanes.**  A megabatch backend that can step a lane through
+its *own* heap order on its lane axis (the torch engine: a cohort whose
+order is ``None``) supplies that as the ``own_order_fn`` seam of
+:func:`simulate_many`.  With it, a lane the protocol would send to the
+exact serial path without recording an order — a small group, a pinned
+signature, a routed cohort too thin to replay, a serial fallback — steps
+its own order in lockstep instead, and so do a cold group's lanes after
+its first discovery.  Discoveries still run serially and record their
+orders (a group's first, which seeds the library, and one a group of the
+lanes that diverged from a replayed order, the rest marked for the seam
 (:meth:`ReplayLibrary.mark_own`, which nothing else reads) and stepped in
 their own orders), as does a lane that live-dispatches a row the
-reference raises on.  Routed cohorts of at least ``min_lockstep`` lanes still replay.
-Without the seam (the numpy backend), under pruning or when schedules
-are asked for, the protocol is the one above.
+reference raises on.  Routed cohorts of at least ``min_lockstep`` lanes
+still replay.  Without the seam (:func:`simulate_grouped`, and the
+numpy backend), under pruning or when schedules are asked for, the
+protocol is the one above.
 
 This module owns the protocol (grouping, order selection, rescue, fallback,
 per-lane result assembly, the per-graph auxiliary constants) so the
@@ -201,8 +201,8 @@ class BatchStats:
 
     ``own_order_lanes`` (an event counter, overlapping
     ``lockstep_lanes``) counts lanes a backend stepped through their own
-    heap order on its lane axis (the ``own_order_fn`` seam), not through
-    a replayed order.
+    heap order on its lane axis (:func:`simulate_many`'s ``own_order_fn``
+    seam), not through a replayed order.
     """
 
     groups: int = 0
@@ -488,19 +488,6 @@ def _own_results(out, lanes: Sequence[int], systems, results: List,
     for pos in bad:
         results[lanes[pos]], sp = exact(lanes[pos])
         _note(stats, sp, "fallback")
-
-
-def _own_order(fg: FrozenGraph, systems, layouts: Sequence[Layout],
-               lanes: Sequence[int], policy: str,
-               stats: Optional[BatchStats], own_fn: LockstepFn,
-               results: List) -> None:
-    """``lanes`` of one group through the backend's own-order seam, one
-    call (:func:`_own_results`)."""
-    if lanes:
-        _own_results(own_fn(fg, None, [layouts[i] for i in lanes], policy,
-                            None), lanes, systems, results,
-                     lambda i: _exact(fg, systems[i], policy, None, i),
-                     stats)
 
 
 # ---------------------------------------------------------------------------
@@ -819,8 +806,7 @@ def simulate_grouped(fg: FrozenGraph, systems: Sequence[SystemConfig],
                      rescue_min: int = RESCUE_MIN,
                      schedule_free: bool = True,
                      prune: Optional[PruneContext] = None,
-                     lockstep_fn: LockstepFn,
-                     own_order_fn: Optional[LockstepFn] = None
+                     lockstep_fn: LockstepFn
                      ) -> List[Union[SimResult, Retired]]:
     """Schedule-free :class:`SimResult` per system, in input order.
 
@@ -833,16 +819,9 @@ def simulate_grouped(fg: FrozenGraph, systems: Sequence[SystemConfig],
     With a :class:`PruneContext` (``prune``), lockstep lanes may be
     retired mid-sweep and come back as :class:`Retired` markers instead of
     results; without one this never happens.
-
-    ``own_order_fn`` is a backend's own-order seam (module docstring):
-    small groups step their own orders through it, and so does every lane
-    :func:`replay_group` would send to the exact path without a
-    discovery.  It is not used with ``prune`` (retirement keeps the
-    routing above) or when schedules are asked for.
     """
     if policy not in ("availability", "eft"):
         raise ValueError(f"unknown policy {policy!r}")
-    own_fn = own_order_fn if prune is None and schedule_free else None
     results: List[Optional[Union[SimResult, Retired]]] = \
         [None] * len(systems)
     groups: Dict[Tuple, List[int]] = {}
@@ -857,10 +836,6 @@ def simulate_grouped(fg: FrozenGraph, systems: Sequence[SystemConfig],
         if stats is not None:
             stats.groups += 1
         if len(lanes) < min_lockstep:
-            if own_fn is not None:
-                _own_order(fg, systems, layouts, lanes, policy, stats,
-                           own_fn, results)
-                continue
             for i in lanes:
                 res, sp = _exact(fg, systems[i], policy, prune, i,
                                  with_schedule=with_schedule)
@@ -878,8 +853,7 @@ def simulate_grouped(fg: FrozenGraph, systems: Sequence[SystemConfig],
                 library=library, min_lockstep=min_lockstep,
                 max_rounds=max_rounds, rescue_min=rescue_min,
                 schedule_free=schedule_free,
-                prune=prune.subset(lanes) if prune is not None else None,
-                own_order_fn=own_fn)):
+                prune=prune.subset(lanes) if prune is not None else None)):
             results[i] = sim
     return results  # type: ignore[return-value]
 
@@ -893,8 +867,7 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
                  max_rounds: int = MAX_RESCUE_ROUNDS,
                  rescue_min: int = RESCUE_MIN,
                  schedule_free: bool = True,
-                 prune: Optional[PruneContext] = None,
-                 own_order_fn: Optional[LockstepFn] = None
+                 prune: Optional[PruneContext] = None
                  ) -> List[Union[SimResult, Retired]]:
     """One pool-template group through the multi-order replay protocol.
 
@@ -932,13 +905,6 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
     sweep), a phase-0 seeding pass runs that many of the most-parallel
     lanes — the likeliest winners — through the exact serial path first,
     recording their orders, so the main sweep starts with a live cutoff.
-
-    With the own-order seam ``own_order_fn`` (never with ``prune``:
-    :func:`simulate_grouped` passes it only without), every lane the
-    phases above would send to the exact path without a discovery —
-    pinned, in a thin routed cohort, or a serial fallback once the
-    rounds are spent or the library key is full — steps its own order
-    through the seam, in one call at the end.
     """
     lib = library if library is not None else ReplayLibrary()
     key = lib.key(fg, layouts[0], policy)
@@ -954,16 +920,12 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
     ever_diverged: Set[int] = set()
     failed_at: Dict[int, Set[int]] = {}     # lane -> positions it diverged on
     with_schedule = not schedule_free
-    own: List[int] = []                     # lanes for the own-order seam
 
     def offer(i: int) -> None:
         if prune is not None:
             prune.offer(systems[i].name, results[i].makespan)
 
     def pinned_serial(i: int, hit: bool) -> None:
-        if own_order_fn is not None:
-            own.append(i)
-            return
         res, sp = _exact(fg, systems[i], policy, prune, i,
                          with_schedule=with_schedule)
         results[i] = res
@@ -1110,9 +1072,8 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
     rebatch_ok = True
     while pending:
         if rounds >= max_rounds:
-            if own_order_fn is None:
-                fallback(pending)
-            break                       # with the seam: own orders, below
+            fallback(pending)
+            break
         i = max(pending, key=lambda j: (totals[j], j))
         pending.remove(i)
         out: List[int] = []
@@ -1135,8 +1096,7 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
             lib.pin_sig(key, sig_of[i])
         _note(stats, sp, "fallback" if position is None else "discover")
         if position is None:
-            if own_order_fn is None:
-                fallback(pending)
+            fallback(pending)
             break
         order_by_pos[position] = tuple(out)
         # the first discovery's re-batch is the classic reference sweep;
@@ -1150,9 +1110,6 @@ def replay_group(fg: FrozenGraph, systems: Sequence[SystemConfig],
             pending = sweep(pending, position, from_cache=False)
             if len(pending) == before and rounds > 1:
                 rebatch_ok = False
-    if own_order_fn is not None:
-        _own_order(fg, systems, layouts, own + pending, policy, stats,
-                   own_order_fn, results)
     return results  # type: ignore[return-value]
 
 

@@ -53,12 +53,12 @@ Invariants (shared with the numpy backend unless stated):
   round *down* to a power of two); padding lanes replicate a real lane and
   are dropped before assembly.
 
-The multi-graph megabatch (:func:`simulate_torch_many`) serves every graph
-family of a sweep in one lane axis: heterogeneous ``(graph, order)``
-cohorts, replayed and own-order alike, are padded along the task axis to a
-shared ``[T, G, ...]`` step-input block with per-step validity masks,
-staged once a call, and each lane gathers its cohort's column on the
-device.  The
+Every sweep is a multi-graph megabatch (:func:`simulate_torch_many`;
+:func:`simulate_torch` is its one-graph call): every graph family of a
+sweep shares one lane axis, heterogeneous ``(graph, order)`` cohorts,
+replayed and own-order alike, are padded along the task axis to a shared
+``[T, G, ...]`` step-input block with per-step validity masks, staged once
+a call, and each lane gathers its cohort's column on the device.  The
 routing/discovery protocol around it is
 :func:`repro_torch.core.replay.simulate_many`.
 
@@ -73,9 +73,7 @@ state and a slice's step inputs, and on the card a CUDA graph of
 into three cohort-last blocks (:func:`_pack`) and copied into the
 runner's buffers once a slice; the task axis is padded to a multiple of
 :data:`STEPS` with inert steps, so that one capture serves every slice of
-a lane and slot bucket.  Off the card the runner runs its eager body;
-``graphs=False`` runs the loop eagerly without a runner, the other side
-of an A/B check.
+a lane and slot bucket.  Off the card the runner runs its eager body.
 
 The device is never chosen here: ``device`` defaults to
 :func:`repro_torch.default_device` (the card), a missing card raises
@@ -107,22 +105,20 @@ from .fastsim import FrozenGraph
 # TORCH_RTOL is re-exported here on purpose: it is this engine's tier.
 from .replay import (BatchStats, TORCH_RTOL, Layout,  # noqa: F401
                      MAX_RESCUE_ROUNDS, MIN_LOCKSTEP, PruneContext,
-                     RESCUE_MIN, ReplayLibrary, lane_results,
-                     simulate_grouped, simulate_many)
+                     ReplayLibrary, lane_results, simulate_many)
 from .simulator import SimResult
 
-#: Lanes per chunk (the bucket cap) on the per-graph path.  Chunks are
-#: padded up to power-of-two widths; non-power-of-two caps round down.
-DEFAULT_CHUNK = 64
-
-#: Lane-bucket cap for the multi-graph megabatch: wider than the per-graph
-#: default because one loop carries every cohort of the sweep, so the
-#: fixed per-step launch overhead amortises over more lanes.
+#: Lane-bucket cap (lanes a slice): one loop carries every cohort of the
+#: sweep, so the fixed per-step launch cost amortises over many lanes.
+#: Slices are padded up to power-of-two widths; non-power-of-two caps
+#: round down.
 MEGABATCH_CHUNK = 256
 
-#: Megabatch slice working-set target, in f64 clock elements (``P×S×B``),
-#: kept from the JAX engine, where it was sized for a CPU's L2 (64 KiB of
-#: f64).  Not yet re-derived for the H100.
+#: Slice working-set target on the CPU, in f64 clock elements
+#: (``P×S×B``), kept from the JAX engine, where it was sized for a CPU's L2
+#: (64 KiB of f64).  It sizes CPU slices only: on the card a slice costs
+#: its steps' launches whatever its width, so :func:`_scan_cohorts` fills
+#: each slice to ``chunk``.
 TARGET_SLICE_ELEMS = 8192
 
 DeviceLike = Union[str, torch.device, None]
@@ -169,7 +165,7 @@ def _bucket(n: int, cap: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The step loop (one body serves per-graph and megabatch paths)
+# The step loop
 # ---------------------------------------------------------------------------
 
 
@@ -786,14 +782,12 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
                                           Sequence[Layout],
                                           Optional[np.ndarray]]],
                   policy: str, *, chunk: int, device: torch.device,
-                  cache: Optional[CompileCache],
-                  slot_bucketed: bool = False
+                  cache: CompileCache
                   ) -> List[Tuple[Dict[int, SimResult], List[int],
                                   Dict[int, float]]]:
     """Drive every lane of every ``(fg, order, layouts, cutoffs)`` cohort
-    through the shared step loop on ``device``: each slice through the
-    ``cache``'s runner of its signature (:class:`StepRunner`), or, with
-    ``cache=None``, through :func:`_steps` run eagerly on the slice.  A
+    through the shared step loop on ``device``, each slice through the
+    ``cache``'s runner of its signature (:class:`StepRunner`).  A
     cohort whose ``order`` is None steps each lane through its own heap
     order (:func:`_own_xs`); replayed and own-order cohorts share slices.
     The step inputs of every cohort are staged once a call, and only when
@@ -812,12 +806,11 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
     *all* cohorts share the bucketed lane axis (``chunk`` caps the bucket;
     padding lanes replicate the last real lane).
 
-    ``slot_bucketed=True`` (the megabatch path) sorts lanes by the slot
-    count they actually need and runs each slice with the narrowest
-    power-of-two slot axis covering it; lanes pack greedily up to
-    ``chunk``, and a new slice only opens at a slot-bucket boundary once
-    the current one is full (see :func:`_width`).  The per-graph path keeps
-    one global slot axis.
+    Slices are slot-bucketed: lanes are sorted by the slot count they
+    actually need, and each slice runs with the narrowest power-of-two
+    slot axis covering its lanes; lanes pack greedily up to the slice
+    width (``_width``), and a new slice opens once the current one is
+    full.
 
     Retirement is **post-scan classification**: a cohort with a finite
     ``cutoffs`` entry has its non-diverged lanes whose *final* makespan
@@ -863,7 +856,6 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
     K = max(_width_of(c["fg"].dev_indptr) for c in per)
     NK = max(len(c["kind_pool"]) for c in per)
     SC = max(_width_of(c["fg"].succ_indptr) for c in per)
-    S = _bucket(max(nd for c in per for nd in c["needs"]), cap=1 << 30)
 
     kind_pool_m = np.full((G, NK), -1, dtype=np.int64)
     smp_kid_m = np.full((G,), -1, dtype=np.int64)
@@ -943,28 +935,22 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
         launch latency whatever its width, so it fills to ``chunk``."""
         if device.type == "cuda":
             return step
-        return max(16, min(step,
-                           _bucket(TARGET_SLICE_ELEMS // (P_max * S_sl),
-                                   cap=1 << 30)))
+        return min(step, max(16, _bucket(TARGET_SLICE_ELEMS
+                                         // (P_max * S_sl), cap=1 << 30)))
 
     slices: List[Tuple[List[Tuple[int, int]], int]] = []
-    if slot_bucketed:
-        by_slots = sorted(lanes_flat, key=lambda t: (_need(t), t))
-        cur: List[Tuple[int, int]] = []
-        cur_S = 1
-        for lane in by_slots:
-            nb = max(cur_S, _bucket(_need(lane), cap=1 << 30))
-            if cur and len(cur) >= _width(nb):
-                slices.append((cur, cur_S))
-                cur, cur_S = [], 1
-                nb = _bucket(_need(lane), cap=1 << 30)
-            cur.append(lane)
-            cur_S = nb
-        if cur:
+    cur: List[Tuple[int, int]] = []
+    cur_S = 1
+    for lane in sorted(lanes_flat, key=lambda t: (_need(t), t)):
+        nb = max(cur_S, _bucket(_need(lane), cap=1 << 30))
+        if cur and len(cur) >= _width(nb):
             slices.append((cur, cur_S))
-    else:
-        slices = [(lanes_flat[lo:lo + step], S)
-                  for lo in range(0, len(lanes_flat), step)]
+            cur, cur_S = [], 1
+            nb = _bucket(_need(lane), cap=1 << 30)
+        cur.append(lane)
+        cur_S = nb
+    if cur:
+        slices.append((cur, cur_S))
 
     def _blocks() -> Tuple:
         """Every cohort's step inputs packed (:func:`_pack`) on ``device``,
@@ -1025,19 +1011,12 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
                 kp_d, sk_d, own_d = (b.index_select(0, g_d)
                                      for b in (kp_c, sk_c, own_c))
                 np_d = np_c.index_select(1, g_d)
-                runner = None if cache is None else _load_runner(
+                runner = _load_runner(
                     cache, (P_max, S_sl, B, n_max + 1, xi_d.shape[1], NK, K),
                     device, eft)
             with tracing.span("step.run"):
-                if runner is None:
-                    st = _State(P_max, S_sl, B, n_max + 1, device)
-                    st.reset(clocks, np_d, own_d, col_d)
-                    _steps(xi_d, xf_d, xb_d, st, kp_d, sk_d, eft, K)
-                    out = st.outputs()
-                else:
-                    out = runner.run(xi_d, xf_d, xb_d, clocks, kp_d, sk_d,
-                                     np_d, own_d, col_d)
-            div_np, mk_np, busy_np, seen_np, place_np = out
+                div_np, mk_np, busy_np, seen_np, place_np = runner.run(
+                    xi_d, xf_d, xb_d, clocks, kp_d, sk_d, np_d, own_d, col_d)
         except _CARD_ERRORS as exc:
             raise DeviceError(f"the device failed in the torch step loop "
                               f"on {device}: {exc}") from exc
@@ -1085,68 +1064,34 @@ def _scan_cohorts(cohorts: Sequence[Tuple[FrozenGraph, Sequence[int],
 # ---------------------------------------------------------------------------
 
 
-def _cache_for(compile_cache: Optional[CompileCache],
-               graphs: bool) -> Optional[CompileCache]:
-    """The cache a sweep's slices go through: None (eager) when
-    ``graphs`` is off, else ``compile_cache`` or the process-wide one."""
-    if not graphs:
-        return None
-    return _DEFAULT_CACHE if compile_cache is None else compile_cache
-
-
 def simulate_torch(fg: FrozenGraph, systems: Sequence[SystemConfig],
                    policy: str = "availability", *,
                    device: DeviceLike = None,
                    min_lockstep: int = MIN_LOCKSTEP,
-                   chunk: int = DEFAULT_CHUNK,
+                   chunk: int = MEGABATCH_CHUNK,
                    stats: Optional[BatchStats] = None,
                    library: Optional[ReplayLibrary] = None,
                    max_rounds: int = MAX_RESCUE_ROUNDS,
-                   rescue_min: int = RESCUE_MIN,
                    prune: Optional[PruneContext] = None,
-                   compile_cache: Optional[CompileCache] = None,
-                   graphs: bool = True):
-    """Schedule-free :class:`SimResult` per system, in input order.
+                   compile_cache: Optional[CompileCache] = None):
+    """Schedule-free :class:`SimResult` per system, in input order: the
+    one-graph call of :func:`simulate_torch_many`, under the JAX
+    engine's per-graph name.
 
     The torch tier of :func:`repro_torch.core.batchsim.simulate_batch`:
     equivalent to ``[simulate_fast(fg, s, policy) for s in systems]`` at
     :data:`~repro_torch.core.replay.TORCH_RTOL` relative makespan/busy
     error with identical placements, and ranking-stable under the
-    documented tie-break.  Grouping, multi-order library replay and the
-    per-lane fallback are the shared :mod:`repro_torch.core.replay`
-    protocol, with this engine's own-order seam: a lane no shared order
-    serves steps its own heap order on the device instead of running the
-    exact path (but a group's first discovery; not under ``prune``).
-    ``chunk`` caps the lane-bucket width (non-power-of-two caps round
-    down).  ``device`` defaults to the card.
-
-    ``prune`` enables lane retirement
+    documented tie-break.  ``prune`` enables lane retirement
     (:class:`~repro_torch.core.replay.PruneContext`): lanes whose makespan
     exceeds the incumbent cutoff, pre-inflated by the engine's tolerance,
-    come back as :class:`~repro_torch.core.replay.Retired` markers.
-
-    The step loop runs through runners of the compile cache
-    (:class:`~repro_torch.core.graphcache.CompileCache`): ``compile_cache``
-    names one (like ``simulate_jax``'s), else the process-wide in-memory
-    cache serves.  On the card a runner replays a captured CUDA graph.
-    ``graphs=False`` runs the loop eagerly instead, bypassing the cache
-    (an A/B check's other side)."""
-    dev = resolve_device(device)
-    require_torch()
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk!r}")
-    cache = _cache_for(compile_cache, graphs)
-
-    def lockstep(fg, order, layouts, policy, cutoffs=None):
-        (triple,) = _scan_cohorts([(fg, order, layouts, cutoffs)], policy,
-                                  chunk=chunk, device=dev, cache=cache)
-        return triple
-
-    return simulate_grouped(fg, systems, policy, min_lockstep=min_lockstep,
-                            stats=stats, library=library,
-                            max_rounds=max_rounds, rescue_min=rescue_min,
-                            lockstep_fn=lockstep, prune=prune,
-                            own_order_fn=lockstep)
+    come back as :class:`~repro_torch.core.replay.Retired` markers.  The
+    other arguments are :func:`simulate_torch_many`'s."""
+    return simulate_torch_many(
+        [(fg, systems)], policy, device=device, min_lockstep=min_lockstep,
+        chunk=chunk, stats=stats, library=library, max_rounds=max_rounds,
+        prunes=None if prune is None else [prune],
+        compile_cache=compile_cache)[0]
 
 
 def simulate_torch_many(items: Sequence[Tuple[FrozenGraph,
@@ -1154,35 +1099,39 @@ def simulate_torch_many(items: Sequence[Tuple[FrozenGraph,
                         policy: str = "availability", *,
                         device: DeviceLike = None,
                         min_lockstep: int = MIN_LOCKSTEP,
-                        chunk: Optional[int] = None,
+                        chunk: int = MEGABATCH_CHUNK,
                         stats: Optional[BatchStats] = None,
                         library: Optional[ReplayLibrary] = None,
                         max_rounds: int = MAX_RESCUE_ROUNDS,
                         prunes: Optional[Sequence[Optional[PruneContext]]]
                         = None,
-                        compile_cache: Optional[CompileCache] = None,
-                        graphs: bool = True) -> List[List[SimResult]]:
+                        compile_cache: Optional[CompileCache] = None
+                        ) -> List[List[SimResult]]:
     """Multi-graph megabatch: every ``(graph, systems)`` family of a sweep
-    through one shared lane axis.
+    through one shared lane axis, one result list per family.
 
-    Per family the results match ``simulate_torch(fg, systems, ...)`` at
-    the same tier — routing, discovery and the own-order lanes are
+    Routing, discovery and the own-order lanes are
     :func:`repro_torch.core.replay.simulate_many` with this engine's
-    own-order seam — but heterogeneous graphs share the lane axis
-    (task-axis padding, cohort-last step inputs each lane gathers from,
-    slot-bucketed slices), replayed and own-order cohorts alike.
-    ``chunk`` defaults to :data:`MEGABATCH_CHUNK`; ``compile_cache`` and
-    ``graphs`` as :func:`simulate_torch`'s."""
+    own-order seam: a lane no shared order serves steps its own heap order
+    on the device instead of running the exact path (but a group's first
+    discovery; not under ``prunes``).  Heterogeneous graphs share the lane
+    axis (task-axis padding, cohort-last step inputs each lane gathers
+    from, slot-bucketed slices), replayed and own-order cohorts alike.
+    ``chunk`` caps the lane-bucket width (non-power-of-two caps round
+    down).  ``device`` defaults to the card.  Each slice runs through a
+    runner of the compile cache
+    (:class:`~repro_torch.core.graphcache.CompileCache`): ``compile_cache``
+    names one (like ``simulate_jax``'s), else the process-wide in-memory
+    cache serves.  On the card a runner replays a captured CUDA graph."""
     dev = resolve_device(device)
     require_torch()
-    chunk = MEGABATCH_CHUNK if chunk is None else chunk
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk!r}")
-    cache = _cache_for(compile_cache, graphs)
+    cache = _DEFAULT_CACHE if compile_cache is None else compile_cache
 
     def lockstep_many(cohorts):
         return _scan_cohorts(cohorts, policy, chunk=chunk, device=dev,
-                             cache=cache, slot_bucketed=True)
+                             cache=cache)
 
     return simulate_many(items, policy, lockstep_many_fn=lockstep_many,
                          min_lockstep=min_lockstep, stats=stats,

@@ -220,12 +220,13 @@ def test_cuda_without_a_card_raises_and_never_demotes():
                                     rep, engine="torch", device=device)
 
 
-@pytest.mark.parametrize("megabatch", [True, False])
+@pytest.mark.parametrize("torch_chunk", [None, 8])
 @pytest.mark.parametrize("error", [
     DeviceError("injected: step_commit kernel launch failed"),
     torch.OutOfMemoryError("injected: CUDA out of memory")])
 def test_kernel_failure_mid_sweep_raises_and_never_demotes(monkeypatch,
-                                                           megabatch, error):
+                                                           torch_chunk,
+                                                           error):
     """A kernel build or launch failure, or the card failing under the
     step loop, surfaces as DeviceError from the sweep: no demotion to
     batch, no per-candidate isolation on the host."""
@@ -235,15 +236,15 @@ def test_kernel_failure_mid_sweep_raises_and_never_demotes(monkeypatch,
     monkeypatch.setattr(torchsim, "step_commit", broken)
     tr, rep = synth.synth_trace(24), synth.synth_reports()
     ex = Explorer(tr, rep, engine="torch", device="cpu",
-                  torch_megabatch=megabatch)
+                  torch_chunk=torch_chunk)
     with pytest.raises(DeviceError, match="injected"):
         ex.explore(synth.synth_candidates(range(1, 9)), top_k=3)
     assert ex.engine == "torch" and ex.stats.engine_demotions == 0
 
 
-@pytest.mark.parametrize("megabatch", [True, False])
+@pytest.mark.parametrize("torch_chunk", [None, 8])
 def test_other_engine_faults_keep_the_torch_to_batch_demotion(monkeypatch,
-                                                              megabatch):
+                                                              torch_chunk):
     def broken(*args):
         raise RuntimeError("injected lockstep bug")
 
@@ -251,7 +252,7 @@ def test_other_engine_faults_keep_the_torch_to_batch_demotion(monkeypatch,
     tr, rep = synth.synth_trace(24), synth.synth_reports()
     cands = synth.synth_candidates(range(1, 9))
     ex = Explorer(tr, rep, engine="torch", device="cpu",
-                  torch_megabatch=megabatch)
+                  torch_chunk=torch_chunk)
     with pytest.warns(UserWarning, match="degraded to 'batch'"):
         got = ex.explore(cands, top_k=3)
     assert ex.engine == "batch" and ex.stats.engine_demotions == 1
@@ -259,9 +260,9 @@ def test_other_engine_faults_keep_the_torch_to_batch_demotion(monkeypatch,
     assert ranked(got) == ranked(want)
 
 
-@pytest.mark.parametrize("megabatch", [True, False])
+@pytest.mark.parametrize("torch_chunk", [None, 8])
 def test_engine_faults_on_the_card_raise_and_never_demote(monkeypatch,
-                                                          megabatch):
+                                                          torch_chunk):
     """On the card, a fault of the torch engine mid-sweep that is not a
     DeviceError re-raises as it is: the sweep neither moves to the host's
     batch engine nor isolates its candidates there.  (The Explorer runs on
@@ -273,7 +274,7 @@ def test_engine_faults_on_the_card_raise_and_never_demote(monkeypatch,
     monkeypatch.setattr(explore_mod.Explorer, "_on_card", lambda self: True)
     tr, rep = synth.synth_trace(24), synth.synth_reports()
     ex = Explorer(tr, rep, engine="torch", device="cpu",
-                  torch_megabatch=megabatch)
+                  torch_chunk=torch_chunk)
     with warnings.catch_warnings():
         warnings.simplefilter("error")          # no demotion warning
         with pytest.raises(RuntimeError, match="injected lockstep bug"):
@@ -283,9 +284,9 @@ def test_engine_faults_on_the_card_raise_and_never_demote(monkeypatch,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("megabatch", [True, False])
+@pytest.mark.parametrize("torch_chunk", [None, 8])
 def test_bad_tensor_for_the_kernel_fails_the_sweep_on_the_card(monkeypatch,
-                                                               megabatch):
+                                                               torch_chunk):
     """A tensor the fused step's wrapper refuses (here ``kind_pool`` as
     int32) stops a sweep on the card with DeviceError and no demotion."""
     if not torch.cuda.is_available():
@@ -301,16 +302,16 @@ def test_bad_tensor_for_the_kernel_fails_the_sweep_on_the_card(monkeypatch,
     monkeypatch.setattr(torchsim, "_DEFAULT_CACHE", torchsim.CompileCache())
     tr, rep = synth.synth_trace(24), synth.synth_reports()
     ex = Explorer(tr, rep, engine="torch", device="cuda",
-                  torch_megabatch=megabatch)
+                  torch_chunk=torch_chunk)
     with pytest.raises(DeviceError, match="kind_pool must be torch.int64"):
         ex.explore(synth.synth_candidates(range(1, 9)), top_k=3)
     assert ex.engine == "torch" and ex.stats.engine_demotions == 0
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("megabatch", [True, False])
+@pytest.mark.parametrize("torch_chunk", [None, 8])
 def test_any_engine_fault_on_the_card_raises_and_never_demotes(monkeypatch,
-                                                               megabatch):
+                                                               torch_chunk):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
 
@@ -323,7 +324,7 @@ def test_any_engine_fault_on_the_card_raises_and_never_demotes(monkeypatch,
     monkeypatch.setattr(torchsim, "_DEFAULT_CACHE", torchsim.CompileCache())
     tr, rep = synth.synth_trace(24), synth.synth_reports()
     ex = Explorer(tr, rep, engine="torch", device="cuda",
-                  torch_megabatch=megabatch)
+                  torch_chunk=torch_chunk)
     with pytest.raises(RuntimeError, match="injected lockstep bug"):
         ex.explore(synth.synth_candidates(range(1, 9)), top_k=3)
     assert ex.engine == "torch" and ex.stats.engine_demotions == 0
@@ -347,8 +348,7 @@ def test_torch_engine_validation():
     for bad in (0, -4):
         with pytest.raises(ValueError, match="torch_chunk"):
             Explorer(tr, rep, engine="torch", device="cpu", torch_chunk=bad)
-    for kw in ({"torch_chunk": 16}, {"torch_megabatch": True},
-               {"device": "cpu"}):
+    for kw in ({"torch_chunk": 16}, {"device": "cpu"}):
         with pytest.raises(ValueError, match="only applies"):
             Explorer(tr, rep, engine="batch", **kw)
     with pytest.raises(ValueError, match="cuda"):

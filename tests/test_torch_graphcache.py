@@ -288,9 +288,9 @@ def test_compile_fault_demotes_torch_to_batch():
     assert ranking(res) == ranking(clean)
 
 
-@pytest.mark.parametrize("megabatch", [True, False])
+@pytest.mark.parametrize("torch_chunk", [None, 8])
 def test_on_the_card_an_injected_compile_fault_demotes(monkeypatch,
-                                                       megabatch):
+                                                       torch_chunk):
     """Told it is on the card, the Explorer still demotes on an injected
     compile fault, where a real fault of the runner re-raises."""
     monkeypatch.setattr(Explorer, "_on_card", lambda self: True)
@@ -298,7 +298,7 @@ def test_on_the_card_an_injected_compile_fault_demotes(monkeypatch,
     cands = synth.synth_candidates(range(1, 8))
     with faults.install("fail_compile:1"):
         ex = Explorer(tr, rep, engine="torch", device="cpu",
-                      torch_megabatch=megabatch)
+                      torch_chunk=torch_chunk)
         with pytest.warns(UserWarning, match="fail_compile"):
             ex.explore(cands)
     assert ex.engine == "batch" and ex.stats.engine_demotions == 1
@@ -308,7 +308,7 @@ def test_on_the_card_an_injected_compile_fault_demotes(monkeypatch,
 
     monkeypatch.setattr(torchsim, "_load_runner", broken)
     ex = Explorer(tr, rep, engine="torch", device="cpu",
-                  torch_megabatch=megabatch)
+                  torch_chunk=torch_chunk)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         with pytest.raises(RuntimeError, match="runner bug"):
@@ -319,7 +319,7 @@ def test_on_the_card_an_injected_compile_fault_demotes(monkeypatch,
 def test_explorers_share_a_compile_cache(tmp_path):
     """Explorers of one cache root share one compile cache, and a repeat
     sweep through a shared cache captures nothing new.  ``compile_cache=``
-    and ``torch_graphs=`` only apply to the torch engine."""
+    only applies to the torch engine."""
     tr, rep = synth.synth_trace(24), synth.synth_reports()
     cands = synth.synth_candidates(range(1, 9))
     store = str(tmp_path / "store")
@@ -340,13 +340,9 @@ def test_explorers_share_a_compile_cache(tmp_path):
     assert counters(cc)["compiles"] == compiles
     assert counters(cc)["mem_hits"] >= 1
     assert ranking(again) == ranking(first)
-    eager = Explorer(tr, rep, engine="torch", device="cpu",
-                     torch_graphs=False).explore(cands)
-    assert ranking(eager) == ranking(first)
     assert Explorer(tr, rep, engine="batch").compile_cache is None
-    for kw in ({"compile_cache": cc}, {"torch_graphs": False}):
-        with pytest.raises(ValueError, match="only applies to engine='torch'"):
-            Explorer(tr, rep, engine="batch", **kw)
+    with pytest.raises(ValueError, match="only applies to engine='torch'"):
+        Explorer(tr, rep, engine="batch", compile_cache=cc)
 
 
 SECOND_PROCESS = """

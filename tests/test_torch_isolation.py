@@ -234,11 +234,10 @@ def test_import_reference_round_trip(tmp_path):
     assert set(hashes) <= ref_graphs
 
     cands = synth.synth_candidates(range(1, 17))
-    # the per-graph torch path honours pinned signatures like batch does
-    # (the megabatch protocol re-discovers them, as the JAX megabatch does)
-    for engine, kw in (("batch", {}),
-                       ("torch", {"device": "cpu",
-                                  "torch_megabatch": False})):
+    # batch runs the pinned signatures on the exact path; the torch engine
+    # steps the same lanes through their own orders on its lane axis
+    stats = {}
+    for engine, kw in (("batch", {}), ("torch", {"device": "cpu"})):
         _, _, lib = import_reference(path, ref_reports, orders)
         ex = Explorer(trace, reports, engine=engine, order_library=lib, **kw)
         res = ex.explore(cands, top_k=3)
@@ -248,4 +247,9 @@ def test_import_reference_round_trip(tmp_path):
         assert ex.batch_stats.reference_lanes == 0, engine
         assert ex.batch_stats.order_hits > 0, engine
         assert res.best_name == ref_res.best_name
+        stats[engine] = ex.batch_stats
+    assert stats["batch"].order_pinned_lanes > 0
+    assert stats["torch"].order_pinned_lanes == 0
+    assert stats["torch"].own_order_lanes == \
+        stats["batch"].order_pinned_lanes
     assert len(library) == 0        # staged until a graph claims them

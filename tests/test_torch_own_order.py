@@ -270,7 +270,7 @@ def test_step_inputs_are_each_rows_definition(which):
 
 def scan(cohorts, policy="availability"):
     return torchsim._scan_cohorts(cohorts, policy, chunk=64, device=CPU,
-                                  cache=CompileCache(), slot_bucketed=True)
+                                  cache=CompileCache())
 
 
 def plain(out):
@@ -350,8 +350,9 @@ def test_megabatch_routing_counts_each_lane_once():
 
 
 def test_per_graph_routing_sends_small_groups_own_order():
-    """The per-graph path: a group under ``MIN_LOCKSTEP`` steps its own
-    order through the seam, counted as lockstep and own-order lanes."""
+    """One graph through ``simulate_torch``: a group under
+    ``MIN_LOCKSTEP`` steps its own order through the seam, counted as
+    lockstep and own-order lanes."""
     fg, systems = matmul_families()[0]         # one kind: 2 systems
     assert len(systems) < replay.MIN_LOCKSTEP
     stats = replay.BatchStats()
@@ -477,7 +478,7 @@ def test_pruned_sweeps_route_as_without_the_seam():
     def lockstep_many(cohorts):
         return torchsim._scan_cohorts(
             cohorts, "availability", chunk=torchsim.MEGABATCH_CHUNK,
-            device=CPU, cache=None, slot_bucketed=True)
+            device=CPU, cache=CompileCache())
 
     s_seam, s_plain = replay.BatchStats(), replay.BatchStats()
     got = torchsim.simulate_torch_many(fams, device="cpu", stats=s_seam,

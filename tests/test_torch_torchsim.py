@@ -6,9 +6,10 @@ at 1e-6 — the same tier as ``JAX_RTOL``; the state is f64 end to end, so
 the residual is float reordering only), placements and pool layouts
 exact.  Every population is built with the JAX package and the port from
 the same seeded inputs, and the port's results are held to the JAX
-package's ``simulate_fast``, ``simulate_jax(step_impl="lax")`` and
-``simulate_jax_many``.  The torch engine runs on the CPU here
-(``device="cpu"``); the card runs the ``gpu`` tests.
+package's ``simulate_fast`` and ``simulate_jax_many``
+(``step_impl="lax"``), which runs the same replay protocol as the port's
+megabatch.  The torch engine runs on the CPU here (``device="cpu"``); the
+card runs the ``gpu`` tests.
 """
 import collections
 import pickle
@@ -196,37 +197,40 @@ def test_torch_tier_on_bare_dags_with_two_pools(n, ca, cb, policy):
 def test_torch_matches_jax_lax_engine(jaxsim, policy, smp):
     fg_ref, fg = both_frozen(20, smp)
     ref_systems, systems = zynq_pair(range(1, 9))
-    want = jaxsim.simulate_jax(fg_ref, ref_systems, policy, min_lockstep=2,
-                               step_impl="lax")
     stats_ref, stats = ref_replay.BatchStats(), replay.BatchStats()
-    jaxsim.simulate_jax(fg_ref, ref_systems, policy, min_lockstep=2,
-                        step_impl="lax", stats=stats_ref)
+    want = jaxsim.simulate_jax_many([(fg_ref, ref_systems)], policy,
+                                    min_lockstep=2, step_impl="lax",
+                                    stats=stats_ref)[0]
     got = torchsim.simulate_torch(fg, systems, policy, device="cpu",
                                   min_lockstep=2, stats=stats)
     assert_tier(got, want, ref_systems)
     assert_tier(got, fast_refs(fg_ref, ref_systems, policy), ref_systems)
-    # the same replay protocol routed the same lanes the same way, but
-    # that every lane the JAX engine finished on the exact path after a
-    # group's first discovery stepped its own order on the torch lane axis
+    # the same replay protocol routed the same groups the same way, but
+    # that after a cold group's one discovery the torch engine steps the
+    # rest in their own orders, where the JAX megabatch replays the fresh
+    # order and finishes each lane that diverged from it on the exact path
     exact = ("reference_lanes", "order_pinned_lanes",
              "serial_fallback_lanes", "small_group_lanes")
-    moved = exact + ("lockstep_lanes", "own_order_lanes")
+    moved = exact + ("lockstep_lanes", "own_order_lanes", "diverged_lanes")
     got_d, want_d = stats.as_dict(), stats_ref.as_dict()
     assert {k: v for k, v in got_d.items() if k not in moved} == \
         {k: v for k, v in want_d.items() if k not in moved}
-    assert got_d["reference_lanes"] >= 1
+    assert got_d["reference_lanes"] == got_d["groups"] >= 1
     assert all(got_d[k] == 0 for k in exact[1:])
-    assert got_d["own_order_lanes"] == \
-        sum(want_d[k] for k in exact) - got_d["reference_lanes"]
-    assert got_d["lockstep_lanes"] == \
-        want_d["lockstep_lanes"] + got_d["own_order_lanes"]
+    assert got_d["diverged_lanes"] == 0
+    assert got_d["own_order_lanes"] == got_d["lockstep_lanes"] == \
+        len(systems) - got_d["reference_lanes"]
+    assert sum(want_d[k] for k in exact) == \
+        got_d["reference_lanes"] + want_d["diverged_lanes"]
+    assert want_d["lockstep_lanes"] + sum(want_d[k] for k in exact) == \
+        len(systems)
     assert stats.lockstep_lanes > 0
 
 
 def test_torch_many_matches_jax_many(jaxsim):
     """The megabatch: heterogeneous graphs (±SMP, two sizes) share one
-    lane axis; per family the results match the JAX megabatch's and the
-    per-graph engine's."""
+    lane axis; per family the results match the JAX megabatch's and
+    ``simulate_fast``'s."""
     pairs = [both_frozen(16, False), both_frozen(16, True),
              both_frozen(24, True, n_regions=3)]
     ref_systems, systems = zynq_pair(range(1, 9))
@@ -254,14 +258,14 @@ def test_torch_pruned_top_k_matches_jax(jaxsim):
                                            "availability")]
     cut = sorted(spans)[2]
 
-    def run(eng, mod, sys_, fg_, **kw):
-        inc = mod.Incumbent(3, seed=cut)
-        return eng(fg_, sys_, "availability", min_lockstep=2,
-                   prune=mod.PruneContext(inc, None, RTOL), **kw)
+    def prune(mod):
+        return mod.PruneContext(mod.Incumbent(3, seed=cut), None, RTOL)
 
-    want = run(jaxsim.simulate_jax, ref_replay, ref_systems, fg_ref,
-               step_impl="lax")
-    got = run(torchsim.simulate_torch, replay, systems, fg, device="cpu")
+    want = jaxsim.simulate_jax_many([(fg_ref, ref_systems)], "availability",
+                                    min_lockstep=2, step_impl="lax",
+                                    prunes=[prune(ref_replay)])[0]
+    got = torchsim.simulate_torch(fg, systems, "availability", device="cpu",
+                                  min_lockstep=2, prune=prune(replay))
     got_retired = [isinstance(g, replay.Retired) for g in got]
     assert got_retired == [isinstance(w, ref_replay.Retired) for w in want]
     assert any(got_retired) and not all(got_retired)
@@ -278,17 +282,23 @@ def test_torch_pruned_top_k_matches_jax(jaxsim):
 
 
 def test_torch_divergent_lanes_fall_back_exactly():
-    """A wide slot ramp forces event-order divergence; diverged lanes
-    step their own heap orders in the loop, within the tier, and every
-    lane is counted once."""
+    """A wide slot ramp forces event-order divergence: on a library that
+    holds one lane's order (a cold call's discovery), the other lanes
+    replay it and diverge; diverged lanes step their own heap orders in
+    the loop, within the tier, and every lane is counted once."""
     fg_ref, fg = both_frozen(40, True)
     ref_systems, systems = zynq_pair(range(1, 25))
+    lib = replay.ReplayLibrary()
+    torchsim.simulate_torch(fg, systems, "availability", device="cpu",
+                            min_lockstep=2, library=lib)
     stats = replay.BatchStats()
     got = torchsim.simulate_torch(fg, systems, "availability",
-                                  device="cpu", min_lockstep=2, stats=stats)
+                                  device="cpu", min_lockstep=2, stats=stats,
+                                  library=lib)
     refs = fast_refs(fg_ref, ref_systems, "availability")
     assert_tier(got, refs, ref_systems)
     assert stats.diverged_lanes > 0 and stats.lockstep_lanes > 0
+    assert stats.own_order_lanes > 0
     assert (stats.lockstep_lanes + stats.order_pinned_lanes
             + stats.reference_lanes + stats.serial_fallback_lanes
             + stats.small_group_lanes) == len(systems)
@@ -697,15 +707,46 @@ def test_step_body_is_bitwise_the_old_step_loop(T, policy):
     assert bits(*st.outputs()) == want
 
 
-def test_repeat_sweep_through_a_shared_cache_captures_nothing_new(jaxsim):
+def spy_runs(monkeypatch):
+    """Every slice a step runner runs from now on, as ``(runner,
+    arguments, outputs)``."""
+    calls = []
+    run = torchsim.StepRunner.run
+
+    def spied(self, *args):
+        out = run(self, *args)
+        calls.append((self, args, out))
+        return out
+
+    monkeypatch.setattr(torchsim.StepRunner, "run", spied)
+    return calls
+
+
+def eager(runner, xi, xf, xb, clocks, kind_pool, smp_kid, npred=None,
+          own=None, cohort=None):
+    """The slice ``runner.run`` was given, through ``torchsim._steps`` on
+    a fresh state: host copies of ``(div, makespan, busy, seen,
+    placement)``."""
+    P, S, B = runner.state.clocks.shape
+    st = torchsim._State(P, S, B, runner.state.ready.shape[0], xi.device)
+    st.reset(clocks, npred, own, cohort)
+    torchsim._steps(xi, xf, xb, st, kind_pool, smp_kid, runner.eft,
+                    runner.K)
+    return st.outputs()
+
+
+def test_repeat_sweep_through_a_shared_cache_captures_nothing_new(
+        jaxsim, monkeypatch):
     """``simulate_torch(..., compile_cache=cc)`` twice on the same shapes:
     no new compile and at least one memory hit (as
     ``tests/test_megabatch.py``'s compile-cache test); the results within
-    the tier of ``batch`` and rankings equivalent to ``simulate_jax``'s;
-    the eager loop (``graphs=False``) bit for bit the runners'."""
+    the tier of ``batch`` and rankings equivalent to ``simulate_jax_many``'s;
+    each slice the runners ran, run again eagerly on a fresh state
+    (``torchsim._steps``), bit for bit the runner's outputs."""
     from repro_torch.core import batchsim
     fg_ref, fg = both_frozen(24, True)
     ref_systems, systems = zynq_pair(range(1, 13))
+    runs = spy_runs(monkeypatch)
     cc = torchsim.CompileCache()
     first = torchsim.simulate_torch(fg, systems, device="cpu",
                                     min_lockstep=2, compile_cache=cc)
@@ -717,55 +758,64 @@ def test_repeat_sweep_through_a_shared_cache_captures_nothing_new(jaxsim):
     assert cc.as_dict()["mem_hits"] >= 1
     assert [(s.makespan, s.placements) for s in again] == \
         [(s.makespan, s.placements) for s in first]
-    eager = torchsim.simulate_torch(fg, systems, device="cpu",
-                                    min_lockstep=2, graphs=False)
-    assert [(s.makespan, s.busy, s.placements) for s in eager] == \
-        [(s.makespan, s.busy, s.placements) for s in first]
+    assert len(runs) >= 2
+    for runner, args, out in runs:
+        assert bits(*out) == bits(*eager(runner, *args))
     batch = batchsim.simulate_batch(fg, systems, "availability",
                                     min_lockstep=2)
     for g, r in zip(first, batch):
         assert g.placements == r.placements
         assert replay.makespans_close(g.makespan, r.makespan,
                                       torchsim.TORCH_RTOL)
-    jax_sims = jaxsim.simulate_jax(fg_ref, ref_systems, "availability",
-                                   min_lockstep=2)
+    jax_sims = jaxsim.simulate_jax_many([(fg_ref, ref_systems)],
+                                        "availability", min_lockstep=2)[0]
     assert_tier(first, jax_sims, ref_systems)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("many", [False, True])
-def test_graph_sweep_is_bitwise_the_eager_sweep_on_the_card(many):
-    """On the card the captured step graphs give the eager loop's results
-    bit for bit (the same kernels in the same order, f64), with the same
-    step-commit launches, counted at each replay; a repeat sweep captures
-    nothing new."""
+@pytest.mark.parametrize("chunk", [torchsim.MEGABATCH_CHUNK, 8])
+def test_graph_sweep_is_bitwise_the_eager_sweep_on_the_card(monkeypatch,
+                                                            chunk):
+    """On the card each slice's captured step graphs give what the eager
+    loop (``torchsim._steps`` on a fresh state, one fused launch a step)
+    gives on the same slice, bit for bit (the same kernels in the same
+    order, f64), with the launches credited at each replay equal to the
+    eager launches by shape; a repeat sweep captures nothing new and
+    gives the same results, counts and launches.  At ``chunk`` 8 the
+    sweep splits into several slices and slot buckets."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from repro_torch.kernels import lockstep_step
     _, fg = both_frozen(40, True)
     _, systems = zynq_pair(range(1, 25))
+    runs = spy_runs(monkeypatch)
+    cc = torchsim.CompileCache()
 
-    def sweep(**kw):
+    def sweep():
         lockstep_step.LAUNCHES = 0
         lockstep_step.SHAPES.clear()
         stats = replay.BatchStats()
-        if many:
-            got = torchsim.simulate_torch_many([(fg, systems)], device="cuda",
-                                               min_lockstep=2, stats=stats,
-                                               **kw)[0]
-        else:
-            got = torchsim.simulate_torch(fg, systems, device="cuda",
-                                          min_lockstep=2, stats=stats, **kw)
+        got = torchsim.simulate_torch(fg, systems, device="cuda",
+                                      min_lockstep=2, chunk=chunk,
+                                      stats=stats, compile_cache=cc)
         return ([(s.makespan, s.busy, s.placements) for s in got],
                 stats.as_dict(), lockstep_step.LAUNCHES,
                 dict(lockstep_step.SHAPES))
 
-    cc = torchsim.CompileCache()
-    eager = sweep(graphs=False)
-    graph = sweep(compile_cache=cc)
-    assert graph == eager
-    assert eager[2] > 0
+    first = sweep()
+    assert first[2] > 0 and runs
     captures = cc.as_dict()["captures"]
     assert captures >= 1 and cc.as_dict()["replays"] >= 1
-    assert sweep(compile_cache=cc) == eager
+    credited = collections.Counter()
+    for runner, args, out in runs:
+        with lockstep_step.recording() as tally:
+            want = eager(runner, *args)
+        assert bits(*out) == bits(*want)
+        replays = args[0].shape[0] // torchsim.STEPS
+        assert tally == collections.Counter(
+            {shape: n * replays for shape, n in runner.launches.items()})
+        credited.update(tally)
+    assert dict(credited) == first[3]
+    runs.clear()
+    assert sweep() == first
     assert cc.as_dict()["captures"] == captures

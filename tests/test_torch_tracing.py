@@ -133,9 +133,9 @@ def test_spans_nest_on_the_wall_clock(cholesky):
             assert pname == "step_loop", name
 
 
-@pytest.mark.parametrize("megabatch", [True, False],
-                         ids=["megabatch", "per_graph"])
-def test_own_order_tables_nest_inside_the_step_loop(cholesky, megabatch,
+@pytest.mark.parametrize("torch_chunk", [None, 8],
+                         ids=["megabatch", "chunk8"])
+def test_own_order_tables_nest_inside_the_step_loop(cholesky, torch_chunk,
                                                    monkeypatch):
     """Each own-order cohort's tables are staged inside a ``step.tables``
     span, a child of ``step_loop`` beside ``step.stage``, before the
@@ -143,7 +143,7 @@ def test_own_order_tables_nest_inside_the_step_loop(cholesky, megabatch,
     step their own orders.  (Tables are staged where the device cache
     lacks a call's blocks: here it starts empty.)"""
     monkeypatch.setattr(torchsim, "_DEV_XS_CACHE", collections.OrderedDict())
-    records, stats, *_ = sweep(cholesky, slots=4, torch_megabatch=megabatch)
+    records, stats, *_ = sweep(cholesky, slots=4, torch_chunk=torch_chunk)
     assert stats["own_order_lanes"] > 0
     tables = [(i, r) for i, r in enumerate(records) if r[0] == "step.tables"]
     assert tables
@@ -164,33 +164,33 @@ def test_one_step_loop_span_per_scan(cholesky, monkeypatch):
         return scan(*args, **kwargs)
 
     monkeypatch.setattr(torchsim, "_scan_cohorts", counted)
-    for megabatch in (True, False):
+    for torch_chunk in (None, 8):
         calls.clear()
-        records, *_ = sweep(cholesky, torch_megabatch=megabatch)
+        records, *_ = sweep(cholesky, torch_chunk=torch_chunk)
         loops = sum(1 for r in records if r[0] == "step_loop")
         assert calls and loops == len(calls)
 
 
-@pytest.mark.parametrize("megabatch", [True, False],
-                         ids=["megabatch", "per_graph"])
+@pytest.mark.parametrize("torch_chunk", [None, 8],
+                         ids=["megabatch", "chunk8"])
 @pytest.mark.parametrize("case", ["warm", "small_group", "fallback"])
-def test_exact_spans_count_as_batch_stats(cholesky, case, megabatch):
+def test_exact_spans_count_as_batch_stats(cholesky, case, torch_chunk):
     """Each cause's ``replay.exact`` spans equal its ``BatchStats``
     counter, sweep by sweep: a cold sweep, then two warm ones, then
     pruned ones on the same library, until the library's pins run on the
-    exact path (per graph the first pruned sweep pins and runs them; the
-    megabatch pins what it discovers in the second and runs it in the
-    third), sweeps of groups under
-    ``MIN_LOCKSTEP`` (4 slot counts), and with no discovery rounds.  The
+    exact path (a pruned sweep pins what it discovers in the second and
+    runs it in the third), sweeps of groups under ``MIN_LOCKSTEP`` (4
+    slot counts), and with no discovery rounds.  The
     second warm sweep's diverged lanes, and the last two causes' lanes,
     step their own orders on the lane axis (``own_order_lanes``); pinned,
     small-group and fallback lanes reach the exact path only under
     pruning, which keeps the routing without the own-order seam (a run
-    the cutoff retired has no cause)."""
-    kw = {"torch_megabatch": megabatch}
+    the cutoff retired has no cause).  Each case runs at the default slice
+    width and in slices of 8 lanes."""
+    kw = {"torch_chunk": torch_chunk}
     if case == "warm":
         lib = ReplayLibrary()
-        pruned = [False] * 3 + [True] * (3 if megabatch else 1)
+        pruned = [False] * 3 + [True] * 3
         runs = [sweep(cholesky, lib, prune=p, **kw) for p in pruned]
     else:
         extra = {"slots": 4} if case == "small_group" \
