@@ -243,19 +243,30 @@ class TraceAnalysis:
 
     The row structure (rows, edges, topological order) depends only on
     which kernels have an accelerator kind and ``overlap_outputs``, so it
-    is kept per structure; a key adds its kinds, costs and the two
-    longest paths.  An :class:`Explorer` holds one analysis for its
-    lifetime and nothing outlives it.
+    is kept per structure; a key adds its kinds and costs, filled by
+    array operations per (kernel, kind), and the two longest paths, which
+    depend only on the structure and the rows' least costs, so each
+    structure walks them once per distinct cost vector.  An
+    :class:`Explorer` holds one analysis for its lifetime and nothing
+    outlives it.
     """
 
     def __init__(self, trace: Trace, *, smp_scale: float = 1.0,
                  smp_cost: str = "per_instance", smp_seconds_fn=None):
         events = trace.events
+        n_ev = len(events)
+        self.trace = trace
+        self.smp_scale = smp_scale
+        self.smp_cost = smp_cost
         self.events = events
         self.names = [ev.name for ev in events]
         self.kernels = trace.names()
         kidx = {k: i for i, k in enumerate(self.kernels)}
-        self.kernel_of = [kidx[name] for name in self.names]
+        self.kernel_of = np.asarray([kidx[name] for name in self.names],
+                                    dtype=np.int64)
+        # the event rows of each kernel, in event order
+        self.rows_of = [np.flatnonzero(self.kernel_of == k)
+                        for k in range(len(self.kernels))]
 
         # pass 1 of build_graph, through the same TaskGraph inference
         g = TaskGraph()
@@ -263,13 +274,12 @@ class TraceAnalysis:
             g.add_task(Task(uid=g.new_uid(), name=ev.name,
                             accesses=accesses_of(ev)), infer_deps=True)
         tasks = g.tasks
-        self.data_succ = [frozenset(g.succ.get(e, ()))
-                          for e in range(len(events))]
+        self.data_succ = [frozenset(g.succ.get(e, ())) for e in range(n_ev)]
         # (producers per read access, consumers per write access), in
         # access order: what pass 2 links each DMA task to
         self.reads: List[List[Tuple[int, ...]]] = []
         self.writes: List[List[Tuple[int, ...]]] = []
-        for e in range(len(events)):
+        for e in range(n_ev):
             accs = tasks[e].accesses
             pred = g.pred.get(e, ())
             succ = self.data_succ[e]
@@ -282,27 +292,41 @@ class TraceAnalysis:
                       if _touches_region(tasks[s], a.region.key))
                 for a in accs if a.writes])
 
-        # each event's SMP cost; None where smp_seconds_fn raised, called
-        # again where build_graph would ask for it, to raise afresh there
+        # each event's SMP cost; where smp_seconds_fn raised, NaN and a
+        # mark, and the model is called again where build_graph would ask
+        # for it, to raise afresh there
         self.smp_seconds_fn = smp_seconds_fn
-        self.smp: List[Optional[float]] = []
+        self.smp = np.empty(n_ev, dtype=np.float64)
+        self.smp_raised = np.zeros(n_ev, dtype=bool)
         mean_cost = trace.mean_smp_cost()
-        for ev in events:
+        for e, ev in enumerate(events):
             if smp_seconds_fn is not None:
                 try:
-                    self.smp.append(float(smp_seconds_fn(ev)))
+                    self.smp[e] = float(smp_seconds_fn(ev))
                 except Exception:           # noqa: BLE001 — deferred
-                    self.smp.append(None)
+                    self.smp[e] = math.nan
+                    self.smp_raised[e] = True
             else:
                 base = (ev.elapsed_smp if smp_cost == "per_instance"
                         else mean_cost[ev.name])
-                self.smp.append(base * smp_scale)
+                self.smp[e] = base * smp_scale
+        # per kernel: its first event whose model raised (n_ev where none
+        # did)
+        self.first_raised = [int(r[self.smp_raised[r]][0])
+                             if self.smp_raised[r].any() else n_ev
+                             for r in self.rows_of]
         self._structures: Dict[Tuple, "_Structure"] = {}
 
     def frozen_graph(self, system: SystemConfig, reports: ReportMap,
                      eligibility: Eligibility) -> FrozenGraph:
         """``FrozenGraph.freeze(build_graph(trace, system, reports,
         eligibility, ...))`` with this analysis's trace and SMP model."""
+        return self.assemble(system, reports, eligibility)[0]
+
+    def assemble(self, system: SystemConfig, reports: ReportMap,
+                 eligibility: Eligibility) -> Tuple[FrozenGraph, bool]:
+        """:meth:`frozen_graph`, and whether its longest paths came from
+        its structure's memo (an earlier key with the same row costs)."""
         available = set(system.all_kinds()) | {r.name for r in system.shared}
         kinds_of = [tuple(k for k in eligibility.kinds_for(name)
                           if k in available) for name in self.kernels]
@@ -316,32 +340,21 @@ class TraceAnalysis:
                               else rep.compute_s)
             accel_cost.append(got)
 
-        # the compute rows, event by event as pass 1 raises and costs them
+        # pass 1 raises at the first event that fails: every event of a
+        # kernel with no kind present or a report missing, else an event
+        # whose SMP model raised; that event is costed as pass 1 costs it
         n_ev = len(self.events)
-        ccosts: List[Dict[str, float]] = []
-        for e in range(n_ev):
-            ki = self.kernel_of[e]
-            kinds = kinds_of[ki]
-            if not kinds:
-                name = self.names[e]
-                raise ValueError(
-                    f"task {name!r}: no eligible device kind present in "
-                    f"system {system.name!r} (wanted "
-                    f"{eligibility.kinds_for(name)})")
-            acc = accel_cost[ki]
-            costs: Dict[str, float] = {}
-            for k in kinds:
-                if k == "smp":
-                    v = self.smp[e]
-                    costs["smp"] = v if v is not None else float(
-                        self.smp_seconds_fn(self.events[e]))
-                else:
-                    v = acc.get(k)
-                    if v is None:
-                        raise KeyError(f"no KernelReport for "
-                                       f"({self.names[e]!r}, {k!r})")
-                    costs[k] = v
-            ccosts.append(costs)
+        first = n_ev
+        for ki, kinds in enumerate(kinds_of):
+            if not kinds or any(k != "smp" and k not in accel_cost[ki]
+                                for k in kinds):
+                first = min(first, int(self.rows_of[ki][0]))
+            elif "smp" in kinds:
+                first = min(first, self.first_raised[ki])
+        if first < n_ev:
+            self._event_costs(first, kinds_of, accel_cost, system,
+                              eligibility)
+            raise AssertionError(f"event {first} did not fail")
 
         accel_of = [tuple(k for k in ks if k != "smp") for ks in kinds_of]
         skey = (tuple(bool(a) for a in accel_of), system.overlap_outputs)
@@ -358,80 +371,122 @@ class TraceAnalysis:
                 kinds.append(k)
         ids_of = [[kind_id[k] for k in ks] for ks in kinds_of]
         act_of = [[kind_id[k] for k in ks] for ks in accel_of]
+
+        # the compute rows, kernel by kernel and kind by kind; a row's
+        # least cost is min() of its costs in kind order, where a NaN
+        # counts only if it comes first
+        cost = np.full((n, len(kinds)), np.nan, dtype=np.float64)
+        cmin = np.empty(n, dtype=np.float64)
+        for ki, ks in enumerate(kinds_of):
+            rows = self.rows_of[ki]
+            low = None
+            for k in ks:
+                v = self.smp[rows] if k == "smp" else accel_cost[ki][k]
+                cost[rows, kind_id[k]] = v
+                low = v if low is None else np.where(v < low, v, low)
+            cmin[rows] = low
         # one cost per augmentation row: create → task_creation_cost,
         # submit → dma_submit_cost, xfer_out → its kernel's first report's
         # dma_out_s (build_graph's rep0)
-        dma_out = [reports[(name, acc[0])].dma_out_s if acc else None
-                   for name, acc in zip(self.kernels, accel_of)]
-        aug_val = (system.task_creation_cost, system.dma_submit_cost)
-        aug_cost = [aug_val[t] if t < 2 else dma_out[k]
-                    for t, k in zip(st.aug_type, st.aug_kernel)]
-
-        dev_kids = [k for ki in self.kernel_of for k in ids_of[ki]]
-        aug_kid = (kind_id.get("smp"), kind_id.get("submit"),
-                   kind_id.get("dma_out"))
-        dev_kids.extend(aug_kid[t] for t in st.aug_type)
-        dev_len = [len(ids_of[ki]) for ki in self.kernel_of]
-        dev_len.extend([1] * (n - n_ev))
-        act_kids = [k for ki in st.cond_kernel for k in act_of[ki]]
-        act_len = [0] * n
-        for r, ki in zip(st.cond_rows, st.cond_kernel):
-            act_len[r] = len(act_of[ki])
-
-        cost = np.full((n, len(kinds)), np.nan, dtype=np.float64)
-        ri: List[int] = []
-        ci: List[int] = []
-        cv: List[float] = []
-        cmin: List[float] = []
-        for e, costs in enumerate(ccosts):
-            for k, v in costs.items():
-                ri.append(e)
-                ci.append(kind_id[k])
-                cv.append(v)
-            cmin.append(min(costs.values()))
+        aug_kid = np.asarray([kind_id.get(k, -1)
+                              for k in ("smp", "submit", "dma_out")],
+                             dtype=np.int64)
         if n > n_ev:
-            ri.extend(range(n_ev, n))
-            ci.extend(aug_kid[t] for t in st.aug_type)
-            cv.extend(aug_cost)
-        if ri:
-            cost[ri, ci] = cv
-        cmin.extend(aug_cost)
+            aug_val = np.empty((3, len(self.kernels)), dtype=np.float64)
+            aug_val[0] = system.task_creation_cost
+            aug_val[1] = system.dma_submit_cost
+            aug_val[2] = [reports[(name, acc[0])].dma_out_s if acc
+                          else math.nan
+                          for name, acc in zip(self.kernels, accel_of)]
+            aug_cost = aug_val[st.aug_type, st.aug_kernel]
+            cost[st.aug_rows, aug_kid[st.aug_type]] = aug_cost
+            cmin[n_ev:] = aug_cost
         # lower_bound_cost: conditional rows count zero
-        lmin = [0.0 if c >= 0 else m for c, m in zip(st.cond_of, cmin)]
+        lmin = np.where(st.cond >= 0, 0.0, cmin)
 
-        # both longest paths in one pass over one topological order: a
-        # row's entry is the max over its predecessors (0.0 at a root),
-        # then its own cost is added
-        dc = list(st.entry)
-        dl = list(st.entry)
-        succ = st.succ
-        for u in st.order:
-            a = dc[u] = dc[u] + cmin[u]
-            b = dl[u] = dl[u] + lmin[u]
-            for v in succ[u]:
-                if a > dc[v]:
-                    dc[v] = a
-                if b > dl[v]:
-                    dl[v] = b
+        # each row's device options, then its activated kinds, from the
+        # per-kernel lists
+        dev_len = np.ones(n, dtype=np.int64)
+        dev_len[:n_ev] = np.asarray([len(ids) for ids in ids_of],
+                                    dtype=np.int64)[self.kernel_of]
+        dev_indptr = _indptr(dev_len)
+        dev_kids = np.empty(int(dev_indptr[-1]), dtype=np.int64)
+        for ki, ids in enumerate(ids_of):
+            at = dev_indptr[self.rows_of[ki]]
+            for j, kid in enumerate(ids):
+                dev_kids[at + j] = kid
+        dev_kids[dev_indptr[n_ev:n]] = aug_kid[st.aug_type]
+        act_len = np.zeros(n, dtype=np.int64)
+        act_len[st.cond_rows] = np.asarray(
+            [len(ids) for ids in act_of], dtype=np.int64)[st.cond_kernel]
+        act_indptr = _indptr(act_len)
+        act_kids = np.empty(int(act_indptr[-1]), dtype=np.int64)
+        for ki, ids in enumerate(act_of):
+            at = act_indptr[st.cond_rows_of[ki]]
+            for j, kid in enumerate(ids):
+                act_kids[at + j] = kid
+
+        if np.isfinite(cmin).all():
+            # lmin follows from cmin within a structure, so cmin keys both
+            memo = cmin.tobytes()
+            paths = st.paths.get(memo)
+            reused = paths is not None
+            if not reused:
+                paths = st.paths.setdefault(
+                    memo, st.longest_paths(cmin.tolist(), lmin.tolist()))
+            crit, lb = paths
+        else:
+            # a cost that is not finite (NaN, or ±inf, which can sum to
+            # NaN) makes a longest path depend on the order in which the
+            # definition visits each row's predecessors: take its walk
+            reused = False
+            crit, lb = build_graph(
+                self.trace, system, reports, eligibility,
+                smp_scale=self.smp_scale, smp_cost=self.smp_cost,
+                smp_seconds_fn=self.smp_seconds_fn,
+            ).critical_paths([None, lower_bound_cost])
 
         return FrozenGraph(
             n=n, uid=np.arange(n, dtype=np.int64), names=st.names,
             roles=st.roles, is_compute=st.is_compute.copy(),
             creation_index=st.creation_index.copy(), cond=st.cond.copy(),
-            act_indptr=_indptr(act_len),
-            act_kids=np.asarray(act_kids, dtype=np.int64),
-            dev_indptr=_indptr(dev_len),
-            dev_kids=np.asarray(dev_kids, dtype=np.int64),
+            act_indptr=act_indptr, act_kids=act_kids,
+            dev_indptr=dev_indptr, dev_kids=dev_kids,
             cost=cost, succ_indptr=st.succ_indptr.copy(),
             succ_rows=st.succ_rows.copy(), n_pred=st.n_pred.copy(),
             kinds=tuple(kinds),
             stats={"n_tasks": n, "n_edges": st.n_edges,
                    "per_name": dict(st.per_name), "n_roots": st.n_roots},
-            critical_path_s=max(dc, default=0.0),
-            lower_bound_s=max(dl, default=0.0))
+            critical_path_s=crit, lower_bound_s=lb), reused
+
+    def _event_costs(self, e: int, kinds_of: List[Tuple[str, ...]],
+                     accel_cost: List[Dict[str, float]],
+                     system: SystemConfig,
+                     eligibility: Eligibility) -> Dict[str, float]:
+        """Event ``e``'s costs as pass 1 of :func:`build_graph` takes them,
+        raising as it raises."""
+        ki = self.kernel_of[e]
+        kinds = kinds_of[ki]
+        name = self.names[e]
+        if not kinds:
+            raise ValueError(
+                f"task {name!r}: no eligible device kind present in "
+                f"system {system.name!r} (wanted "
+                f"{eligibility.kinds_for(name)})")
+        costs: Dict[str, float] = {}
+        for k in kinds:
+            if k == "smp":
+                costs["smp"] = float(self.smp[e]) if not self.smp_raised[e] \
+                    else float(self.smp_seconds_fn(self.events[e]))
+            else:
+                v = accel_cost[ki].get(k)
+                if v is None:
+                    raise KeyError(f"no KernelReport for ({name!r}, {k!r})")
+                costs[k] = v
+        return costs
 
 
-def _indptr(lengths: Sequence[int]) -> np.ndarray:
+def _indptr(lengths) -> np.ndarray:
     out = np.zeros(len(lengths) + 1, dtype=np.int64)
     np.cumsum(lengths, out=out[1:])
     return out
@@ -442,11 +497,13 @@ class _Structure:
     kind and ``overlap_outputs`` are ``accel`` and ``overlap_outputs``:
     pass 2 of :func:`build_graph` in the same row order, as indices.
     Augmentation rows carry a type (0 create, 1 submit, 2 xfer_out) and
-    their kernel."""
+    their kernel.  ``paths`` memoises the two longest paths by the rows'
+    least costs."""
 
     def __init__(self, an: TraceAnalysis, accel: Tuple[bool, ...],
                  overlap_outputs: bool):
         n_ev = len(an.events)
+        kernel_of = an.kernel_of.tolist()
         names = list(an.names)
         roles = ["compute"] * n_ev
         owner = list(range(n_ev))
@@ -474,7 +531,7 @@ class _Structure:
                 succ[prev].add(c)
             succ[c].add(t)
             prev = c
-            if not accel[an.kernel_of[t]]:
+            if not accel[kernel_of[t]]:
                 continue
             for producers in an.reads[t]:
                 s = row("submit_in", 1, t, t)
@@ -497,15 +554,18 @@ class _Structure:
         self.roles = tuple(roles)
         self.is_compute = np.zeros(n, dtype=bool)
         self.is_compute[:n_ev] = True
+        owner_arr = np.asarray(owner, dtype=np.int64)
         self.creation_index = np.asarray(
-            [an.events[o].index for o in owner], dtype=np.int64)
-        self.cond_of = cond
+            [ev.index for ev in an.events], dtype=np.int64)[owner_arr]
         self.cond = np.asarray(cond, dtype=np.int64)
-        self.aug_type = aug_type
-        self.aug_kernel = [an.kernel_of[o] for o in owner[n_ev:]]
+        self.aug_rows = np.arange(n_ev, n, dtype=np.int64)
+        self.aug_type = np.asarray(aug_type, dtype=np.int64)
+        self.aug_kernel = an.kernel_of[owner_arr[n_ev:]]
         self.aug_kinds = tuple(seen_kinds)
-        self.cond_rows = [r for r in range(n_ev, n) if cond[r] >= 0]
-        self.cond_kernel = [an.kernel_of[owner[r]] for r in self.cond_rows]
+        self.cond_rows = np.flatnonzero(self.cond >= 0)
+        self.cond_kernel = an.kernel_of[self.cond[self.cond_rows]]
+        self.cond_rows_of = [self.cond_rows[self.cond_kernel == k]
+                             for k in range(len(an.kernels))]
 
         rows = [sorted(s) for s in succ]
         self.succ = rows
@@ -533,3 +593,23 @@ class _Structure:
         if len(order) != n:
             raise ValueError("task graph has a cycle")
         self.order = order
+        self.paths: Dict[bytes, Tuple[float, float]] = {}
+
+    def longest_paths(self, cmin: List[float], lmin: List[float]
+                      ) -> Tuple[float, float]:
+        """The critical path under ``cmin`` and the lower bound under
+        ``lmin``, in one pass over one topological order: a row's entry is
+        the max over its predecessors (0.0 at a root), then its own cost
+        is added."""
+        dc = list(self.entry)
+        dl = list(self.entry)
+        succ = self.succ
+        for u in self.order:
+            a = dc[u] = dc[u] + cmin[u]
+            b = dl[u] = dl[u] + lmin[u]
+            for v in succ[u]:
+                if a > dc[v]:
+                    dc[v] = a
+                if b > dl[v]:
+                    dl[v] = b
+        return max(dc, default=0.0), max(dl, default=0.0)

@@ -300,6 +300,9 @@ class CacheStats:
     ``graph_*`` / ``eval_*`` count the in-memory layers; ``disk_*`` count
     consultations of the persistent store (only reached on an in-memory
     miss, so a cross-run warm sweep shows ``eval_misses == disk_hits``).
+    ``graph_path_reuses`` counts the graphs built whose two longest paths
+    the trace analysis took from an earlier build with the same row
+    structure and row costs, instead of walking the graph again.
 
     The lane counters mirror the batch engines' fallback telemetry per
     explore call (see :class:`repro_torch.core.replay.BatchStats`):
@@ -332,6 +335,7 @@ class CacheStats:
 
     graph_hits: int = 0
     graph_misses: int = 0
+    graph_path_reuses: int = 0
     eval_hits: int = 0
     eval_misses: int = 0
     disk_hits: int = 0
@@ -1414,9 +1418,10 @@ class Explorer:
                      ) -> Tuple[object, Dict[str, object], float, float, bool]:
         """A graph-cache miss: the disk tier, else a build.  The array
         engines assemble their ``FrozenGraph`` straight from the trace
-        analysis (``TraceAnalysis.frozen_graph``, equal to freezing
-        ``build_graph``'s output); the reference engine builds the
-        ``TaskGraph`` it walks."""
+        analysis (``TraceAnalysis.assemble``, equal to freezing
+        ``build_graph``'s output; ``graph_path_reuses`` counts the builds
+        whose longest paths it did not walk again); the reference engine
+        builds the ``TaskGraph`` it walks."""
         text = None
         if self._disk is not None:
             text = self._graph_disk_text(key)
@@ -1431,8 +1436,11 @@ class Explorer:
             with self._lock:
                 self.stats.disk_misses += 1
         if self.fast:
-            fg = self._trace_analysis().frozen_graph(
+            fg, reused = self._trace_analysis().assemble(
                 cand.system, self.reports, cand.eligibility)
+            if reused:
+                with self._lock:
+                    self.stats.graph_path_reuses += 1
             entry = (fg, fg.stats, fg.critical_path_s, fg.lower_bound_s)
         else:
             g = build_graph(self.trace, cand.system, self.reports,

@@ -7,7 +7,9 @@ every graph key of the paper's Cholesky with the Fig. 9 kinds and of the
 matmul, on random traces, and in the two errors ``build_graph`` raises.
 An ``Explorer`` builds one analysis, on its first graph miss, and shares
 it with no other; each miss is one ``graph.build`` span inside
-``sweep.prepare``.
+``sweep.prepare``.  A structure walks its two longest paths once per
+distinct row-cost vector, and ``CacheStats.graph_path_reuses`` counts the
+builds that took them from its memo.
 """
 import dataclasses
 import gc
@@ -23,11 +25,12 @@ from repro_torch import tracing
 from repro_torch.apps import cholesky as ch
 from repro_torch.apps import matmul as mm
 from repro_torch.core import a9_smp_seconds
-from repro_torch.core.augment import Eligibility, TraceAnalysis, build_graph
+from repro_torch.core.augment import (Eligibility, TraceAnalysis,
+                                      build_graph, lower_bound_cost)
 from repro_torch.core.devices import zynq_system
 from repro_torch.core.diskcache import DiskCache
 from repro_torch.core.fastsim import FrozenGraph
-from repro_torch.core.hlsreport import KernelReport
+from repro_torch.core.hlsreport import HLSSynthesisModel, KernelReport
 from repro_torch.core.trace import Trace, TraceEvent
 
 explore_mod = importlib.import_module("repro_torch.core.explore")
@@ -194,6 +197,47 @@ def test_random_traces_equal_the_definition(case, smp_model, scale):
     assert_same_graph(direct, ref)
 
 
+@st.composite
+def odd_smp_case(draw):
+    """A random case whose SMP model gives some events NaN, inf or −inf
+    seconds, and in half the cases raises on some others."""
+    trace, reports, system, elig = draw(random_case())
+    modes = ["flops", "nan", "inf", "-inf"]
+    if draw(st.booleans()):
+        modes.append("raise")
+    modes = draw(st.lists(st.sampled_from(modes), min_size=len(trace.events),
+                          max_size=len(trace.events)))
+
+    def fn(ev):
+        mode = modes[ev.index]
+        if mode == "raise":
+            raise ArithmeticError(f"no model for event {ev.index}")
+        return flops_seconds(ev) if mode == "flops" else float(mode)
+
+    return trace, reports, system, elig, fn
+
+
+@hypothesis.given(odd_smp_case())
+@hypothesis.settings(deadline=None, max_examples=120)
+def test_odd_smp_models_equal_the_definition(case):
+    """NaN and infinite SMP costs, and a model that raises on some events
+    only: the payload equals the definition's, longest paths included, or
+    the same exception is raised."""
+    trace, reports, system, elig, fn = case
+    try:
+        ref = FrozenGraph.freeze(build_graph(trace, system, reports, elig,
+                                             smp_seconds_fn=fn))
+    except ArithmeticError as want:
+        with pytest.raises(ArithmeticError) as got:
+            TraceAnalysis(trace, smp_seconds_fn=fn).frozen_graph(
+                system, reports, elig)
+        assert str(got.value) == str(want)
+        return
+    direct = TraceAnalysis(trace, smp_seconds_fn=fn).frozen_graph(
+        system, reports, elig)
+    assert_same_graph(direct, ref)
+
+
 # ---------------------------------------------------------------------------
 # the errors of build_graph
 # ---------------------------------------------------------------------------
@@ -231,6 +275,90 @@ def test_errors_equal_the_definition(cholesky_trace, case):
     with pytest.raises(want.type) as again:
         an.frozen_graph(system, reports, elig)
     assert again.value is not got.value
+
+
+# ---------------------------------------------------------------------------
+# the longest paths, once per cost vector
+# ---------------------------------------------------------------------------
+
+MATMUL_UNROLLS = {"fpga:mxm64": 64, "fpga:mxm64r32": 32, "fpga:mxm64r16": 16}
+
+
+def matmul_space():
+    """The paper's matmul at n 512, bs 64 (3,584 rows) under every set of
+    three unrolls of the 64-block kernel, with and without the SMP: 14
+    graph keys of one structure."""
+    hls = HLSSynthesisModel()
+    reports = {("mxm_block", kind): hls.matmul_block(64, unroll=u, kind=kind)
+               for kind, u in MATMUL_UNROLLS.items()}
+    cands = []
+    for r in range(1, len(MATMUL_UNROLLS) + 1):
+        for design in itertools.combinations(MATMUL_UNROLLS, r):
+            for smp in (True, False):
+                name = "+".join(design) + ("+smp" if smp else "")
+                cands.append(Candidate(
+                    name=name, system=zynq_system(name,
+                                                  dict.fromkeys(design, 1)),
+                    eligibility=Eligibility(
+                        {"mxm_block": design + (("smp",) if smp else ())})))
+    return mm.trace_matmul(n=512, bs=64), reports, cands, \
+        a9_smp_seconds("float32")
+
+
+def fig9_space(trace):
+    reports, keys = cholesky_keys()
+    cands = [Candidate(name=f"key{i}", system=system, eligibility=elig)
+             for i, (system, elig) in enumerate(keys)]
+    return trace, reports, cands, a9_smp_seconds("float64")
+
+
+@pytest.mark.parametrize("app", ["matmul", "cholesky"])
+def test_path_memo_is_exact(app, cholesky_trace):
+    """Every graph key of the space is built once by an Explorer: each
+    payload equals the definition, and the builds whose longest paths came
+    from the memo are the keys less the distinct (structure, row costs,
+    row lower-bound costs) the definition's graphs hold."""
+    trace, reports, cands, fn = matmul_space() if app == "matmul" \
+        else fig9_space(cholesky_trace)
+    ex = Explorer(trace, reports, engine="batch", smp_seconds_fn=fn)
+    assert ex.stats.graph_path_reuses == 0
+    ex.explore(cands, top_k=3)
+    keys = {explore_mod._graph_key(c.system, c.eligibility): c
+            for c in cands}
+    assert ex.stats.graph_misses == len(keys) == len(cands)
+    triples = set()
+    for key, c in keys.items():
+        g = build_graph(trace, c.system, reports, c.eligibility,
+                        smp_cost="mean", smp_seconds_fn=fn)
+        ref = FrozenGraph.freeze(g)
+        assert_same_graph(ex._graphs[key][0], ref)
+        triples.add(((ref.names, ref.cond.tobytes(),
+                      ref.succ_indptr.tobytes(), ref.succ_rows.tobytes()),
+                     tuple(min(t.costs.values()) for t in g.tasks.values()),
+                     tuple(lower_bound_cost(t) for t in g.tasks.values())))
+    assert ex.stats.graph_path_reuses == len(keys) - len(triples) > 0
+    if app == "matmul":         # the fastest kind present sets each row
+        assert len(triples) == 3
+
+
+def test_other_costs_of_one_structure_walk_other_paths():
+    """Two keys of one structure whose rows cost differently: neither
+    takes the other's longest paths."""
+    trace, reports, cands, fn = matmul_space()
+    fast, slow = (next(c for c in cands if c.name == name)
+                  for name in ("fpga:mxm64", "fpga:mxm64r16"))
+    an = TraceAnalysis(trace, smp_cost="mean", smp_seconds_fn=fn)
+    got = [an.assemble(c.system, reports, c.eligibility) for c in
+           (fast, slow, fast)]
+    assert len(an._structures) == 1
+    assert [reused for _, reused in got] == [False, False, True]
+    assert got[0][0].critical_path_s < got[1][0].critical_path_s
+    assert got[0][0].lower_bound_s < got[1][0].lower_bound_s
+    assert got[2][0].critical_path_s == got[0][0].critical_path_s
+    for c, (fg, _) in zip((fast, slow), got):
+        assert_same_graph(fg, FrozenGraph.freeze(build_graph(
+            trace, c.system, reports, c.eligibility, smp_cost="mean",
+            smp_seconds_fn=fn)))
 
 
 # ---------------------------------------------------------------------------
@@ -277,14 +405,22 @@ def test_one_analysis_per_explorer(sweep_case, monkeypatch):
     cands = sweep_case[2]
     first = explorer(sweep_case)
     first.explore(cands, top_k=3)
+    reuses = first.stats.graph_path_reuses
+    assert 0 < reuses < 12
     first.explore(cands, top_k=3)
     assert len(made) == 1 and first.stats.graph_misses == 12
+    assert first.stats.graph_path_reuses == reuses    # hits build nothing
     second = explorer(sweep_case)
+    assert second.stats.graph_path_reuses == 0
     second.explore(cands, top_k=3)
-    # nothing carried over: the second builds its own, and every graph
+    # nothing carried over: the second builds its own, and every graph,
+    # and walks every longest path the first walked
     assert len(made) == 2 and made[0] is not made[1]
     assert second.stats.graph_misses == first.stats.graph_misses
     assert second.stats.graph_hits == len(cands) - 12
+    assert second.stats.graph_path_reuses == reuses
+    assert not {id(x) for x in made[0]._structures.values()} & \
+        {id(x) for x in made[1]._structures.values()}
 
 
 @pytest.mark.parametrize("engine,prune", [("batch", False), ("batch", True),
