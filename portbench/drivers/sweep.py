@@ -4,11 +4,15 @@ space of the configuration in an order drawn from the seed.
 
 Traffic keys: ``library`` (``"warm"``: every sweep shares one order
 library, filled in set-up; ``"cold"``: each sweep starts from an empty
-one), ``top_k``, ``warmup_sweeps``, and ``min_lockstep_share``: the
-percentage of a sweep's candidates that the replay protocol has to finish
-in lockstep on the card (``batch_stats.lockstep_lanes``).  A sweep below
-it is failed: the cell measures the card's step loop, and lanes moved to
-the host's exact path would no longer be measured there.
+one), ``top_k``, ``prune`` (false where absent: ``explore(prune=True)``,
+the branch-and-bound top-k sweep), ``warmup_sweeps``, and
+``min_lockstep_share``: the percentage of a sweep's candidates that the
+replay protocol has to finish in lockstep on the card
+(``batch_stats.lockstep_lanes``).  A sweep below it is failed: the cell
+measures the card's step loop, and lanes moved to the host's exact path
+would no longer be measured there.  A sweep with an outcome neither
+``ok`` nor, under ``prune``, ``pruned`` is failed too; a pruned sweep's
+answer carries ``top_k`` and the names it reported ``pruned``.
 """
 from __future__ import annotations
 
@@ -48,13 +52,17 @@ def sweep(ctx, order: List[int], t_origin: float,
                       device=ctx.device, smp_seconds_fn=ctx.smp_fn,
                       order_library=lib,
                       budget=ctx.config["fabric_budget"])
+        prune = ctx.traffic.get("prune", False)
         res = ex.explore([ctx.cands[i] for i in order],
-                         top_k=ctx.traffic["top_k"])
+                         top_k=ctx.traffic["top_k"], prune=prune)
         ranked = res.ranked
         ans["makespans"] = {o.name: o.makespan_s for o in ranked}
         ans["ranked"] = [o.name for o in ranked]
         ans["batch_stats"] = ex.batch_stats.as_dict()
-        bad = [o.name for o in res.outcomes if o.status != "ok"]
+        if prune:
+            ans["top_k"], ans["pruned"] = ctx.traffic["top_k"], res.pruned
+        done = ("ok", "pruned") if prune else ("ok",)
+        bad = [o.name for o in res.outcomes if o.status not in done]
         share = 100.0 * ans["batch_stats"]["lockstep_lanes"] / len(order)
         ans["ok"] = not bad and ex.engine == "torch" \
             and share >= (ctx.traffic["min_lockstep_share"]

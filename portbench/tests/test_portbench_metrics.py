@@ -118,7 +118,7 @@ def test_a_sweep_below_its_lockstep_share_fails(need, ok, monkeypatch):
         def __init__(self, *a, **kw):
             self.batch_stats = Stats()
 
-        def explore(self, cands, top_k):
+        def explore(self, cands, top_k, prune=False):
             outs = [SimpleNamespace(name=str(c), makespan_s=1.0,
                                     status="ok") for c in cands]
             return SimpleNamespace(ranked=outs, outcomes=outs)
